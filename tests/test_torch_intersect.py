@@ -269,3 +269,169 @@ def test_no_fallback_off_the_cpu():
     o = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ap.closest_tuv(tp, o, o)
+
+
+# --- guide rows (K2 with a 32-row pack) and any hit (K3) -------------------
+
+
+def _guide_table(n_prims, seed=5):
+    return np.random.default_rng(seed).random((n_prims, 16), np.float32)
+
+
+def test_pack_attributes_with_guide_rows_bitwise(case):
+    name, jg, tg, o, d = case
+    table = _guide_table(tg.num_prims)
+    want = np.asarray(ip.pack_attributes(jg, guide_table=table))
+    got = ap.pack_attributes(tg, guide_table=torch.from_numpy(table)).numpy()
+    assert got.shape == want.shape == (32, ap._tri_pad(tg.num_tris))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ap.pack_prim_ids(tg).numpy(),
+                                  np.asarray(ip.pack_prim_ids(jg))[:, 0])
+
+
+def test_closest_record_guide_plain_vs_pallas(case):
+    """The 27-row record against pallas_closest_record on the same
+    32-row pack, with the same bar as the 11-row one."""
+    name, jg, tg, o, d = case
+    table = _guide_table(tg.num_prims)
+    t_w, i_w, a_w = (np.asarray(x) for x in ip.pallas_closest_record(
+        ip.pack_triangles(jg), ip.pack_attributes(jg, guide_table=table),
+        jnp.asarray(o), jnp.asarray(d)))
+    tp = ap.pack_triangles(tg)
+    t_g, i_g, a_g = (x.numpy() for x in ap.closest_record_plain(
+        tp, ap.pack_attributes(tg, guide_table=table), torch.from_numpy(o),
+        torch.from_numpy(d)))
+    assert a_g.shape == a_w.shape == (27, 2 * N_RAYS)
+    tol = _t_tol(tg, o, d, i_w, t_w)
+    _assert_t_close(t_g, t_w, tol)
+    same = i_g == i_w
+    assert (same | _near_tie(tg, o, d, tol)).all()
+    np.testing.assert_array_equal(a_g[:, same], a_w[:, same])
+    # the guide rows are the hit primitive's table row, zero on a miss
+    hit = np.isfinite(t_g)
+    np.testing.assert_array_equal(a_g[11:, hit].T,
+                                  table[a_g[10, hit].astype(np.int64)])
+    assert (a_g[11:, ~hit] == 0).all()
+    h = ap.closest_hit(tg, tp, torch.from_numpy(o), torch.from_numpy(d),
+                       attr_pack=ap.pack_attributes(tg, guide_table=table))
+    np.testing.assert_array_equal(h.guide.numpy(), a_g[11:].T)
+
+
+def _ff_segments(tg, seed=0):
+    """Every (receiver, source) pair of the scene's primitives with a
+    random surface point on each, as the MC form-factor solve builds
+    them: offset 1e-4 along the receiver normal, maxd = r - 2e-4 on
+    facing pairs and 0 elsewhere, both primitives excluded."""
+    from tpu_pathtracer_torch.core.math_utils import dot, length
+    from tpu_pathtracer_torch.render.radiosity import sample_on_corners
+
+    n = tg.num_prims
+    u = torch.from_numpy(
+        np.random.default_rng(seed).random((4, n, n), np.float32))
+    ni, nj = tg.normal[:, None], tg.normal[None]
+    p_i = sample_on_corners(tg.corners[:, None], u[0], u[1])
+    p_j = sample_on_corners(tg.corners[None], u[2], u[3])
+    seg = p_j - p_i
+    r = length(seg)
+    sd = seg / r.clamp(min=1e-20)[..., None]
+    active = (r >= 1e-6) & (dot(ni, sd) > 0) & (-dot(nj, sd) > 0)
+    ids = torch.arange(n, dtype=torch.int32)
+    return ((p_i + ni * 1e-4).reshape(-1, 3), sd.reshape(-1, 3),
+            torch.where(active, r - 2e-4, 0.0).reshape(-1),
+            ids[:, None].expand(n, n).reshape(-1),
+            ids[None, :].expand(n, n).reshape(-1))
+
+
+@pytest.fixture(scope="module")
+def ff_case():
+    """4096 form-factor segments of the subdivided (64-primitive) box,
+    built by the JAX package and moved into the port."""
+    jg = jmesh.subdivide(jbuiltin.cornell_box("quads"), 1).build()
+    tg = tmesh.geometry_from_arrays(
+        {f.name: np.asarray(getattr(jg, f.name))
+         for f in dataclasses.fields(jg)}, "cpu")
+    return jg, tg, _ff_segments(tg)
+
+
+def test_occluded_plain_vs_pallas(ff_case):
+    """occluded_plain against pallas_occluded in interpret mode: the same
+    affine arithmetic, but XLA on the CPU contracts FMAs, so a segment
+    whose end or edge crossing lies within rounding of a triangle may
+    flip. Bar: at most 4 of the 4096 lanes differ (none differed when the
+    bar was set), none of them with maxd = 0."""
+    jg, tg, seg = ff_case
+    o, d, maxd, ea, eb = seg
+    assert o.shape[0] == 4096 and (maxd == 0).float().mean() > 0.4
+    want = np.asarray(ip.pallas_occluded(
+        ip.pack_triangles(jg), ip.pack_prim_ids(jg),
+        *(jnp.asarray(x.numpy()) for x in seg)))
+    got = ap.occluded_plain(ap.pack_triangles(tg), ap.pack_prim_ids(tg),
+                            *seg).numpy()
+    assert want.any() and (~want).any()
+    diff = got != want
+    assert diff.sum() <= 4, np.nonzero(diff)
+    assert not (diff & (maxd.numpy() == 0)).any()
+    assert not got[maxd.numpy() == 0].any()
+
+
+def test_brute_occluded_vs_jax(ff_case):
+    jg, tg, seg = ff_case
+    o, d, maxd, ea, eb = seg
+    want = np.asarray(jintersect.occluded(
+        jg, *(jnp.asarray(x.numpy()) for x in (o, d, maxd)),
+        exclude_a=jnp.asarray(ea.numpy()), exclude_b=jnp.asarray(eb.numpy())))
+    got = tintersect.occluded(tg, o, d, maxd, ea, eb).numpy()
+    assert want.sum() > 50
+    assert (got != want).sum() <= 4      # knife edges, as above; 0 seen
+    # without exclusions every segment from a surface is blocked by its own
+    # primitive or passes only where t <= 1e-5
+    none = tintersect.occluded(tg, o, d, maxd).numpy()
+    assert (none | ~got).all()
+
+
+def test_occluded_exclusions_and_padding():
+    """A segment through one quad: blocked unless that quad's primitive is
+    excluded (by either id); padding rows (prim -2) never block."""
+    jg = jbuiltin.cornell_box("quads").build()
+    tg = tmesh.geometry_from_arrays(
+        {f.name: np.asarray(getattr(jg, f.name))
+         for f in dataclasses.fields(jg)}, "cpu")
+    tp, pp = ap.pack_triangles(tg), ap.pack_prim_ids(tg)
+    assert tp.shape[0] == pp.shape[0] == 32 and (pp >= 0).all()
+    o = torch.tensor([[2.0, 2.5, -1.0]] * 5)
+    d = torch.tensor([[0.0, 1.0, 0.0]] * 5)            # up, to the ceiling
+    maxd = torch.tensor([10.0, 10.0, 10.0, 1.0, 0.0])
+    up = tintersect.closest_hit(tg, o[:1], d[:1])
+    ceiling = int(up.prim[0])
+    ex_a = torch.tensor([-1, ceiling, -1, -1, -1])
+    ex_b = torch.tensor([-1, -1, ceiling, -1, -1])
+    got = ap.occluded(tp, pp, o, d, maxd, ex_a, ex_b)
+    assert got.tolist() == [True, False, False, False, False]
+    wide = ap.pack_prim_ids(tmesh.geometry_from_arrays(
+        {f.name: np.asarray(getattr(jmesh.subdivide(
+            jbuiltin.cornell_box("quads"), 1).build(), f.name))
+         for f in dataclasses.fields(jg)}, "cpu"))
+    assert wide.dtype == torch.int32 and wide.shape == (128,)
+
+
+def test_occluded_cpu_takes_plain_version_without_launch(ff_case):
+    _, tg, seg = ff_case
+    tp, pp = ap.pack_triangles(tg), ap.pack_prim_ids(tg)
+    before = (ap.occluded.launches, ap.closest_record.guide_launches)
+    a = ap.occluded(tp, pp, *seg)
+    assert torch.equal(a, ap.occluded_plain(tp, pp, *seg))
+    assert (ap.occluded.launches, ap.closest_record.guide_launches) == before
+
+
+def test_occluded_validates_and_has_no_fallback():
+    tp = torch.zeros((8, 16))
+    pp = torch.full((8,), -2, dtype=torch.int32)
+    o = torch.zeros((4, 3))
+    m, e = torch.ones(4), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ap.occluded(tp, pp.long(), o, o, m, e, e)
+    with pytest.raises(ValueError):
+        ap.occluded(tp, pp, o, o, torch.ones(3), e, e)
+    meta = [x.to("meta") for x in (tp, pp, o, o, m, e, e)]
+    with pytest.raises(ValueError, match="no kernel"):
+        ap.occluded(*meta)

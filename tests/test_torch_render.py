@@ -1,5 +1,6 @@
-"""The port's main path end to end on the CPU: goldens, layout
-invariances, the film format, and the options it does not port yet."""
+"""The port's paths end to end on the CPU: goldens (path tracing, guided
+MIS and the radiosity view), layout invariances, the film and checkpoint
+formats, and the options it does not port yet."""
 
 import dataclasses
 import os
@@ -19,6 +20,13 @@ from tpu_pathtracer_torch.app import App
 from tpu_pathtracer_torch.cli import main as cli_main
 from tpu_pathtracer_torch.core import math_utils as tmath
 from tpu_pathtracer_torch.core import rng
+from tpu_pathtracer_torch.core.constants import (
+    SAMPLING_BSDF,
+    SAMPLING_FORMFACTOR,
+    SAMPLING_MIS,
+    SAMPLING_RADIOSITY,
+    SAMPLING_TOPK,
+)
 from tpu_pathtracer_torch.ops import intersect_allpairs as ap
 from tpu_pathtracer_torch.ops import tonemap as ttonemap
 from tpu_pathtracer_torch.render import film as tfilm
@@ -38,26 +46,36 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("backend", ["auto", "pallas"])
-@pytest.mark.parametrize("name", ["cbox_bsdf", "cbox_mirror"])
+@pytest.mark.parametrize("name", ["cbox_bsdf", "cbox_mirror", "cbox_mis",
+                                  "cbox_radiosity_view"])
 def test_slice_matches_golden(name, backend):
     """The port's App on the CPU against the JAX package's goldens, with
     the golden gate's bar (relative RMSE < 0.01). "auto" is the brute
-    backend here, "pallas" the plain K2. Not bitwise: the films agree to
-    a relative RMSE of ~5e-9, with ~99% of values bitwise equal (XLA on
-    the CPU contracts FMAs and has its own sin/cos/sqrt)."""
+    backend here, "pallas" the plain K2 (with guide rows in cbox_mis) and
+    K3. Not bitwise: the films agree to a relative RMSE of ~1e-8 (XLA on
+    the CPU contracts FMAs and has its own sin/cos/sqrt); the radiosity
+    view's u8 image is bitwise equal."""
     cfg = Config(backend=backend, **CONFIGS[name])
     app = App(cfg, device="cpu")
-    r = app.renderer()
-    assert (r.tri_pack is not None) == (backend == "pallas")
-    r.render(cfg.spp)
-    got = r.film.mean_radiance().numpy()
+    if cfg.integrator == "radiosity":
+        got = app.render().astype(np.float32)
+        assert app.solution is not None and app.cdfs is None
+    else:
+        r = app.renderer()
+        r.render(cfg.spp)
+        got = r.film.mean_radiance().numpy()
+        assert r.total_rays > 0 and r.film.spp == cfg.spp
+        guided = cfg.sampling_mode != "bsdf"
+        assert (r.cdfs is not None) == guided
+        if backend == "pallas":
+            assert r.attr_pack.shape[0] == (32 if guided else 16)
+    assert (app.tri_pack is not None) == (backend == "pallas")
     with np.load(os.path.join(GOLDEN_DIR, f"{name}.npz")) as z:
         want = z["image"]
     assert got.shape == want.shape
     scale = max(float(np.sqrt(np.mean(want.astype(np.float64) ** 2))), 1e-6)
     rel = rmse(got.astype(np.float64), want.astype(np.float64)) / scale
     assert rel < 0.01, f"{name}/{backend}: relative RMSE {rel}"
-    assert r.total_rays > 0 and r.film.spp == cfg.spp
 
 
 def test_chip_smoke_golden_configs_match():
@@ -65,16 +83,19 @@ def test_chip_smoke_golden_configs_match():
         assert kw == CONFIGS[name], name
 
 
-def _renderer(ray_chunk, backend="pallas", size=32, spp=4, mirror=True):
+def _renderer(ray_chunk, backend="pallas", size=32, spp=4, mirror=True,
+              mode=SAMPLING_BSDF, cdfs=None):
     geom = cornell_box("quads", mirror_tall_box=mirror).build("cpu")
     cam = CameraController.default().build("cpu")
     s = RenderSettings(width=size, height=size, max_depth=5,
-                       spp_per_pass=spp, ray_chunk=ray_chunk)
+                       spp_per_pass=spp, ray_chunk=ray_chunk,
+                       sampling_mode=mode)
     packs = {}
     if backend == "pallas":
         packs = dict(tri_pack=ap.pack_triangles(geom),
                      attr_pack=ap.pack_attributes(geom))
-    return ProgressiveRenderer(geom, cam, s, device="cpu", seed=11, **packs)
+    return ProgressiveRenderer(geom, cam, s, device="cpu", seed=11,
+                               cdfs=cdfs, **packs)
 
 
 @pytest.mark.parametrize("backend", ["brute", "pallas"])
@@ -88,6 +109,36 @@ def test_film_bitwise_invariant_to_ray_chunk(backend):
         rays.append(r.total_rays)
     assert torch.equal(films[0], films[1])
     assert rays[0] == rays[1] > 0
+
+
+@pytest.fixture(scope="module")
+def small_cdfs():
+    """CDFs of a small solve of the mirror box (2 MC samples)."""
+    from tpu_pathtracer_torch.ops.guiding import build_cdfs_from_radiosity_grid
+    from tpu_pathtracer_torch.render.radiosity import solve_radiosity
+
+    geom = cornell_box("quads", mirror_tall_box=True).build("cpu")
+    sol = solve_radiosity(geom, num_iterations=3, mc_samples=2)
+    return build_cdfs_from_radiosity_grid(sol.rad_grid)
+
+
+@pytest.mark.parametrize("backend", ["brute", "pallas"])
+def test_mis_film_bitwise_invariant_to_ray_chunk(backend, small_cdfs):
+    """Guided MIS draws 6 uniforms a bounce, keyed like BSDF mode's: the
+    film is bitwise the same in one batch or in four ragged ones, through
+    K2 with guide rows (pallas) or the brute intersector."""
+    films, rays = [], []
+    for chunk in (1024, 300):
+        r = _renderer(chunk, backend, mode=SAMPLING_MIS, cdfs=small_cdfs)
+        assert r.attr_pack is None or r.attr_pack.shape[0] == 32
+        r.step()
+        films.append(r.film.accum)
+        rays.append(r.total_rays)
+    assert torch.equal(films[0], films[1])
+    assert rays[0] == rays[1] > 0
+    bsdf = _renderer(1024, backend)
+    bsdf.step()
+    assert not torch.equal(bsdf.film.accum, films[0])
 
 
 def test_film_bitwise_invariant_to_alive_check():
@@ -175,11 +226,11 @@ def test_cosine_sample_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(nee=True),
-    dict(sampling_mode="mis"),
-    dict(sampling_mode="radiosity"),
+    dict(nee=True, sampling_mode="mis"),
+    dict(radiosity_solver="shooting"),
     dict(backend="culled"),
     dict(backend="bvh"),
-    dict(integrator="radiosity"),
+    dict(radiosity_solver="shooting", integrator="radiosity"),
     dict(sort_rays=True),
     dict(balance_lanes=4),
     dict(num_tiles=2),
@@ -189,9 +240,45 @@ def test_unported_config_raises(kw):
         App(Config(**kw), device="cpu")
 
 
+_SMALL = dict(width=16, height=12, spp=2, max_depth=3, mc_samples=2,
+              radiosity_iterations=2, ray_chunk=100)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sampling_mode="mis"),
+    dict(sampling_mode="radiosity"),
+    dict(sampling_mode="formfactor"),
+    dict(sampling_mode="topk", top_k=8),
+    dict(sampling_mode="mis", backend="pallas", mis_bsdf_fraction=0.3),
+    dict(sampling_mode="radiosity", cdf_source="filtered_radiosity",
+         enable_grid_filtering=True, use_monte_carlo=False),
+    dict(sampling_mode="formfactor", cdf_source="filtered_formfactor",
+         use_bilateral=False, subdivision=1),
+    dict(integrator="radiosity"),
+])
+def test_guided_and_radiosity_configs_render(kw):
+    """Each guided mode (formfactor defaults its CDFs to the count grid,
+    topk masks them), the filtered CDF sources, in-loop filtering, the
+    analytic form factors and the radiosity view render on the CPU."""
+    app = App(Config(**{**_SMALL, **kw}), device="cpu")
+    img = app.render()
+    assert img.shape == (12, 16, 3) and img.dtype == np.uint8
+    assert img.max() > 0 and app.solution is not None
+    cfg = app.config
+    if cfg.integrator == "radiosity":
+        assert app.cdfs is None
+        return
+    assert app.cdfs.valid.any()
+    if cfg.sampling_mode == "formfactor":
+        assert cfg.cdf_source.endswith("formfactor")
+    if cfg.sampling_mode == "topk":
+        assert ((app.cdfs.pdf > 0).sum(dim=1) <= 8 + 16).all()
+    if cfg.cdf_source.startswith("filtered"):
+        assert app.filtered_radiosity.shape == (app.geom.num_prims, 256)
+
+
 @pytest.mark.parametrize("kw", [
     dict(nee=True),
-    dict(sampling_mode=3),
     dict(wavefront=False),
     dict(sort_rays=True),
     dict(balance_lanes=2),
@@ -199,6 +286,40 @@ def test_unported_config_raises(kw):
 def test_unported_render_settings_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderSettings(**kw)
+
+
+@pytest.mark.parametrize("mode", [SAMPLING_FORMFACTOR, SAMPLING_RADIOSITY,
+                                  SAMPLING_MIS, SAMPLING_TOPK])
+def test_guided_render_settings_need_cdfs(mode, small_cdfs):
+    s = RenderSettings(sampling_mode=mode, width=8, height=8)
+    geom = cornell_box("quads").build("cpu")
+    cam = CameraController.default().build("cpu")
+    with pytest.raises(ValueError, match="CDFPack"):
+        ProgressiveRenderer(geom, cam, s, device="cpu").step()
+    r = ProgressiveRenderer(geom, cam, s, device="cpu", cdfs=small_cdfs)
+    r.step()
+    assert r.film.spp == 1 and torch.isfinite(r.film.accum).all()
+
+
+def test_auto_solver_above_16384_primitives_raises():
+    app = App(Config(subdivision=6, backend="brute",
+                     sampling_mode="mis"), device="cpu")
+    app.load_scene()                       # 65,536 primitives
+    with pytest.raises(NotImplementedError, match="ROADMAP.*17b"):
+        app.run_solver()
+
+
+def test_radiosity_view_and_pick():
+    """The view's u8 image from a solution, the history delta image (zero
+    for equal steps), and picking the primitive under a screen point."""
+    app = App(Config(**{**_SMALL, "integrator": "radiosity"}), device="cpu")
+    img = app.render()
+    assert img.mean() > 10
+    assert app.render_history_delta(0, 0).max() == 0
+    assert app.render_history_delta(0, 1, boost=4.0).max() > 0
+    ceiling = app.pick(0.5, 0.99)
+    assert ceiling >= 0 and app.geom.normal[ceiling, 1] < 0
+    assert app.pick(0.5, 0.5) != ceiling
 
 
 def test_auto_backend_on_cpu_is_brute_up_to_2048_triangles():
@@ -225,13 +346,70 @@ def test_unported_scenes_raise():
             app.load_scene()
 
 
-@pytest.mark.parametrize("flag", [
-    ["--kernel-profile"], ["--history-delta", "1", "2"],
-    ["--resume", "x.npz"], ["--profile"],
-])
+@pytest.mark.parametrize("flag", [["--kernel-profile"], ["--profile"]])
 def test_unported_cli_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_main(["--device", "cpu", *flag])
+
+
+_CLI_SMALL = ["--device", "cpu", "--width", "16", "--height", "12",
+              "--spp", "2", "--max-depth", "3", "--mc-samples", "2",
+              "--radiosity-iterations", "3"]
+
+
+def test_cli_history_delta(tmp_path):
+    out = tmp_path / "delta.png"
+    assert cli_main([*_CLI_SMALL, "--history-delta", "0", "2",
+                     "--delta-boost", "3", "--out", str(out)]) == 0
+    img = read_png(str(out))
+    assert img.shape == (12, 16, 3) and img.max() > 0
+
+
+def test_cli_resume_from_checkpoint(tmp_path):
+    """A guided render saved with --checkpoint resumes with --resume: the
+    film carries on from the saved samples (the JAX CLI's semantics: the
+    renderer then adds --spp more)."""
+    ckpt, out = tmp_path / "c.npz", tmp_path / "o.png"
+    args = [*_CLI_SMALL, "--sampling-mode", "mis"]
+    assert cli_main([*args, "--out", str(out), "--checkpoint",
+                     str(ckpt)]) == 0
+    with np.load(str(ckpt)) as z:
+        assert int(z["film_spp"]) == 2 and z["rad_grid"].shape == (16, 256, 3)
+    assert cli_main([*args, "--resume", str(ckpt), "--out", str(out),
+                     "--checkpoint", str(ckpt)]) == 0
+    with np.load(str(ckpt)) as z:
+        assert int(z["film_spp"]) == 4 and int(z["film_passes"]) == 2
+
+
+def test_checkpoints_cross_between_packages(tmp_path):
+    """A checkpoint the JAX App writes loads in the port's App and back,
+    under the same npz keys: film and radiosity solution arrays intact."""
+    from tpu_pathtracer.app import App as JApp
+    from tpu_pathtracer.utils.config import Config as JConfig
+
+    kw = dict(_SMALL, sampling_mode="mis")
+    japp = JApp(JConfig(**kw))
+    japp.run_solver()
+    japp.save_checkpoint(str(tmp_path / "jax.npz"))
+    app = App(Config(**kw), device="cpu")
+    app.prepare()
+    app.render()
+    app.load_checkpoint(str(tmp_path / "jax.npz"))
+    for k in ("radiosity", "unshot", "rad_grid", "grid_counts",
+              "form_factors"):
+        np.testing.assert_array_equal(getattr(app.solution, k).numpy(),
+                                      np.asarray(getattr(japp.solution, k)))
+    assert app.renderer().film.spp == 2
+
+    app.save_checkpoint(str(tmp_path / "torch.npz"))
+    back = JApp(JConfig(**kw))
+    back.prepare()
+    back.load_checkpoint(str(tmp_path / "torch.npz"))
+    np.testing.assert_array_equal(np.asarray(back.solution.rad_grid),
+                                  app.solution.rad_grid.numpy())
+    np.testing.assert_array_equal(np.asarray(back.renderer().film.accum),
+                                  app.renderer().film.accum.numpy())
+    assert int(back.renderer().film.spp) == 2
 
 
 def test_cli_renders_png_and_checkpoint(tmp_path):
@@ -258,8 +436,9 @@ def test_package_imports_without_jax():
     module of the package still imports."""
     mods = ["tpu_pathtracer_torch." + m for m in (
         "app", "cli", "core.rng", "core.math_utils", "core.constants",
-        "ops.intersect", "ops.intersect_allpairs", "ops.tonemap",
-        "render.camera", "render.film", "render.integrator",
+        "ops.filters", "ops.guiding", "ops.intersect",
+        "ops.intersect_allpairs", "ops.tonemap", "render.camera",
+        "render.film", "render.integrator", "render.radiosity",
         "render.renderer", "scene.builtin", "scene.mesh",
         "utils.config", "utils.cuda_build", "utils.logger", "utils.png",
     )]

@@ -87,3 +87,36 @@ def test_sub_ids_limit():
     with pytest.raises(ValueError):
         trng.lane_uniforms((0, 1), torch.arange(4), 513,
                            sub_ids=torch.zeros(4, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("path", KEY_PATHS)
+@pytest.mark.parametrize("shape", [(4, 16, 64), (7,), (3, 5), (4, 1, 33)])
+def test_uniform_bitwise(path, shape):
+    """rng.uniform is jax.random.uniform (threefry partitionable) bit for
+    bit, on the key chains the solver and the radiosity view use."""
+    jk, tk = _keys(*path)
+    want = np.asarray(jax.random.uniform(jk, shape))
+    got = trng.uniform(tk, shape, "cpu").numpy()
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_uniform_integer_keys_need_a_device():
+    """Integer key words carry no device, so uniform refuses to pick one."""
+    with pytest.raises(ValueError, match="needs a device"):
+        trng.uniform(trng.base_key(3), (2, 4))
+
+
+def test_uniform_with_tensor_keys_draws_per_key():
+    """fold_in with tensor data gives one key per element, and uniform
+    with those keys draws each key's block as a separate call would."""
+    jk, tk = _keys(*KEY_PATHS[4])
+    chunks = torch.tensor([0, 3, 2**31 - 1, 17])
+    keys = trng.fold_in(tk, chunks)
+    got = trng.uniform(trng.fold_in(keys, 5), (4, 2, 9))
+    assert got.shape == (4, 4, 2, 9)
+    for i, c in enumerate(chunks.tolist()):
+        want = np.asarray(jax.random.uniform(
+            jax.random.fold_in(jax.random.fold_in(jk, c), 5), (4, 2, 9)))
+        np.testing.assert_array_equal(got[i].numpy(), want)
+        assert trng.fold_in(tk, c) == (int(keys[0][i]), int(keys[1][i]))

@@ -1,13 +1,17 @@
 """Command-line interface.
 
 Counterpart: `tpu_pathtracer/cli.py`: every Config field is a flag, with
-`--out`, `--checkpoint` and `--config-json`, plus `--device` (default
-cuda). Flags of actions this package does not port yet are accepted and
-raise NotImplementedError.
+`--out`, `--checkpoint`, `--resume`, `--history-delta` and
+`--config-json`, plus `--device` (default cuda). Flags of actions this
+package does not port yet are accepted and raise NotImplementedError.
 
-Example:
+Examples:
     python -m tpu_pathtracer_torch.cli --scene cbox_quads --width 512 \
         --height 512 --spp 64 --out cbox.png
+    python -m tpu_pathtracer_torch.cli --subdivision 3 --sampling-mode mis \
+        --width 1024 --height 1024 --spp 16 --out mis.png
+    python -m tpu_pathtracer_torch.cli --subdivision 3 --integrator \
+        radiosity --width 1024 --height 1024 --out rad.png
 """
 
 from __future__ import annotations
@@ -33,14 +37,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", type=str, default="out.png",
                    help="output PNG path")
     p.add_argument("--checkpoint", type=str, default="",
-                   help="save the film as a checkpoint npz here")
+                   help="save film+radiosity checkpoint npz here")
     p.add_argument("--resume", type=str, default="",
-                   help="resume from a checkpoint npz (not ported yet)")
+                   help="resume from a checkpoint npz")
     p.add_argument("--profile", action="store_true",
                    help="stage-profiler summary (not ported yet)")
     p.add_argument("--history-delta", type=int, nargs=2, metavar=("S1", "S2"),
                    default=None,
-                   help="radiosity-history delta image (not ported yet)")
+                   help="render the radiosity-history delta image "
+                        "|B(S1)-B(S2)| instead of the integrator output")
     p.add_argument("--delta-boost", type=float, default=1.0,
                    help="brightness boost for --history-delta")
     p.add_argument("--kernel-profile", action="store_true",
@@ -52,10 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _UNPORTED_FLAGS = {
-    "resume": "--resume is ROADMAP Queue 1 item 13 (film + radiosity "
-              "checkpoints)",
     "profile": "--profile (the stage profiler) is ROADMAP Queue 1 item 19",
-    "history_delta": "--history-delta is ROADMAP Queue 1 items 13 and 15",
     "kernel_profile": "--kernel-profile is ROADMAP Queue 1 item 19",
 }
 
@@ -87,7 +89,16 @@ def main(argv=None) -> int:
 
     app = App(cfg, device=args.device)
     app.load_scene()
-    app.save_png(args.out, app.render())
+    if args.resume:
+        app.prepare()
+        app.load_checkpoint(args.resume)
+    if args.history_delta is not None:
+        image = app.render_history_delta(
+            args.history_delta[0], args.history_delta[1], args.delta_boost
+        )
+    else:
+        image = app.render()
+    app.save_png(args.out, image)
     if args.checkpoint:
         app.save_checkpoint(args.checkpoint)
     return 0

@@ -1,11 +1,13 @@
 // All-pairs closest-hit kernel for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels of tpu_pathtracer/ops/intersect_pallas.py:
-//   WITH_ATTRS = true   -> _kernel_full (+ _row_closest_full), reached through
-//                          pallas_closest_record: closest hit plus the winner's
-//                          11 shading attributes;
-//   WITH_ATTRS = false  -> _kernel (+ _row_closest), reached through
-//                          pallas_closest_tuv: closest (t, triangle id) only.
+//   N_OUT = 11  -> _kernel_full (+ _row_closest_full), reached through
+//                  pallas_closest_record: closest hit plus the winner's 11
+//                  shading attributes;
+//   N_OUT = 27  -> the same on a guide-augmented (32-row) attribute pack:
+//                  the 11 plus the 16 guided-sampling rows [16:32];
+//   N_OUT = 0   -> _kernel (+ _row_closest), reached through
+//                  pallas_closest_tuv: closest (t, triangle id) only.
 // The Python side is tpu_pathtracer_torch/ops/intersect_allpairs.py, whose
 // closest_tuv_plain / closest_record_plain are the plain torch versions of
 // the same function; the kernel equals them bitwise when built with
@@ -15,8 +17,10 @@
 //
 // Layout. The triangle pack is (tpad, 16) f32 rows [inv (9) | inv @ v0 (3) |
 // pad]; the attribute pack is (16, tpad) f32 rows [n(3) albedo(3)
-// emission(3) material prim pad]; rays are (n, 3) f32 origins and
-// directions; outputs are t (n,) f32, id (n,) i32 and attrs (11, n) f32.
+// emission(3) material prim pad], or (32, tpad) with the guide rows below;
+// rays are (n, 3) f32 origins and directions; outputs are t (n,) f32,
+// id (n,) i32 and attrs (N_OUT, n) f32, output row k being pack row k for
+// k < 11 and pack row k + 5 beyond.
 //
 // What bounds it. The main path's scene is the 32-triangle Cornell box:
 // 32 x 64 B of triangle constants against 24 B of ray and 56 B of output per
@@ -44,9 +48,10 @@ constexpr int kRaysPerBlock = 128;   // one thread per ray
 constexpr int kChunk = 128;          // triangle rows staged per step
 constexpr int kTriCols = 16;         // floats per triangle row
 constexpr int kRowVec = 3;           // float4s read per row (columns 0..11)
-constexpr int kAttrs = 11;           // attribute rows written per ray
+constexpr int kAttrs = 11;           // shading attribute rows of a record
+constexpr int kAttrCols = 16;        // rows of the plain attribute pack
 
-template <bool WITH_ATTRS>
+template <int N_OUT>
 __global__ void __launch_bounds__(kRaysPerBlock)
 closest_hit_kernel(const float* __restrict__ tri, const float* __restrict__ attr,
                    int tpad, const float* __restrict__ o,
@@ -104,20 +109,19 @@ closest_hit_kernel(const float* __restrict__ tri, const float* __restrict__ attr
   if (!active) return;
   t_out[i] = best_t;
   id_out[i] = best_id < 0 ? 0 : best_id;
-  if (WITH_ATTRS) {
 #pragma unroll
-    for (int k = 0; k < kAttrs; ++k) {
-      attr_out[k * n + i] = best_id < 0 ? 0.f : attr[k * tpad + best_id];
-    }
+  for (int k = 0; k < N_OUT; ++k) {
+    const int row = k < kAttrs ? k : k + (kAttrCols - kAttrs);
+    attr_out[k * n + i] = best_id < 0 ? 0.f : attr[row * tpad + best_id];
   }
 }
 
-template <bool WITH_ATTRS>
+template <int N_OUT>
 int launch(const float* tri, const float* attr, int tpad, const float* o,
            const float* d, int n, float t_min, float* t_out, int* id_out,
            float* attr_out, void* stream) {
   const int blocks = (n + kRaysPerBlock - 1) / kRaysPerBlock;
-  closest_hit_kernel<WITH_ATTRS>
+  closest_hit_kernel<N_OUT>
       <<<blocks, kRaysPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           tri, attr, tpad, o, d, n, t_min, t_out, id_out, attr_out);
   return static_cast<int>(cudaGetLastError());
@@ -132,17 +136,25 @@ extern "C" {
 int tpt_closest_tuv(const float* tri, int tpad, const float* o,
                     const float* d, int n, float t_min, float* t_out,
                     int* id_out, void* stream) {
-  return launch<false>(tri, nullptr, tpad, o, d, n, t_min, t_out, id_out,
-                       nullptr, stream);
+  return launch<0>(tri, nullptr, tpad, o, d, n, t_min, t_out, id_out,
+                   nullptr, stream);
 }
 
-// Closest hit plus the winner's 11 attributes (the K2 instance).
+// Closest hit plus the winner's n_out = 11 attributes, or 27 with the guide
+// rows of a 32-row pack (the K2 instances). Any other n_out is refused.
 int tpt_closest_record(const float* tri, const float* attr, int tpad,
-                       const float* o, const float* d, int n, float t_min,
-                       float* t_out, int* id_out, float* attr_out,
-                       void* stream) {
-  return launch<true>(tri, attr, tpad, o, d, n, t_min, t_out, id_out,
-                      attr_out, stream);
+                       int n_out, const float* o, const float* d, int n,
+                       float t_min, float* t_out, int* id_out,
+                       float* attr_out, void* stream) {
+  if (n_out == kAttrs) {
+    return launch<kAttrs>(tri, attr, tpad, o, d, n, t_min, t_out, id_out,
+                          attr_out, stream);
+  }
+  if (n_out == kAttrs + kAttrCols) {
+    return launch<kAttrs + kAttrCols>(tri, attr, tpad, o, d, n, t_min, t_out,
+                                      id_out, attr_out, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* tpt_error_string(int code) {

@@ -1,10 +1,11 @@
 """Brute-force batched ray-scene closest hit: the CPU oracle.
 
 Counterpart: `tpu_pathtracer/ops/intersect.py` (`intersect_tuv`,
-`closest_hit`, `Hit`). Every triangle carries the affine inverse M^-1 of
-[e1 e2 n]; the hit parameter of all (ray, triangle) pairs is elementwise
-work on (B, T) tensors, and the closest hit is an argmin. This is the
-`"brute"` backend and the oracle the all-pairs kernel is tested against.
+`closest_hit`, `occluded`, `Hit`). Every triangle carries the affine
+inverse M^-1 of [e1 e2 n]; the hit parameter of all (ray, triangle) pairs
+is elementwise work on (B, T) tensors, the closest hit is an argmin and
+the any-hit query an any. This is the `"brute"` backend and the oracle the
+all-pairs kernels are tested against.
 
 Semantics: a hit needs u, v >= 0, u + v <= 1, t > 1e-8, t >= t_min and
 t < t_max; the first minimum wins ties; the returned normal is the
@@ -23,6 +24,7 @@ from ..scene.mesh import Geometry
 
 _T_EPS = 1e-8      # Möller-Trumbore epsilon of the reference
 _TRI_BLOCK = 4096  # triangles per (B, T) block
+_PAIR_BLOCK = 1 << 24   # (ray, triangle) pairs per `occluded` block
 
 
 def _row_apply(inv, row, x, y, z):
@@ -66,6 +68,9 @@ class Hit:
     albedo: torch.Tensor     # (B, 3)
     emission: torch.Tensor   # (B, 3)
     material: torch.Tensor   # (B,) int32
+    # (B, 16) guided-sampling row (CDFPack.prim_table of the hit
+    # primitive) when K2 ran on a guide-augmented attribute pack.
+    guide: torch.Tensor | None = None
 
 
 def closest_tri(geom: Geometry, o: torch.Tensor, d: torch.Tensor,
@@ -104,3 +109,33 @@ def closest_hit(geom: Geometry, o: torch.Tensor, d: torch.Tensor,
         emission=torch.where(valid[:, None], geom.emission[prim], 0.0),
         material=geom.material[prim],
     )
+
+
+def occluded(geom: Geometry, o: torch.Tensor, d: torch.Tensor,
+             max_dist: torch.Tensor, exclude_a: torch.Tensor | None = None,
+             exclude_b: torch.Tensor | None = None,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Any-hit visibility: (B,) bool, True where some triangle whose
+    logical primitive is neither exclude_a nor exclude_b is hit at
+    eps < t < max_dist (visibility_test_anyhit, form_factors.h:144-209).
+
+    The result is an OR over exact per-pair tests, so sweeping the pairs
+    in (ray, triangle) blocks, as done here to bound memory, changes
+    nothing."""
+    b, t_n = o.shape[0], geom.num_tris
+    out = torch.zeros((b,), dtype=torch.bool, device=o.device)
+    tb = min(_TRI_BLOCK, max(t_n, 1))
+    rb = max(1, _PAIR_BLOCK // tb)
+    for r in range(0, b, rb):
+        sl = slice(r, r + rb)
+        for s in range(0, t_n, tb):
+            t_all = intersect_tuv(geom.tri_inv[s:s + tb],
+                                  geom.tri_v0[s:s + tb], o[sl], d[sl])
+            hit = (t_all > eps) & (t_all < max_dist[sl, None])
+            prim = geom.tri_prim[None, s:s + tb]
+            if exclude_a is not None:
+                hit &= prim != exclude_a[sl, None]
+            if exclude_b is not None:
+                hit &= prim != exclude_b[sl, None]
+            out[sl] |= hit.any(dim=1)
+    return out

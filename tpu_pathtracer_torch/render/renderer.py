@@ -1,7 +1,8 @@
-"""Render orchestration: progressive render passes.
+"""Render orchestration: progressive render passes and the radiosity view.
 
 Counterpart: `tpu_pathtracer/render/renderer.py` (`RenderSettings`,
-`render_pass`, `ProgressiveRenderer`). A pass traces `spp_per_pass`
+`render_pass`, `render_radiosity_view`, `pick_primitive`,
+`ProgressiveRenderer`). A pass traces `spp_per_pass`
 samples for every pixel in batches of `ray_chunk` lanes (the JAX
 package's `lax.map` over chunks becomes a loop) and adds into the film.
 Every draw is keyed by (pass, global pixel id, sample, depth), never by a
@@ -20,7 +21,11 @@ from dataclasses import dataclass
 import torch
 
 from ..core import rng
-from ..core.constants import SAMPLING_BSDF
+from ..core.constants import RAY_EPS, SAMPLING_BSDF
+from ..ops.guiding import CDFPack
+from ..ops.intersect import closest_hit
+from ..ops.intersect_allpairs import ATTR_COLS, pack_attributes
+from ..ops.tonemap import tonemap_radiosity, tonemap_radiosity_legacy
 from ..scene.mesh import Geometry
 from .camera import Camera
 from .film import Film
@@ -45,9 +50,6 @@ class RenderSettings:
 
     def __post_init__(self):
         unported = [
-            (self.sampling_mode != SAMPLING_BSDF,
-             "guided sampling modes (sampling_mode != BSDF) are ROADMAP "
-             "Queue 1 item 14"),
             (not self.wavefront,
              "the scan integrator (wavefront=False) is ROADMAP Queue 1 "
              "item 8b"),
@@ -75,10 +77,13 @@ def render_pass(
     settings: RenderSettings,
     tri_pack: torch.Tensor | None = None,
     attr_pack: torch.Tensor | None = None,
+    cdfs: CDFPack | None = None,
+    mis_bsdf_fraction: float = 0.5,
 ) -> tuple[torch.Tensor, int]:
     """Trace settings.spp_per_pass samples per pixel and add them into
-    `film` (in place). Returns (rays traced as an int64 device scalar,
-    wavefront iterations run over all batches: one intersection each)."""
+    `film` (in place); guided modes sample by `cdfs`. Returns (rays
+    traced as an int64 device scalar, wavefront iterations run over all
+    batches: one intersection each)."""
     s = settings
     dev = film.accum.device
     npix = s.num_pixels
@@ -94,6 +99,8 @@ def render_pass(
             geom, camera, lane_ids, path_key,
             width=s.width, height=s.height, spp=s.spp_per_pass,
             max_depth=s.max_depth, tri_pack=tri_pack, attr_pack=attr_pack,
+            mode=s.sampling_mode, cdfs=cdfs,
+            mis_bsdf_fraction=mis_bsdf_fraction,
         )
         radiance[start:start + lane_ids.shape[0]] = total
         rays += r
@@ -102,11 +109,75 @@ def render_pass(
     return rays, iters
 
 
+def render_radiosity_view(
+    geom: Geometry,
+    radiosity: torch.Tensor,
+    camera: Camera,
+    key: rng.Key,
+    settings: RenderSettings,
+    include_emission: bool = True,
+    display: str = "current",
+) -> torch.Tensor:
+    """Direct radiosity visualization (render_radiosity,
+    integrator.h:460-504): primary hit (brute force, as in the JAX
+    package) -> Le + B_i, averaged over spp_per_pass jittered samples,
+    sqrt gamma, u8. include_emission=False shows an arbitrary
+    per-primitive color field (history delta images); display="legacy"
+    is Reinhard + gamma 1/2.2 of B alone.
+
+    The jitter is positional, as in the JAX package: pixels are cut into
+    chunks of ray_chunk (the last padded with pixel 0), and sample s of
+    chunk c draws uniform(fold_in(fold_in(key, c), s), (chunk, 2)).
+    Returns (H, W, 3) uint8, row 0 = bottom."""
+    s = settings
+    dev = radiosity.device
+    npix = s.num_pixels
+    chunk = min(s.ray_chunk, npix)
+    nchunks = (npix + chunk - 1) // chunk
+    pix = torch.arange(nchunks * chunk, device=dev)
+    pix = torch.where(pix < npix, pix, 0)
+    color = torch.empty((nchunks * chunk, 3), dtype=torch.float32,
+                        device=dev)
+    for ci in range(nchunks):
+        ids = pix[ci * chunk:(ci + 1) * chunk]
+        x = (ids % s.width).to(torch.float32)
+        y = (ids // s.width).to(torch.float32)
+        ckey = rng.fold_in(key, ci)
+        acc = torch.zeros((chunk, 3), dtype=torch.float32, device=dev)
+        for samp in range(s.spp_per_pass):
+            jit2 = rng.uniform(rng.fold_in(ckey, samp), (chunk, 2), dev)
+            o, d = camera.get_rays((x + jit2[:, 0]) / s.width,
+                                   (y + jit2[:, 1]) / s.height)
+            hit = closest_hit(geom, o, d, t_min=RAY_EPS)
+            base = radiosity[hit.prim]
+            if include_emission and display != "legacy":
+                base = base + hit.emission
+            acc = acc + torch.where(hit.valid[:, None], base, 0.0)
+        color[ci * chunk:(ci + 1) * chunk] = acc / s.spp_per_pass
+    color = color[:npix].reshape(s.height, s.width, 3)
+    if display == "legacy":
+        return tonemap_radiosity_legacy(color)
+    return tonemap_radiosity(color)
+
+
+def pick_primitive(geom: Geometry, camera: Camera, u: float, v: float) -> int:
+    """Primitive under the screen point (u, v) (pick_primitive_kernel,
+    callbacks.h:22-48); -1 on a miss."""
+    dev = geom.device
+    o, d = camera.get_rays(torch.tensor([u], device=dev),
+                           torch.tensor([v], device=dev))
+    hit = closest_hit(geom, o, d, t_min=RAY_EPS)
+    return int(hit.prim[0]) if bool(hit.valid[0]) else -1
+
+
 class ProgressiveRenderer:
     """Host-side progressive render loop with throughput accounting.
 
     Rays are counted as the JAX package counts them: live lanes summed
     over wavefront iterations. The count stays on the device until read.
+    In a guided mode with the all-pairs backend the attribute pack is
+    rebuilt with the CDFs' prim_table rows (renderer.py:457-471 of the
+    JAX package), so K2 also delivers each lane's guided-sampling row.
     """
 
     def __init__(
@@ -119,12 +190,21 @@ class ProgressiveRenderer:
         seed: int = 2023,
         tri_pack: torch.Tensor | None = None,
         attr_pack: torch.Tensor | None = None,
+        cdfs: CDFPack | None = None,
+        mis_bsdf_fraction: float = 0.5,
     ):
         self.device = torch.device(device)
         self.geom = geom.to(self.device)
         self.camera = camera.to(self.device)
         self.settings = settings
+        self.cdfs = None if cdfs is None else cdfs.to(self.device)
+        self.mis_bsdf_fraction = mis_bsdf_fraction
         self.tri_pack = None if tri_pack is None else tri_pack.to(self.device)
+        if (self.cdfs is not None and attr_pack is not None
+                and settings.sampling_mode != SAMPLING_BSDF
+                and attr_pack.shape[0] == ATTR_COLS):
+            attr_pack = pack_attributes(self.geom,
+                                        guide_table=self.cdfs.prim_table)
         self.attr_pack = (None if attr_pack is None
                           else attr_pack.to(self.device))
         self.key = rng.base_key(seed)
@@ -141,7 +221,7 @@ class ProgressiveRenderer:
         t0 = time.perf_counter()
         rays, iters = render_pass(
             self.geom, self.camera, self.film, self.key, self.settings,
-            self.tri_pack, self.attr_pack,
+            self.tri_pack, self.attr_pack, self.cdfs, self.mis_bsdf_fraction,
         )
         self._rays += rays
         self.iterations += iters
