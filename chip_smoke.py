@@ -7,9 +7,11 @@ its plain versions and renders on the card.
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device    the card's name and power limit (nvidia-smi);
-  2. build     nvcc builds csrc/closest_hit.cu (K1, K2) and csrc/any_hit.cu
-               (K3) from the checkout into build/tpu_pathtracer_torch/,
-               one nvcc per source, started together;
+  2. build     nvcc builds csrc/closest_hit.cu (K1, K2), csrc/any_hit.cu
+               (K3), csrc/cluster_prepass.cu (K4, K5), csrc/grouped_closest.cu
+               (K6) and csrc/grouped_anyhit.cu (K7) from the checkout into
+               build/tpu_pathtracer_torch/, one nvcc per source, started
+               together;
   3. kernels   every kernel against its plain torch version on the card,
                bitwise: K1 and K2 on 65,536 camera and 65,536 bounce rays
                of four scenes (cbox, its mirror variant, and the box at
@@ -20,7 +22,17 @@ Phases, one line each (any failure raises and exits non-zero):
                exclusions, about half the lanes at maxd = 0) and on
                random segments. Timed with CUDA events at the main paths'
                shapes: K1/K2 at 65,536 rays x 32 triangles, K2 and
-               K2-guide at 65,536 x 2,048, K3 at the solve's batch x 2,048;
+               K2-guide at 65,536 x 2,048, K3 at the solve's batch x 2,048.
+               The culled kernels, bitwise against their plain versions
+               and timed against them: K4 and K6 on 65,536 camera rays (the
+               256x256 frame in tile-swizzled order) and 65,536 bounce rays
+               of scenes/stress100k.pbrt (101,704 triangles); K4 in segment
+               mode and K7 on form-factor segments of the boxes at
+               subdivisions 3 and 5 and on random segments; K5 against K4
+               and the plain prepass on a 1,003,948-triangle scene
+               generated by scenes/generate_stress.py into build/; on the
+               subdivision-3 box the culled closest hit's (t, original id)
+               equals K2's and the culled any hit equals K3's, bitwise;
   4. goldens   the cbox_bsdf, cbox_mirror, cbox_mis and
                cbox_radiosity_view configs of benchmarks/goldens.py
                through App on the card with backend "auto" (the kernels),
@@ -42,12 +54,28 @@ Phases, one line each (any failure raises and exits non-zero):
                warm-up pass and 3 passes timed with CUDA events; the
                film must be finite and non-zero, and K2 must launch once
                per wavefront iteration. The same frame traced in batches
-               of 2**20 lanes must give the same film bitwise.
+               of 2**20 lanes must give the same film bitwise;
+  8. large     the App on scenes/stress100k.pbrt with backend "auto" (the
+               culled kernels), 256x256, depth 4, 8 spp per pass: one
+               warm-up and 3 passes timed with CUDA events; K6 must launch
+               once per wavefront iteration, the film be finite and
+               non-zero, and the same pass at ray_chunk 2**20 and 2**14
+               give the same film bitwise; one pass of the 1M-triangle
+               scene (K5 must launch); cbox 256x256, 4 spp, backends
+               "pallas" and "culled": the same film bitwise;
+  9. solve     the box at subdivision 5 (16,384 primitives, 32,768
+               triangles), the App's gather solve with 2 MC samples and 8
+               iterations through K7, timed with CUDA events; the sub-3
+               solve of phase 5 through the culled backend must equal the
+               one through K3 bitwise; the 1024x1024 radiosity view of the
+               sub-5 solution through the culled primary hit.
 
 The second-to-last line is the kernel record (JSON; each kernel's
 launches are those of the phase that drives its path: K2 the headline,
-K2-guide the guided pass, K3 the solve; K1 is on no path of the App), the
-last line {"ok": true, "device": {...}}. Imports nothing of jax.
+K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
+passes, K5 the 1M-triangle pass, K7 the sub-5 solve; K1 is on no path of
+the App), the last line {"ok": true, "device": {...}}. Imports nothing of
+jax.
 """
 
 from __future__ import annotations
@@ -94,6 +122,11 @@ GUIDED = dict(scene="cbox_quads", subdivision=3, width=1024, height=1024,
               sampling_mode="mis", mis_bsdf_fraction=0.5)
 TIMED_PASSES = 3
 N_RAYS = 1 << 16
+STRESS = os.path.join(HERE, "scenes", "stress100k.pbrt")
+LARGE = dict(scene=STRESS, width=256, height=256, max_depth=4,
+             spp_per_pass=8, ray_chunk=1 << 16, sampling_mode="bsdf")
+SOLVE5 = dict(scene="cbox_quads", subdivision=5, mc_samples=2,
+              radiosity_iterations=8)
 
 
 def phase(name: str, msg: str) -> None:
@@ -203,11 +236,363 @@ def solutions_equal(a, b) -> bool:
         "history"))
 
 
-def zero_counts(ap) -> None:
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
     ap.closest_tuv.launches = 0
     ap.closest_record.launches = 0
     ap.closest_record.guide_launches = 0
     ap.occluded.launches = 0
+    ic.zero_launch_counts()
+
+
+def swizzled_camera_rays(cam, size: int, seed: int, dev):
+    """The size x size frame's camera rays in the culled backend's lane
+    order (each 1024-ray tile a 32x32 pixel block), jittered from numpy."""
+    from tpu_pathtracer_torch.render.renderer import _tile_swizzle
+
+    perm = torch.from_numpy(_tile_swizzle(size, size, size * size)[0])
+    jit = torch.from_numpy(np.random.default_rng(seed).random(
+        (2, size * size), np.float32))
+    u = ((perm % size).float() + jit[0]) / size
+    v = ((perm // size).float() + jit[1]) / size
+    o, d = cam.get_rays(u.to(dev), v.to(dev))
+    return o.contiguous(), d.contiguous()
+
+
+def box_rays(lo, hi, n: int, seed: int, dev):
+    """n rays with origins uniform in the box [lo, hi] and uniform
+    directions, from numpy."""
+    g = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    o = lo + (hi - lo) * g.random((n, 3), np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def scene_camera(cfg, dev):
+    """The camera a Config names (after load_prims adopted a .pbrt's)."""
+    from tpu_pathtracer_torch.render.camera import CameraController
+
+    return CameraController(
+        lookfrom=np.array(cfg.camera_origin, np.float32),
+        lookat=np.array(cfg.look_at, np.float32),
+        vup=np.array(cfg.up, np.float32), vfov=cfg.fov,
+        aspect=cfg.width / cfg.height).build(dev)
+
+
+def prepass_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def generate_1m(dev_dir: str) -> str:
+    """scenes/generate_stress.py's 1M-triangle scene (n = 709) written into
+    dev_dir (numpy only; nothing under scenes/ is written)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "generate_stress", os.path.join(HERE, "scenes", "generate_stress.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    os.makedirs(dev_dir, exist_ok=True)
+    return gen.generate(dev_dir, tag="1m", n=709)
+
+
+def culled_kernels(dev, cam, scenes, k3_cases, err, times):
+    """Phase 3, culled part: K4-K7 against their plain versions (bitwise)
+    and timed against them at the main paths' shapes; the culled queries
+    against K2 and K3 on the sub-3 box. Returns the 1M scene's path."""
+    from tpu_pathtracer_torch.app import load_prims
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.scene.builtin import cornell_box
+    from tpu_pathtracer_torch.scene.mesh import subdivide
+    from tpu_pathtracer_torch.utils.config import Config
+
+    def bits(gmask) -> int:
+        shift = torch.arange(32, device=gmask.device, dtype=torch.int32)
+        return int(((gmask[..., None] >> shift) & 1).sum())
+
+    # K4 and K6 on stress100k
+    cfg = Config(**LARGE)
+    geom = load_prims(cfg).build(dev)
+    part = ic.CulledScene(geom).parts[0]
+    cmin, cmax, tri = part.cluster_min, part.cluster_max, part.tri_pack
+    rays = [("camera", *swizzled_camera_rays(scene_camera(cfg, dev), 256, 1,
+                                             dev)),
+            ("bounce", *box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                 N_RAYS, 2, dev))]
+    for rname, o, d in rays:
+        k4 = ic.prepass_dense(cmin, cmax, o, d, 1e-4)
+        p4 = ic.prepass_plain(cmin, cmax, o, d, 1e-4)
+        k6 = ic.closest_grouped(tri, k4[0], o, d, 1e-4)
+        p6 = ic.closest_grouped_plain(tri, k4[0], o, d, 1e-4)
+        torch.cuda.synchronize()
+        e4 = max(max_abs_diff(k4[1], p4[1]), max_abs_diff(k4[2], p4[2]))
+        e6 = max_abs_diff(k6[0], p6[0])
+        ok = (prepass_equal(k4, p4) and prepass_equal(k6, p6))
+        t4 = time_pair(lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-4),
+                       lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4),
+                       reps=5)
+        t6 = time_pair(
+            lambda: ic.closest_grouped_plain(tri, k4[0], o, d, 1e-4),
+            lambda: ic.closest_grouped(tri, k4[0], o, d, 1e-4), reps=3)
+        active = (k4[0] != 0).any(dim=1).sum(dim=1).float().mean()
+        phase("kernels", f"stress100k ({geom.num_tris} tris, "
+              f"{cmin.shape[0]} clusters) {rname}: K4 and K6 bitwise equal "
+              f"to plain {ok} (max |d| {e4}, {e6}); {float(active):.1f} "
+              f"active clusters per tile, {bits(k4[0])} (group, cluster) "
+              f"bits, {int(torch.isfinite(k6[0]).sum())}/{N_RAYS} hit; K4 "
+              f"{t4[1]:.6f} ms vs plain {t4[0]:.6f} ms, K6 {t6[1]:.6f} ms vs "
+              f"plain {t6[0]:.6f} ms per call")
+        if not ok:
+            raise AssertionError(f"K4 or K6 differs from its plain version on"
+                                 f" stress100k {rname} (tolerance: bitwise)")
+        err["K4"], err["K6"] = max(err["K4"], e4), max(err["K6"], e6)
+        times["K4"], times["K6"] = t4, t6     # the bounce rays' times stay
+
+    # K4 in segment mode and K7 on form-factor and random segments
+    g5 = subdivide(cornell_box("quads"), 5).build(dev)
+    cs3 = ic.CulledScene(scenes["cbox_sub3"])
+    cs5 = ic.CulledScene(g5)
+    seg_cases = [("cbox_sub3 ff-pairs", cs3, k3_cases[1][2]),
+                 ("cbox_sub5 ff-pairs", cs5, ff_segments(g5, 5)),
+                 ("cbox_sub3 random", cs3, k3_cases[2][2])]
+    for cname, cs, seg in seg_cases:
+        o, d, maxd, ea, eb = seg
+        p = cs.parts[0]
+        k4 = ic.prepass_dense(p.cluster_min, p.cluster_max, o, d, 1e-5, maxd)
+        p4 = ic.prepass_plain(p.cluster_min, p.cluster_max, o, d, 1e-5, maxd)
+        k7 = ic.occluded_grouped(p.tri_pack, k4[0], o, d, maxd, ea, eb)
+        p7 = ic.occluded_grouped_plain(p.tri_pack, k4[0], o, d, maxd, ea, eb)
+        torch.cuda.synchronize()
+        ok = prepass_equal(k4, p4) and torch.equal(k7, p7)
+        phase("kernels", f"K4 (segments) and K7 {cname}: {o.shape[0]} "
+              f"segments, {int((maxd > 0).sum())} with maxd > 0, "
+              f"{bits(k4[0])} (group, cluster) bits, {int(k7.sum())} "
+              f"blocked; bitwise equal to plain {ok}")
+        if not ok:
+            raise AssertionError(f"K4 or K7 differs from its plain version on"
+                                 f" {cname} (tolerance: bitwise)")
+        if cname == "cbox_sub5 ff-pairs":
+            times["K7"] = time_pair(
+                lambda: ic.occluded_grouped_plain(p.tri_pack, k4[0], o, d,
+                                                  maxd, ea, eb),
+                lambda: ic.occluded_grouped(p.tri_pack, k4[0], o, d, maxd, ea,
+                                            eb), reps=2)
+            t_seg = time_pair(
+                lambda: ic.prepass_plain(p.cluster_min, p.cluster_max, o, d,
+                                         1e-5, maxd),
+                lambda: ic.prepass_dense(p.cluster_min, p.cluster_max, o, d,
+                                         1e-5, maxd), reps=3)
+            phase("kernels", f"at {cname} ({g5.num_tris} tris): K7 "
+                  f"{times['K7'][1]:.6f} ms vs plain {times['K7'][0]:.6f} ms,"
+                  f" K4 (segments) {t_seg[1]:.6f} ms vs plain {t_seg[0]:.6f}"
+                  " ms per call")
+
+    # K5 against K4 and the plain prepass on the 1M-triangle scene
+    path1m = generate_1m(os.path.join(HERE, "build", "stress1m"))
+    cfg1m = Config(**{**LARGE, "scene": path1m})
+    g1m = load_prims(cfg1m).build(dev)
+    p1 = ic.CulledScene(g1m).parts[0]
+    cmin, cmax = p1.cluster_min, p1.cluster_max
+    nblk = cmin.shape[0] // ic.BLOCK_CLUSTERS
+    rays = [("camera", *swizzled_camera_rays(scene_camera(cfg1m, dev), 256,
+                                             3, dev)),
+            ("bounce", *box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                 N_RAYS, 4, dev))]
+    for rname, o, d in rays:
+        gate = ic.quarter_gate(cmin, cmax, o, d, 1e-4)
+        k5 = ic.prepass_gated(cmin, cmax, gate, o, d, 1e-4)
+        k4 = ic.prepass_dense(cmin, cmax, o, d, 1e-4)
+        p5 = ic.prepass_plain(cmin, cmax, o, d, 1e-4, gate=gate)
+        p4 = ic.prepass_plain(cmin, cmax, o, d, 1e-4)
+        torch.cuda.synchronize()
+        ok = (prepass_equal(k5, k4) and prepass_equal(k5, p5)
+              and prepass_equal(k4, p4))
+        quarters = int(((gate[..., None] >> torch.arange(
+            4, device=dev, dtype=torch.int32)) & 1).sum())
+        t5 = time_pair(
+            lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-4, gate=gate),
+            lambda: ic.prepass_gated(cmin, cmax, gate, o, d, 1e-4), reps=5)
+        tg = time_pair(
+            lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4),
+            lambda: ic.prepass_groups(cmin, cmax, o, d, 1e-4), reps=5)
+        phase("kernels", f"1M scene ({g1m.num_tris} tris, {cmin.shape[0]} "
+              f"clusters, {nblk} blocks) {rname}: K5 bitwise equal to K4 and "
+              f"to plain {ok}; gate on {float((gate != 0).float().mean()):.4f}"
+              f" of (tile, block)s, {quarters / (4 * gate.numel()):.4f} of "
+              f"quarters; K5 {t5[1]:.6f} ms vs plain {t5[0]:.6f} ms; the "
+              f"gated prepass (quarter gate + K5) {tg[1]:.6f} ms vs K4 dense "
+              f"{tg[0]:.6f} ms per call")
+        if not ok:
+            raise AssertionError(f"K5 differs from K4 or its plain version on"
+                                 f" the 1M scene {rname} (tolerance: bitwise)")
+        times["K5"] = t5
+
+    # the culled queries against K2 and K3 on the sub-3 box
+    g3 = scenes["cbox_sub3"]
+    tp3, atp3, pp3 = (ap.pack_triangles(g3), ap.pack_attributes(g3),
+                      ap.pack_prim_ids(g3))
+    for rname, o, d in make_rays(cam, 3, dev):
+        t_c, i_c, _ = cs3.closest_tuv(o, d)
+        t_2, i_2, _ = ap.closest_record(tp3, atp3, o, d)
+        torch.cuda.synchronize()
+        same = torch.equal(t_c, t_2) and torch.equal(i_c, i_2)
+        phase("kernels", f"cbox_sub3 {rname}: culled (t, original id) "
+              f"bitwise equal to K2's {same}")
+        if not same:
+            raise AssertionError("the culled closest hit differs from K2")
+    for cname, seg in (("ff-pairs", k3_cases[1][2]),
+                       ("random", k3_cases[2][2])):
+        same = torch.equal(cs3.occluded(*seg), ap.occluded(tp3, pp3, *seg))
+        phase("kernels", f"cbox_sub3 {cname}: culled any hit bitwise equal "
+              f"to K3's {same}")
+        if not same:
+            raise AssertionError("the culled any hit differs from K3")
+    return path1m
+
+
+def large_phase(dev, path1m, start, end):
+    """Phase 8: the App on stress100k and the 1M scene through the culled
+    kernels, and the on-card backend check on the cbox."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.utils.config import Config
+
+    app = App(Config(spp=8 * (TIMED_PASSES + 1), **LARGE), device=dev)
+    r = app.renderer()
+    if app.culled is None:
+        raise AssertionError("auto did not pick the culled backend")
+    r.step()                                   # warm-up pass
+    first = r.film.accum.clone()
+    r.reset_stats()
+    zero_counts()
+    start.record()
+    for _ in range(TIMED_PASSES):
+        r.step(block=False)
+    end.record()
+    end.synchronize()
+    launches = {"K4": ic.prepass_dense.launches,
+                "K6": ic.closest_grouped.launches}
+    ms = start.elapsed_time(end)
+    rays = r.total_rays
+    accum = r.film.accum
+    finite = bool(torch.isfinite(accum).all())
+    mean = float(accum.mean()) / max(r.film.spp, 1)
+    phase("large", f"stress100k ({app.geom.num_tris} tris) 256x256 depth 4, "
+          f"{TIMED_PASSES} passes x 8 spp: {rays} rays in {ms:.3f} ms (CUDA "
+          f"events) = {rays / (ms / 1e3) / 1e6:.3f} Mrays/s; {r.iterations} "
+          f"intersect calls, K4 launches {launches['K4']}, K6 "
+          f"{launches['K6']}; film finite {finite}, mean {mean:.6f}")
+    if not (finite and mean > 0 and launches["K6"] == r.iterations
+            and launches["K4"] == r.iterations):
+        raise AssertionError("stress100k render failed its checks")
+    for chunk in (1 << 20, 1 << 14):
+        other = App(Config(spp=8, **{**LARGE, "ray_chunk": chunk}),
+                    device=dev).renderer()
+        other.step()
+        same = torch.equal(other.film.accum, first)
+        phase("large", f"ray_chunk {chunk}: first pass film bitwise equal: "
+              f"{same}")
+        if not same:
+            raise AssertionError("stress100k film depends on ray_chunk")
+
+    app1m = App(Config(spp=8, **{**LARGE, "scene": path1m}), device=dev)
+    r1 = app1m.renderer()
+    zero_counts()
+    start.record()
+    r1.step(block=False)
+    end.record()
+    end.synchronize()
+    launches["K5"] = ic.prepass_gated.launches
+    ms = start.elapsed_time(end)
+    mean = float(r1.film.accum.mean()) / max(r1.film.spp, 1)
+    phase("large", f"1M scene ({app1m.geom.num_tris} tris) 256x256 depth 4, "
+          f"one pass x 8 spp (first, not warmed): {r1.total_rays} rays in "
+          f"{ms:.3f} ms = {r1.total_rays / (ms / 1e3) / 1e6:.3f} Mrays/s; "
+          f"{r1.iterations} intersect calls, K5 launches {launches['K5']}, "
+          f"K4 (quarter gate) {ic.prepass_dense.launches}, K6 "
+          f"{ic.closest_grouped.launches}; mean {mean:.6f}")
+    if not (launches["K5"] > 0 and mean > 0
+            and bool(torch.isfinite(r1.film.accum).all())):
+        raise AssertionError("1M-triangle render failed its checks")
+
+    films = {}
+    for backend in ("pallas", "culled"):
+        rr = App(Config(scene="cbox_quads", width=256, height=256,
+                        max_depth=5, spp=4, spp_per_pass=4, backend=backend),
+                 device=dev).renderer()
+        rr.step()
+        films[backend] = rr.film.accum
+    same = torch.equal(films["pallas"], films["culled"])
+    phase("large", f"cbox 256x256 4 spp: films of backends pallas and culled "
+          f"bitwise equal: {same}")
+    if not same:
+        raise AssertionError("the culled backend's film differs from K2's")
+    return launches
+
+
+def solve_phase(dev, sol3, start, end):
+    """Phase 9: the sub-5 gather solve through K7, the sub-3 solve through
+    the culled backend against phase 5's, the sub-5 radiosity view."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.utils.config import Config
+
+    app = App(Config(**SOLVE5), device=dev)
+    app.load_scene()
+    if app.culled is None:
+        raise AssertionError("auto did not pick the culled backend")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start.record()
+    sol = app.run_solver()
+    end.record()
+    end.synchronize()
+    k7 = ic.occluded_grouped.launches
+    ms = start.elapsed_time(end)
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        sol.form_factors, sol.radiosity, sol.rad_grid))
+    phase("solve", f"cbox sub 5 ({app.geom.num_prims} prims, "
+          f"{app.geom.num_tris} tris) gather solve, 2 MC samples, 8 "
+          f"iterations: {ms:.3f} ms (CUDA events); K7 launches {k7}, K4 "
+          f"(segments) {ic.prepass_dense.launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; finite "
+          f"{finite}; radiosity sum {float(sol.radiosity.sum()):.6f}")
+    if not (finite and k7 > 0):
+        raise AssertionError("the sub-5 solve failed its checks")
+
+    c3 = App(Config(spp=32, backend="culled", **GUIDED), device=dev)
+    c3.load_scene()
+    start.record()
+    sol3c = c3.run_solver()
+    end.record()
+    end.synchronize()
+    same = solutions_equal(sol3, sol3c)
+    phase("solve", f"cbox sub 3 solve through the culled backend "
+          f"{start.elapsed_time(end):.3f} ms, bitwise equal to the solve "
+          f"through K3: {same}")
+    if not same:
+        raise AssertionError("the sub-3 solve depends on the backend")
+
+    view = App(Config(**{**SOLVE5, "integrator": "radiosity", "width": 1024,
+                         "height": 1024, "spp": 1}), device=dev)
+    view.load_scene()
+    view.solution = sol
+    start.record()
+    img = view.render()
+    end.record()
+    end.synchronize()
+    phase("solve", f"radiosity view 1024x1024 of the sub-5 solution (culled "
+          f"primary hits): {start.elapsed_time(end):.3f} ms, image "
+          f"{img.shape}, mean {img.mean():.3f}, max {img.max()}")
+    if img.shape != (1024, 1024, 3) or img.max() == 0:
+        raise AssertionError("sub-5 radiosity view failed its checks")
+    return k7
 
 
 def main() -> int:
@@ -220,6 +605,7 @@ def main() -> int:
     from tpu_pathtracer_torch.app import App
     from tpu_pathtracer_torch.core import rng
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.render.camera import CameraController
     from tpu_pathtracer_torch.render.radiosity import solve_radiosity
     from tpu_pathtracer_torch.scene.builtin import cornell_box
@@ -243,9 +629,10 @@ def main() -> int:
     print(smi, flush=True)
 
     # 2. build --------------------------------------------------------------
-    with ThreadPoolExecutor(len(ap.KERNEL_SOURCES)) as pool:
-        built = list(pool.map(build, ap.KERNEL_SOURCES))
-    for src, res in zip(ap.KERNEL_SOURCES, built):
+    sources = (*ap.KERNEL_SOURCES, *ic.KERNEL_SOURCES)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build, sources))
+    for src, res in zip(sources, built):
         phase("build", f"{src} -> {res.path.name}: {res.seconds:.2f} s "
               f"({'built' if res.log else 'already built'})")
         for ln in res.log.splitlines():
@@ -260,7 +647,8 @@ def main() -> int:
         "cbox_sub2": subdivide(cornell_box("quads"), 2).build(dev),
         "cbox_sub3": subdivide(cornell_box("quads"), 3).build(dev),
     }
-    err = {"K1": 0.0, "K2": 0.0, "K2-guide": 0.0, "K3": 0.0}
+    err = {"K1": 0.0, "K2": 0.0, "K2-guide": 0.0, "K3": 0.0, "K4": 0.0,
+           "K5": 0.0, "K6": 0.0, "K7": 0.0}
     g = np.random.default_rng(0)
     for si, sname in enumerate(("cbox", "cbox_mirror", "cbox_sub2",
                                 "cbox_sub3")):
@@ -348,10 +736,11 @@ def main() -> int:
                  else f"{N_RAYS} bounce rays")
         phase("kernels", f"{k} at {shape} x {g3.num_tris} tris: kernel "
               f"{km:.6f} ms, plain torch {pm:.6f} ms per call")
+    path1m = culled_kernels(dev, cam, scenes, k3_cases, err, times)
 
     # 4. goldens on the card -----------------------------------------------
     for name, kw in GOLDEN_CONFIGS.items():
-        zero_counts(ap)
+        zero_counts()
         app = App(Config(backend="auto", **kw), device=dev)
         if kw.get("integrator") == "radiosity":
             got = app.render().astype(np.float32)
@@ -383,7 +772,7 @@ def main() -> int:
     end = torch.cuda.Event(enable_timing=True)
     app = App(Config(spp=32, **GUIDED), device=dev)
     app.load_scene()
-    zero_counts(ap)
+    zero_counts()
     start.record()
     sol = app.run_solver()
     end.record()
@@ -435,7 +824,7 @@ def main() -> int:
     r.step()                                   # warm-up pass
     first = r.film.accum.clone()
     r.reset_stats()
-    zero_counts(ap)
+    zero_counts()
     start.record()
     r.step(block=False)
     end.record()
@@ -492,7 +881,7 @@ def main() -> int:
     r = App(cfg, device=dev).renderer()
     r.step()                                   # warm-up pass
     r.reset_stats()
-    zero_counts(ap)
+    zero_counts()
     start.record()
     for _ in range(TIMED_PASSES):
         r.step(block=False)
@@ -532,6 +921,12 @@ def main() -> int:
     if not same or big.total_rays != rays:
         raise AssertionError("film or ray count depends on ray_chunk")
 
+    # 8. large: the culled path -------------------------------------------
+    large = large_phase(dev, path1m, start, end)
+
+    # 9. solve: the sub-5 gather solve through K7 ---------------------------
+    k7_launches = solve_phase(dev, sol, start, end)
+
     def entry(name, key, source, replaces, n_launches):
         return {"name": name, "route": "cuda",
                 "source": f"tpu_pathtracer_torch/csrc/{source}",
@@ -548,6 +943,14 @@ def main() -> int:
               "closest_hit.cu", 240, guide_launches),
         entry("K3 occluded (_kernel_anyhit)", "K3", "any_hit.cu", 765,
               k3_launches),
+        entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
+              "cluster_prepass.cu", 1023, large["K4"]),
+        entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
+              "cluster_prepass.cu", 1149, large["K5"]),
+        entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
+              "grouped_closest.cu", 1723, large["K6"]),
+        entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
+              "grouped_anyhit.cu", 2219, k7_launches),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,546 @@
+"""The port's cluster-culled backend against the JAX package's on the CPU.
+
+The host layout (`ops/cluster_layout.py`), the plain prepass (K4, and K5
+behind the quarter gate), the plain culled closest hit (K6) and any hit
+(K7) of `ops/intersect_culled.py`, the renderer's tile swizzle and the
+App on the "culled" backend. JAX's Pallas kernels run in interpret mode
+(the package's `_pallas_call` interprets on the CPU), on one ray batch
+shape: the 4096 rays its `_pad_rays` pads every batch to.
+
+The bars:
+  * layout, prepass words, tn, texit and gates: bitwise (min, max and
+    compares only; no rounding order to differ);
+  * closest hit against JAX: t within the bound `test_torch_intersect.py`
+    states for XLA's FMA contraction on the CPU (4 ulp on camera rays, 4
+    ulp plus the cancellation in os on bounce rays); original ids equal
+    except where the two best t of a ray lie within twice that bound (the
+    shared diagonal of a quad), where the primitive must still be equal;
+  * closest hit against the port's all-pairs plain version, multi-part
+    against one part, the App's films and solves: bitwise (the same
+    eager arithmetic and the lowest-original-id tie rule);
+  * any hit against JAX: at most 4 of the 1024 segments differ (a
+    segment end or edge crossing within rounding of a triangle; none
+    differed when the bar was set), none of them with maxd = 0.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpu_pathtracer.ops.intersect_pallas as ip
+from tpu_pathtracer.ops import cluster_layout as jcl
+from tpu_pathtracer.render import camera as jcamera
+from tpu_pathtracer.render import renderer as jrenderer
+from tpu_pathtracer.scene import builtin as jbuiltin
+from tpu_pathtracer.scene import mesh as jmesh
+from tpu_pathtracer_torch.app import App
+from tpu_pathtracer_torch.ops import cluster_layout as cl
+from tpu_pathtracer_torch.ops import intersect as tintersect
+from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+from tpu_pathtracer_torch.ops import intersect_culled as ic
+from tpu_pathtracer_torch.render import renderer as trenderer
+from tpu_pathtracer_torch.scene import mesh as tmesh
+from tpu_pathtracer_torch.utils.config import Config
+
+torch.set_num_threads(1)
+
+N_PREPASS = 4096   # rays of the prepass cases: four 1024-ray tiles
+N_QUERY = 1024     # rays of the query cases: one tile (JAX pads to 4096)
+ULP = 4
+
+
+def _port(jg):
+    return tmesh.geometry_from_arrays(
+        {f.name: np.asarray(getattr(jg, f.name))
+         for f in dataclasses.fields(jg)}, "cpu")
+
+
+def _soup(n=5000, seed=3):
+    """n random small triangles in a 20-unit cube: clusters that are not
+    a multiple of 128 triangles, and a scene with no quad."""
+    g = np.random.default_rng(seed)
+    a = g.uniform(-10, 10, (n, 3)).astype(np.float32)
+    b = a + g.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    c = a + g.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    return jmesh.PrimList(
+        corners=jmesh.make_triangle_corners(a, b, c),
+        is_quad=np.zeros(n, bool),
+        albedo=g.random((n, 3), np.float32),
+        emission=np.zeros((n, 3), np.float32),
+        material=np.zeros(n, np.int32))
+
+
+SCENES = {
+    "cbox_sub2": lambda: jmesh.subdivide(jbuiltin.cornell_box("quads"), 2),
+    "soup": _soup,
+}
+
+
+@pytest.fixture(scope="module")
+def sub2():
+    jg = SCENES["cbox_sub2"]().build()
+    return jg, _port(jg)
+
+
+# --- (a) the host layout ----------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_orders_and_ordered_pack_bitwise(name):
+    """median_split_order, morton_order, the real rows of the ordered pack
+    (rows 0-12) and the cluster bounds equal the JAX package's; row 13
+    holds the original index; padding is whole 128-cluster blocks."""
+    jg = SCENES[name]().build()
+    tg = _port(jg)
+    order = cl.median_split_order(tg)
+    np.testing.assert_array_equal(order, jcl.median_split_order(jg))
+    np.testing.assert_array_equal(cl.morton_order(tg), jcl.morton_order(jg))
+    tri, cmin, cmax = (x.numpy() for x in cl.pack_triangles_ordered(tg, order))
+    jtri, jcmin, jcmax = (np.asarray(x) for x in
+                          jcl.pack_triangles_ordered(jg, order))
+    t = tg.num_tris
+    c = -(-t // cl.TRI_CHUNK)
+    cpad = -(-c // cl.BLOCK_CLUSTERS) * cl.BLOCK_CLUSTERS
+    assert tri.shape == (cpad * cl.TRI_CHUNK, 16)
+    assert cmin.shape == cmax.shape == (cpad, 3)
+    np.testing.assert_array_equal(tri[:t, :13], jtri.T[:t, :13])
+    np.testing.assert_array_equal(tri[:t, 13].view(np.int32), order)
+    assert (tri[t:, :12] == 0).all() and (tri[t:, 12] == -2).all()
+    np.testing.assert_array_equal(cmin[:c], jcmin[:c])
+    np.testing.assert_array_equal(cmax[:c], jcmax[:c])
+    assert np.isnan(cmin[c:]).all() and np.isnan(cmax[c:]).all()
+
+
+# --- (b) the prepass --------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def line_clusters():
+    """280 clusters (3 blocks) along a line, as the JAX package's gate
+    tests build them, and 4096 random rays from around its first part:
+    the gate is on for some (tile, block)s only, with partial quarter
+    words."""
+    g = np.random.default_rng(1)
+    c = 280
+    ctr = np.stack([np.linspace(0, 400, c), g.uniform(-5, 5, c),
+                    g.uniform(-5, 5, c)], -1).astype(np.float32)
+    half = g.uniform(0.1, 1.5, (c, 3)).astype(np.float32)
+    o = g.uniform(-10, 60, (N_PREPASS, 3)).astype(np.float32)
+    d = g.standard_normal((N_PREPASS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return ctr - half, ctr + half, o, d
+
+
+def _tcomp(x):
+    """(B,) ray values -> the JAX prepass's (tiles * 8, 128) layout: lane
+    = 8-ray group, sublane = ray within the group."""
+    tiles = x.shape[0] // cl.RAYS_PER_TILE
+    return jnp.asarray(x.reshape(tiles, 128, 8).transpose(0, 2, 1)
+                       .reshape(tiles * 8, 128))
+
+
+def _jax_prepass(cmin, cmax, o, d, maxd):
+    comps = [_tcomp(o[:, i]) for i in range(3)] + \
+            [_tcomp(d[:, i]) for i in range(3)]
+    md = None if maxd is None else _tcomp(maxd)
+    ghit, tn, texit, _, _ = ip._prepass_groups(
+        jnp.asarray(cmin), jnp.asarray(cmax), comps, 1e-4, o.shape[0],
+        maxd=md)
+    h = np.asarray(ghit).astype(np.int64)
+    words = (h[:, 0::2, :] | (h[:, 1::2, :] << 16)).astype(np.uint32)
+    texit = np.asarray(texit).transpose(0, 2, 1).reshape(-1)
+    return words.view(np.int32), np.asarray(tn), texit, comps, md
+
+
+def _maxd(with_maxd):
+    if not with_maxd:
+        return None
+    m = np.full(N_PREPASS, 30.0, np.float32)
+    m[::3] = 0.0                       # inactive lanes: nothing scheduled
+    return m
+
+
+@pytest.mark.parametrize("with_maxd", [False, True])
+def test_dense_prepass_plain_vs_jax(line_clusters, with_maxd):
+    cmin, cmax, o, d = line_clusters
+    maxd = _maxd(with_maxd)
+    words, tn, texit, _, _ = _jax_prepass(cmin, cmax, o, d, maxd)
+    got = ic.prepass_dense(
+        *(torch.from_numpy(x) for x in (cmin, cmax, o, d)), 1e-4,
+        None if maxd is None else torch.from_numpy(maxd))
+    gm, gtn, gtexit = (x.numpy() for x in got)
+    assert gm.shape == words.shape == (4, 4, 384)
+    assert (gm != 0).any() and (gm == 0).any()
+    np.testing.assert_array_equal(gm, words)
+    np.testing.assert_array_equal(gtn, tn)
+    np.testing.assert_array_equal(gtexit, texit)
+
+
+@pytest.mark.parametrize("with_maxd", [False, True])
+def test_gated_prepass_vs_dense_and_jax(line_clusters, monkeypatch,
+                                        with_maxd):
+    """With the gate threshold at one block in both packages, the gated
+    prepass (quarter gate + K5's plain version) equals the dense one and
+    JAX's fused gated kernel, and the gates equal JAX's."""
+    cmin, cmax, o, d = line_clusters
+    maxd = _maxd(with_maxd)
+    dense = ic.prepass_dense(
+        *(torch.from_numpy(x) for x in (cmin, cmax, o, d)), 1e-4,
+        None if maxd is None else torch.from_numpy(maxd))
+    monkeypatch.setattr(ip, "_GATE_MIN_BLOCKS", 1)
+    monkeypatch.setattr(ic, "_GATE_MIN_BLOCKS", 1)
+    words, tn, texit, comps, md = _jax_prepass(cmin, cmax, o, d, maxd)
+    args = [torch.from_numpy(x) for x in (cmin, cmax, o, d)]
+    tmd = None if maxd is None else torch.from_numpy(maxd)
+    before = ic.prepass_gated.launches
+    gated = ic.prepass_groups(*args, 1e-4, tmd)
+    assert ic.prepass_gated.launches == before      # the CPU launches nothing
+    for name, a, b, w in zip(("gmask", "tn", "texit"), gated, dense,
+                             (words, tn, texit)):
+        assert torch.equal(a, b), name
+        np.testing.assert_array_equal(a.numpy(), w, err_msg=name)
+    gate = ic.quarter_gate(*args, 1e-4, tmd).numpy()
+    c, cpad = cmin.shape[0], 384
+    want = np.asarray(ip._quarter_gate(jnp.asarray(cmin), jnp.asarray(cmax),
+                                       comps, 1e-4, N_PREPASS, c, cpad,
+                                       maxd=md))
+    np.testing.assert_array_equal(gate, want)
+    # the case exercises both gate branches and partial quarter words
+    assert 0 < (gate != 0).mean() < 1 and ((gate > 0) & (gate < 15)).any()
+    block = ic.block_gate(*args, 1e-4, tmd).numpy()
+    np.testing.assert_array_equal(
+        block, np.asarray(ip._block_gate(
+            jnp.asarray(cmin), jnp.asarray(cmax), comps, 1e-4,
+            N_PREPASS // cl.RAYS_PER_TILE, c, cpad, maxd=md)))
+    assert ((gate != 0) <= (block != 0)).all()
+
+
+# --- (c) closest hit ---------------------------------------------------------
+
+
+def _query_rays(seed=0):
+    """512 camera rays and 512 bounce rays (origins inside the box,
+    uniform directions), as numpy: one 1024-ray tile."""
+    g = np.random.default_rng(seed)
+    cam = jcamera.CameraController.default().build()
+    uv = g.random((2, N_QUERY // 2), np.float32)
+    co, cd = cam.get_rays(jnp.asarray(uv[0]), jnp.asarray(uv[1]))
+    lo = np.array([-2.7, 0.05, -5.45], np.float32)
+    hi = np.array([2.7, 5.45, -0.05], np.float32)
+    bo = lo + (hi - lo) * g.random((N_QUERY // 2, 3), np.float32)
+    bd = g.standard_normal((N_QUERY // 2, 3)).astype(np.float32)
+    bd /= np.linalg.norm(bd, axis=1, keepdims=True)
+    return np.concatenate([np.asarray(co), bo]), np.concatenate(
+        [np.asarray(cd), bd])
+
+
+def _t_tol(tg, o, d, idx, t):
+    """|dt| bound between XLA's and eager torch's rounding: 4 ulp on the
+    camera rays (the first half), 4 ulp plus the cancellation in os on
+    the bounce rays."""
+    c = ap.pack_triangles(tg).numpy().astype(np.float64)[idx]
+    o64, d64 = o.astype(np.float64), d.astype(np.float64)
+    mag = np.abs(c[:, 6:9] * o64).sum(axis=1) + np.abs(c[:, 11])
+    ds = np.abs((c[:, 6:9] * d64).sum(axis=1))
+    eps = np.finfo(np.float32).eps
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tol = ULP * np.spacing(np.abs(t)) + ULP * eps * mag / ds
+    tol[:N_QUERY // 2] = ULP * np.spacing(np.abs(t[:N_QUERY // 2]))
+    return np.where(np.isfinite(t), tol, 0.0)
+
+
+def _near_tie(tg, o, d, tol):
+    t_all = tintersect.intersect_tuv(tg.tri_inv, tg.tri_v0,
+                                     torch.from_numpy(o),
+                                     torch.from_numpy(d)).numpy()
+    t_all = np.where(t_all >= np.float32(1e-4), t_all, np.inf)
+    two = np.sort(t_all, axis=1)[:, :2]
+    with np.errstate(invalid="ignore"):
+        gap = two[:, 1] - two[:, 0]
+    return np.isfinite(two[:, 0]) & (gap <= 2 * tol)
+
+
+def test_culled_closest_hit_vs_jax(sub2):
+    jg, tg = sub2
+    o, d = _query_rays()
+    jcs = ip.CulledScene(jg)
+    t_w, r_w = (np.asarray(x) for x in ip.pallas_closest_tuv_dma_grouped(
+        jcs.tri_pack, jcs.cluster_min, jcs.cluster_max, jnp.asarray(o),
+        jnp.asarray(d), 1e-4))
+    fin = np.isfinite(t_w)
+    i_w = np.where(fin, jcs.order[np.where(fin, r_w, 0)], 0)
+    cs = ic.CulledScene(tg)
+    np.testing.assert_array_equal(cs.order, jcs.order)
+    t_g, i_g, _ = (x.numpy() for x in cs.closest_tuv(
+        torch.from_numpy(o), torch.from_numpy(d)))
+    assert 0 < fin.mean() < 1
+    tol = _t_tol(tg, o, d, i_w, t_w)
+    np.testing.assert_array_equal(np.isfinite(t_g), fin)
+    assert (np.abs(t_g[fin].astype(np.float64) - t_w[fin]) <= tol[fin]).all()
+    same = i_g == i_w
+    assert (same | _near_tie(tg, o, d, tol)).all()
+    prim = tg.tri_prim.numpy()
+    np.testing.assert_array_equal(prim[i_g], prim[i_w])
+    assert (i_g[~fin] == 0).all()
+    # the Hit records: equal wherever the primitives are (all rays)
+    want = jcs.closest_hit(jg, jnp.asarray(o), jnp.asarray(d))
+    got = cs.closest_hit(tg, torch.from_numpy(o), torch.from_numpy(d))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    for f in ("prim", "n", "albedo", "emission", "material"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("max_tris_per_part", [None, 128])
+def test_culled_closest_hit_vs_allpairs_bitwise(sub2, max_tris_per_part):
+    """The culled query equals the all-pairs plain version's (t, id)
+    bitwise, in one pack and split into four parts, and its Hit equals
+    the all-pairs one."""
+    _, tg = sub2
+    o, d = (torch.from_numpy(x) for x in _query_rays(1))
+    cs = ic.CulledScene(tg, max_tris_per_part=max_tris_per_part)
+    assert len(cs.parts) == (1 if max_tris_per_part is None else 4)
+    t_c, i_c, _ = cs.closest_tuv(o, d)
+    t_a, i_a = ap.closest_tuv_plain(ap.pack_triangles(tg), o, d)
+    assert torch.equal(t_c, t_a) and torch.equal(i_c, i_a)
+    got = cs.closest_hit(tg, o, d, t_min=1e-4)
+    want = ap.closest_hit(tg, ap.pack_triangles(tg), o, d,
+                          attr_pack=ap.pack_attributes(tg))
+    for f in ("valid", "t", "prim", "p", "emission"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    # on a miss the culled record is the first pack row's (as in the JAX
+    # package), the all-pairs one zeros
+    v = want.valid
+    assert (~v).any()
+    for f in ("n", "albedo", "material"):
+        assert torch.equal(getattr(got, f)[v], getattr(want, f)[v]), f
+
+
+def test_exact_tie_goes_to_lowest_original_id():
+    """Two copies of one quad in different clusters: every ray hits both
+    at the same t, and the lowest original triangle id wins in every
+    pack layout."""
+    g = jbuiltin.cornell_box("quads")
+    corners = np.concatenate([g.corners[3:4]] * 300)
+    n = corners.shape[0]
+    pl_ = tmesh.PrimList(corners=corners, is_quad=np.ones(n, bool),
+                         albedo=np.full((n, 3), 0.5, np.float32),
+                         emission=np.zeros((n, 3), np.float32),
+                         material=np.zeros(n, np.int32))
+    tg = pl_.build("cpu")
+    o = torch.tensor([[0.3, 2.0, -1.7], [-0.5, 2.0, -3.1]] * 512)
+    d = torch.tensor([[0.0, -1.0, 0.0]] * 1024)
+    for cap in (None, 128):
+        cs = ic.CulledScene(tg, max_tris_per_part=cap)
+        t, orig, _ = cs.closest_tuv(o, d)
+        assert torch.isfinite(t).all()
+        # triangle 0 and triangle n are prim 0's two halves
+        assert set(orig.tolist()) <= {0, n}
+
+
+# --- (d) any hit -------------------------------------------------------------
+
+
+def _pair_segments(tg, n, seed):
+    """n form-factor segments between random primitive pairs, as the MC
+    solve builds them: offset 1e-4 along the receiver normal, maxd = r -
+    2e-4 on facing pairs and 0 elsewhere, both primitives excluded."""
+    from tpu_pathtracer_torch.core.math_utils import dot, length
+    from tpu_pathtracer_torch.render.radiosity import sample_on_corners
+
+    g = np.random.default_rng(seed)
+    i = torch.from_numpy(g.integers(0, tg.num_prims, n))
+    j = torch.from_numpy(g.integers(0, tg.num_prims, n))
+    u = torch.from_numpy(g.random((4, n), np.float32))
+    p_i = sample_on_corners(tg.corners[i], u[0], u[1])
+    p_j = sample_on_corners(tg.corners[j], u[2], u[3])
+    seg = p_j - p_i
+    r = length(seg)
+    sd = seg / r.clamp(min=1e-20)[..., None]
+    active = ((r >= 1e-6) & (dot(tg.normal[i], sd) > 0)
+              & (-dot(tg.normal[j], sd) > 0))
+    return ((p_i + tg.normal[i] * 1e-4).contiguous(), sd.contiguous(),
+            torch.where(active, r - 2e-4, 0.0), i.to(torch.int32),
+            j.to(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def sub3_segments():
+    """The sub-3 box (2048 triangles) and 1024 form-factor segments."""
+    jg = jmesh.subdivide(jbuiltin.cornell_box("quads"), 3).build()
+    tg = _port(jg)
+    seg = _pair_segments(tg, N_QUERY, 4)
+    assert 0.3 < (seg[2] == 0).float().mean() < 0.7
+    return jg, tg, seg
+
+
+@pytest.mark.parametrize("max_tris_per_part", [None, 512])
+def test_culled_occluded_equals_allpairs_plain(sub3_segments,
+                                               max_tris_per_part):
+    """The port's plain culled any hit, in one pack and in four parts of
+    512 triangles, equals occluded_plain bitwise."""
+    _, tg, seg = sub3_segments
+    cs = ic.CulledScene(tg, max_tris_per_part=max_tris_per_part)
+    assert len(cs.parts) == (1 if max_tris_per_part is None else 4)
+    got = cs.occluded(*seg)
+    assert got.any() and not got.all()
+    assert torch.equal(got, ap.occluded_plain(
+        ap.pack_triangles(tg), ap.pack_prim_ids(tg), *seg))
+
+
+def test_culled_occluded_vs_jax(sub3_segments):
+    """Four parts of 512 triangles in both packages (the JAX OR over
+    parts with its per-part maxd cull): equal up to the module's
+    knife-edge bar."""
+    jg, tg, seg = sub3_segments
+    maxd = seg[2].numpy()
+    got = ic.CulledScene(tg, max_tris_per_part=512).occluded(*seg).numpy()
+    jcs = ip.CulledScene(jg, max_tris_per_part=512)
+    assert len(jcs.parts) == 4
+    want = np.asarray(jcs.occluded(*(jnp.asarray(x.numpy()) for x in seg)))
+    assert want.any() and (~want).any()
+    diff = got != want
+    assert diff.sum() <= 4, np.nonzero(diff)
+    assert not (diff & (maxd == 0)).any() and not got[maxd == 0].any()
+
+
+# --- the wrappers -------------------------------------------------------------
+
+
+def test_cpu_wrappers_take_plain_versions_without_launch(sub2):
+    _, tg = sub2
+    cs = ic.CulledScene(tg)
+    p = cs.parts[0]
+    o, d = (torch.from_numpy(x) for x in _query_rays(2))
+    before = [f.launches for f in (ic.prepass_dense, ic.prepass_gated,
+                                   ic.closest_grouped, ic.occluded_grouped)]
+    gm = ic.prepass_dense(p.cluster_min, p.cluster_max, o, d, 1e-4)
+    for a, b in zip(gm, ic.prepass_plain(p.cluster_min, p.cluster_max, o, d,
+                                         1e-4)):
+        assert torch.equal(a, b)
+    got = ic.closest_grouped(p.tri_pack, gm[0], o, d)
+    want = ic.closest_grouped_plain(p.tri_pack, gm[0], o, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    seg = _pair_segments(tg, N_QUERY, 5)
+    sm = ic.prepass_dense(p.cluster_min, p.cluster_max, seg[0], seg[1], 1e-5,
+                          seg[2])[0]
+    assert torch.equal(ic.occluded_grouped(p.tri_pack, sm, *seg),
+                       ic.occluded_grouped_plain(p.tri_pack, sm, *seg))
+    after = [f.launches for f in (ic.prepass_dense, ic.prepass_gated,
+                                  ic.closest_grouped, ic.occluded_grouped)]
+    assert after == before
+
+
+def test_wrappers_validate_and_have_no_fallback():
+    cmin = torch.zeros((128, 3))
+    o = torch.zeros((1024, 3))
+    tri = torch.zeros((128 * 128, 16))
+    gm = torch.zeros((1, 4, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="whole 1024-ray tiles"):
+        ic.prepass_dense(cmin, cmin, o[:1000], o[:1000], 1e-4)
+    with pytest.raises(ValueError):
+        ic.prepass_dense(cmin, cmin[:5], o, o, 1e-4)
+    with pytest.raises(ValueError):
+        ic.closest_grouped(tri, gm[..., :64], o, o)
+    with pytest.raises(ValueError):
+        ic.occluded_grouped(tri, gm, o, o, torch.ones(1024),
+                            torch.zeros(1024, dtype=torch.int64),
+                            torch.zeros(1024, dtype=torch.int32))
+    meta = [x.to("meta") for x in (cmin, o, tri, gm)]
+    with pytest.raises(ValueError, match="no kernel"):
+        ic.prepass_dense(meta[0], meta[0], meta[1], meta[1], 1e-4)
+    with pytest.raises(ValueError, match="no kernel"):
+        ic.closest_grouped(meta[2], meta[3], meta[1], meta[1])
+
+
+@pytest.mark.parametrize("kw", [dict(sort_rays=True), dict(grouped=False),
+                                dict(regroup=True)])
+def test_unported_culled_options_raise(sub2, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*22"):
+        ic.CulledScene(sub2[1], **kw)
+
+
+# --- (e) the tile swizzle ----------------------------------------------------
+
+
+@pytest.mark.parametrize("w,h", [(32, 32), (64, 96), (256, 256), (48, 32)])
+def test_tile_swizzle_matches_jax(w, h):
+    want = jrenderer._tile_swizzle(w, h, w * h)
+    got = trenderer._tile_swizzle(w, h, w * h)
+    if want is None:
+        assert got is None
+        return
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    perm, inv = got
+    np.testing.assert_array_equal(np.sort(perm), np.arange(w * h))
+    np.testing.assert_array_equal(perm[inv], np.arange(w * h))
+
+
+# --- (f) the App on the culled backend -----------------------------------------
+
+
+_SUB3 = dict(scene="cbox_quads", subdivision=3, width=32, height=32, spp=2,
+             spp_per_pass=2, max_depth=3)
+
+
+def _film(**kw):
+    r = App(Config(**{**_SUB3, **kw}), device="cpu").renderer()
+    r.step()
+    return r
+
+
+def test_app_culled_film_equals_allpairs_bitwise():
+    """The sub-3 box through the culled backend (its plain versions on the
+    CPU, lanes in swizzled tile order) and through the all-pairs one:
+    the same film, bitwise."""
+    culled = _film(backend="culled")
+    assert culled.culled is not None and culled.tri_pack is None
+    allpairs = _film(backend="pallas")
+    assert torch.equal(culled.film.accum, allpairs.film.accum)
+    assert culled.total_rays == allpairs.total_rays > 0
+    assert culled.film.accum.sum() > 0
+
+
+@pytest.mark.parametrize("w,h,chunk", [(32, 32, 1000), (40, 24, 512)])
+def test_culled_film_invariant_to_ray_chunk(w, h, chunk):
+    """Batches are whole 1024-lane tiles (ray_chunk rounds to them); a
+    frame that does not tile by 32 runs in pixel order. The film is
+    bitwise the same either way."""
+    kw = dict(width=w, height=h, subdivision=2)
+    ref = _film(backend="culled", ray_chunk=1 << 20, **kw)
+    other = _film(backend="culled", ray_chunk=chunk, **kw)
+    assert torch.equal(ref.film.accum, other.film.accum)
+    assert torch.equal(ref.film.accum,
+                       _film(backend="pallas", **kw).film.accum)
+
+
+def test_app_culled_solve_equals_k3_route_bitwise():
+    """The sub-2 gather solve with visibility through the culled any hit
+    (K7's plain version) equals the solve through K3's, bitwise."""
+    kw = dict(scene="cbox_quads", subdivision=2, mc_samples=2,
+              radiosity_iterations=3)
+    a = App(Config(backend="culled", **kw), device="cpu")
+    sol_c = a.run_solver()
+    assert a.culled is not None
+    sol_k = App(Config(backend="pallas", **kw), device="cpu").run_solver()
+    for f in ("form_factors", "radiosity", "unshot", "grid_counts",
+              "rad_grid", "history"):
+        assert torch.equal(getattr(sol_c, f), getattr(sol_k, f)), f
+    assert (sol_c.form_factors > 0).any()
+
+
+def test_radiosity_view_through_culled_primary_hits():
+    kw = dict(scene="cbox_quads", subdivision=1, width=32, height=32, spp=2,
+              integrator="radiosity", mc_samples=2, radiosity_iterations=3)
+    culled = App(Config(backend="culled", **kw), device="cpu")
+    img = culled.render()
+    assert culled.culled is not None and img.max() > 0
+    brute = App(Config(backend="brute", **kw), device="cpu")
+    brute.load_scene()
+    brute.solution = culled.solution
+    np.testing.assert_array_equal(img, brute.render())

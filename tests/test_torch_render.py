@@ -228,7 +228,7 @@ def test_cosine_sample_matches_jax():
     dict(nee=True),
     dict(nee=True, sampling_mode="mis"),
     dict(radiosity_solver="shooting"),
-    dict(backend="culled"),
+    dict(backend="culled", balance_lanes=4),
     dict(backend="bvh"),
     dict(radiosity_solver="shooting", integrator="radiosity"),
     dict(sort_rays=True),
@@ -340,10 +340,19 @@ def test_config_json_loads_in_both_packages():
 
 
 def test_unported_scenes_raise():
-    for scene in ("scenes/cbox.obj", "scenes/stress100k.pbrt"):
-        app = App(Config(scene=scene), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            app.load_scene()
+    app = App(Config(scene="scenes/cbox.obj"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        app.load_scene()
+
+
+def test_pbrt_scene_loads():
+    """A .pbrt scene loads into the App (here on the culled backend, the
+    one "auto" picks for it on CUDA) and its camera is adopted."""
+    app = App(Config(scene="scenes/stress100k.pbrt", backend="culled"),
+              device="cpu")
+    geom = app.load_scene()
+    assert geom.num_tris == 101_704 and app.culled is not None
+    assert app.config.camera_origin == (0.0, 1.2, 4.2)
 
 
 @pytest.mark.parametrize("flag", [["--kernel-profile"], ["--profile"]])
@@ -436,10 +445,11 @@ def test_package_imports_without_jax():
     module of the package still imports."""
     mods = ["tpu_pathtracer_torch." + m for m in (
         "app", "cli", "core.rng", "core.math_utils", "core.constants",
-        "ops.filters", "ops.guiding", "ops.intersect",
-        "ops.intersect_allpairs", "ops.tonemap", "render.camera",
-        "render.film", "render.integrator", "render.radiosity",
-        "render.renderer", "scene.builtin", "scene.mesh",
+        "ops.cluster_layout", "ops.filters", "ops.guiding", "ops.intersect",
+        "ops.intersect_allpairs", "ops.intersect_culled", "ops.tonemap",
+        "render.camera", "render.film", "render.integrator",
+        "render.radiosity", "render.renderer", "scene.builtin", "scene.mesh",
+        "scene.pbrt_loader",
         "utils.config", "utils.cuda_build", "utils.logger", "utils.png",
     )]
     code = ("import sys; sys.modules['jax'] = None\n"

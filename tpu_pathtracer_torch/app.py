@@ -10,11 +10,14 @@ given; a `Config` JSON and a checkpoint npz load in both packages.
 
 Backends: "pallas" selects the hand-written all-pairs kernels
 (ops/intersect_allpairs.py: K2 for hits, K3 for form-factor visibility;
-their plain torch versions on the CPU) and "brute" the brute-force
-queries. "auto" selects the kernels on CUDA and brute force on the CPU up
-to 2048 triangles, as the JAX package does on its accelerator and on the
-CPU. Options this package does not port yet raise NotImplementedError
-naming the ROADMAP item that will port them.
+their plain torch versions on the CPU), "culled" the cluster-culled
+kernels for large scenes (ops/intersect_culled.py: the K4/K5 prepass, K6
+for hits, K7 for visibility) and "brute" the brute-force queries. "auto"
+selects, as the JAX package does on its accelerator and on the CPU, the
+all-pairs kernels on CUDA up to 16,384 triangles and the culled ones
+above, and brute force on the CPU up to 2048 triangles. Options this
+package does not port yet raise NotImplementedError naming the ROADMAP
+item that will port them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from .ops.intersect_allpairs import (
     pack_prim_ids,
     pack_triangles,
 )
+from .ops.intersect_culled import CulledScene
 from .render.camera import CameraController
 from .render.film import Film
 from .render.radiosity import RadiositySolution, solve_radiosity
@@ -51,6 +55,7 @@ from .render.renderer import (
     render_radiosity_view,
 )
 from .scene.builtin import cornell_box
+from .scene.pbrt_loader import parse_pbrt
 from .scene.mesh import (
     Geometry,
     PrimList,
@@ -72,7 +77,6 @@ _BUILTINS = {
 }
 
 _UNPORTED_BACKENDS = {
-    "culled": "the cluster-culled backend is ROADMAP Queue 1 item 17",
     "bvh": "the BVH backend is ROADMAP Queue 1 item 18",
 }
 
@@ -98,20 +102,25 @@ def check_ported(cfg: Config) -> None:
     if cfg.nee:
         raise _not_ported("nee (next-event estimation) is ROADMAP Queue 1 "
                           "item 12")
-    if cfg.sort_rays or cfg.balance_lanes > 1:
-        raise _not_ported("sort_rays and balance_lanes are ROADMAP Queue 1 "
-                          "item 17")
+    if cfg.sort_rays:
+        raise _not_ported("sort_rays (the row kernel K11 and its probe K8) "
+                          "is ROADMAP Queue 1 item 22")
+    if cfg.balance_lanes > 1:
+        raise _not_ported("balance_lanes (the balanced lane queues) is "
+                          "ROADMAP Queue 1 item 17c")
     if cfg.num_tiles > 1:
         raise _not_ported("num_tiles (multi-device tiling) is ROADMAP "
                           "Queue 1 item 21")
     if cfg.backend in _UNPORTED_BACKENDS:
         raise _not_ported(_UNPORTED_BACKENDS[cfg.backend])
-    if cfg.backend not in ("auto", "brute", "pallas"):
+    if cfg.backend not in ("auto", "brute", "pallas", "culled"):
         raise ValueError(f"unknown backend '{cfg.backend}'")
 
 
 def load_prims(cfg: Config) -> PrimList:
-    """Builtin scenes, then optional quad splitting and subdivision."""
+    """Builtin scenes and .pbrt files, then optional quad splitting and
+    subdivision. A .pbrt scene's camera is adopted when the config's
+    camera is left at its defaults (additive: the reference discards it)."""
     if cfg.scene in _BUILTINS:
         prims = _BUILTINS[cfg.scene](cfg)
     else:
@@ -119,12 +128,24 @@ def load_prims(cfg: Config) -> PrimList:
         if ext == ".obj":
             raise _not_ported("OBJ scenes (obj_loader) are ROADMAP Queue 1 "
                               "item 4b")
-        if ext == ".pbrt":
-            raise _not_ported("PBRT scenes are ROADMAP Queue 1 item 16")
-        raise ValueError(
-            f"unsupported scene '{cfg.scene}' (builtins: "
-            f"{sorted(_BUILTINS)})"
-        )
+        if ext != ".pbrt":
+            raise ValueError(
+                f"unsupported scene '{cfg.scene}' (.pbrt files and builtins "
+                f"{sorted(_BUILTINS)})"
+            )
+        scene = parse_pbrt(cfg.scene, max_triangles=cfg.pbrt_max_triangles)
+        prims = scene.prims
+        default = Config()
+        if scene.camera_lookat and (
+            cfg.camera_origin == default.camera_origin
+            and cfg.look_at == default.look_at
+        ):
+            eye, tgt, up = scene.camera_lookat
+            cfg.camera_origin = tuple(eye)
+            cfg.look_at = tuple(tgt)
+            cfg.up = tuple(up)
+            if scene.camera_fov:
+                cfg.fov = scene.camera_fov
     if cfg.convert_quads:
         prims = convert_quads_to_triangles(prims)
     if cfg.subdivision > 0:
@@ -146,6 +167,7 @@ class App:
         self.geom: Geometry | None = None
         self.tri_pack = None
         self.attr_pack = None
+        self.culled: CulledScene | None = None
         self.solution: RadiositySolution | None = None
         self.cdfs: CDFPack | None = None
         self.filtered_formfactor = None   # (N, 256) filtered float PDFs
@@ -177,7 +199,8 @@ class App:
     def _select_backend(self) -> None:
         """"auto" -> the all-pairs kernel on CUDA (the cluster-culled
         backend above 16384 triangles), brute force on the CPU up to 2048
-        triangles (the BVH above)."""
+        triangles (the BVH above). "culled" on the CPU runs the culled
+        path's plain versions."""
         backend = self.config.backend
         n = self.geom.num_tris
         if backend == "auto":
@@ -187,8 +210,12 @@ class App:
                 backend = "bvh" if n > 2048 else "brute"
         if backend in _UNPORTED_BACKENDS:
             raise _not_ported(_UNPORTED_BACKENDS[backend])
-        self.tri_pack = self.attr_pack = None
-        if backend == "pallas":
+        self.tri_pack = self.attr_pack = self.culled = None
+        if backend == "culled":
+            self.culled = CulledScene(self.geom)
+            log.info("Backend: cluster-culled kernels (%d tris, %d clusters)",
+                     n, self.culled.num_clusters)
+        elif backend == "pallas":
             self.tri_pack = pack_triangles(self.geom)
             self.attr_pack = pack_attributes(self.geom)
             log.info("Backend: all-pairs kernel (%d tris -> %s pack)",
@@ -204,8 +231,9 @@ class App:
 
     def run_solver(self) -> RadiositySolution:
         """RadiosityState::runSolver: the gather solve, with in-loop grid
-        filtering when enable_grid_filtering; visibility through K3 on
-        the all-pairs backend, brute force otherwise."""
+        filtering when enable_grid_filtering; visibility through K7 on the
+        culled backend, K3 on the all-pairs backend, brute force
+        otherwise."""
         cfg = self.config
         if self.geom is None:
             self.load_scene()
@@ -218,7 +246,7 @@ class App:
             else:
                 def filter_fn(g):
                     return gaussian_filter_rgb(g, cfg.sigma_spatial)
-        occlusion_packs = None
+        occlusion_packs = self.culled
         if self.tri_pack is not None:
             occlusion_packs = (self.tri_pack, pack_prim_ids(self.geom))
         if cfg.radiosity_solver == "auto" and self.geom.num_prims > 16384:
@@ -324,6 +352,7 @@ class App:
                 attr_pack=self.attr_pack,
                 cdfs=self.cdfs,
                 mis_bsdf_fraction=cfg.mis_bsdf_fraction,
+                culled=self.culled,
             )
         return self._renderer
 
@@ -343,6 +372,7 @@ class App:
                 self.geom, self.solution.radiosity,
                 self.camera_ctrl.build(self.device),
                 rng.base_key(cfg.seed), self._view_settings(),
+                culled=self.culled,
             )
             return img.cpu().numpy()[::-1]
         r = self.renderer()
@@ -367,7 +397,7 @@ class App:
         img = render_radiosity_view(
             self.geom, delta, self.camera_ctrl.build(self.device),
             rng.base_key(cfg.seed), self._view_settings(),
-            include_emission=False,
+            include_emission=False, culled=self.culled,
         )
         return img.cpu().numpy()[::-1]
 

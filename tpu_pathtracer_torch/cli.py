@@ -12,6 +12,8 @@ Examples:
         --width 1024 --height 1024 --spp 16 --out mis.png
     python -m tpu_pathtracer_torch.cli --subdivision 3 --integrator \
         radiosity --width 1024 --height 1024 --out rad.png
+    python -m tpu_pathtracer_torch.cli --scene scenes/stress100k.pbrt \
+        --width 256 --height 256 --spp 16 --out stress.png
 """
 
 from __future__ import annotations

@@ -2,15 +2,15 @@
 mirror, RR).
 
 Counterpart: `tpu_pathtracer/render/integrator.py` (`_sample_pure_grid`,
-`_sample_mis`, `_num_draws`, `_shade` without NEE, `_intersect`,
-`trace_wavefront` for one queue slot). The estimator is the reference's:
-per bounce, intersect with t_min = 1e-4, L += beta * Le, Russian roulette
-for depth > 2 with p = min(max(beta), 0.95), beta *= albedo, kill when
-|beta| < 1e-5, sample the next direction around the forward-facing
-normal by the sampling mode (cosine; the radiosity grid with the
-cos/(pi pdf) weight; or one-sample MIS of the two with the power
-heuristic; the 10x firefly clamps), or reflect on a mirror, and respawn
-at p + n * 1e-4.
+`_sample_mis`, `_num_draws`, `_shade` without NEE, `_intersect` with the
+all-pairs and culled backends, `trace_wavefront` for one queue slot). The
+estimator is the reference's: per bounce, intersect with t_min = 1e-4,
+L += beta * Le, Russian roulette for depth > 2 with p = min(max(beta),
+0.95), beta *= albedo, kill when |beta| < 1e-5, sample the next direction
+around the forward-facing normal by the sampling mode (cosine; the
+radiosity grid with the cos/(pi pdf) weight; or one-sample MIS of the two
+with the power heuristic; the 10x firefly clamps), or reflect on a mirror,
+and respawn at p + n * 1e-4.
 
 Every draw is keyed by (pass key, pixel id, sample, depth) through
 `rng.lane_uniforms`, so the film does not depend on batch layout or on
@@ -152,7 +152,10 @@ def _shade(hit: Hit, d, beta, live, draws, do_rr, mode=SAMPLING_BSDF,
     return o_next, nd, beta, live, contribution
 
 
-def _intersect(geom: Geometry, o, d, tri_pack, attr_pack) -> Hit:
+def _intersect(geom: Geometry, o, d, tri_pack, attr_pack,
+               culled=None) -> Hit:
+    if culled is not None:
+        return culled.closest_hit(geom, o, d, t_min=RAY_EPS)
     if tri_pack is not None:
         return intersect_allpairs.closest_hit(
             geom, tri_pack, o, d, t_min=RAY_EPS, attr_pack=attr_pack
@@ -176,6 +179,7 @@ def trace_wavefront(
     cdfs: CDFPack | None = None,
     mis_bsdf_fraction: float = 0.5,
     check_every: int = 8,
+    culled=None,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Persistent wavefront with same-pixel respawn.
 
@@ -189,6 +193,8 @@ def trace_wavefront(
         key: the pass's path key (`stream_key(pass_key, STREAM_PATH)`).
         tri_pack / attr_pack: the all-pairs packs; None selects the
             brute-force intersector.
+        culled: a CulledScene (ops/intersect_culled.py); takes precedence
+            over the packs.
         mode: SAMPLING_* constant; every mode but BSDF needs `cdfs`.
         mis_bsdf_fraction: the BSDF share of one-sample MIS.
         check_every: test for live lanes every this many iterations
@@ -207,7 +213,8 @@ def trace_wavefront(
     max_iters = spp * max_depth + max_depth
     pid = lane_ids.to(torch.int64)
     # Lanes that finished every sample park on a ray that starts outside
-    # the scene and points away.
+    # the scene and points away (the culled prepass schedules nothing for
+    # them).
     park_o = geom.corners.reshape(-1, 3).amax(dim=0) + 1.0
     park_d = torch.tensor([1.0, 0.0, 0.0], device=dev)
 
@@ -241,7 +248,7 @@ def trace_wavefront(
         if check_every and it % check_every == 0 and not bool(alive.any()):
             break
         rays += alive.sum()
-        hit = _intersect(geom, o, d, tri_pack, attr_pack)
+        hit = _intersect(geom, o, d, tri_pack, attr_pack, culled)
         live = alive & hit.valid
         # (sample, depth) counter: `done` counts started samples, so the
         # in-flight sample is done - 1; depth is pre-increment.

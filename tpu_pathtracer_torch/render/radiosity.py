@@ -24,8 +24,10 @@ bitwise reproducible on the card. The f32 products must run in full f32
 
 Visibility (`occlusion_packs`) is the brute-force `ops.intersect.occluded`
 (None), K3 on the all-pairs packs ((tri_pack, prim_ids), see
-ops/intersect_allpairs.py), or any callable (o, d, maxd, ex_a, ex_b) ->
-blocked, which is how a caller passes a plain version in explicitly.
+ops/intersect_allpairs.py), K7 through a CulledScene (anything with an
+`occluded` method, ops/intersect_culled.py), or any callable (o, d, maxd,
+ex_a, ex_b) -> blocked, which is how a caller passes a plain version in
+explicitly.
 """
 
 from __future__ import annotations
@@ -116,9 +118,12 @@ def _pair_culling(geom: Geometry, rows: torch.Tensor,
 
 def _occluded_dispatch(geom, o, d, maxd, ex_a, ex_b, occlusion_packs):
     """Visibility of flat segments through the brute-force query (None),
-    K3 ((tri_pack, prim_ids)) or a callable."""
+    K7 (a CulledScene; inactive pairs carry maxd = 0, which the prepass
+    culls), K3 ((tri_pack, prim_ids)) or a callable."""
     if occlusion_packs is None:
         return occluded(geom, o, d, maxd, exclude_a=ex_a, exclude_b=ex_b)
+    if hasattr(occlusion_packs, "occluded"):
+        return occlusion_packs.occluded(o, d, maxd, ex_a, ex_b)
     if callable(occlusion_packs):
         return occlusion_packs(o, d, maxd, ex_a, ex_b)
     tri_pack, prim_ids = occlusion_packs

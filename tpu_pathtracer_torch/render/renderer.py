@@ -1,13 +1,16 @@
 """Render orchestration: progressive render passes and the radiosity view.
 
 Counterpart: `tpu_pathtracer/render/renderer.py` (`RenderSettings`,
-`render_pass`, `render_radiosity_view`, `pick_primitive`,
+`_tile_swizzle`, `render_pass`, `render_radiosity_view`, `pick_primitive`,
 `ProgressiveRenderer`). A pass traces `spp_per_pass`
 samples for every pixel in batches of `ray_chunk` lanes (the JAX
 package's `lax.map` over chunks becomes a loop) and adds into the film.
 Every draw is keyed by (pass, global pixel id, sample, depth), never by a
 lane's position in its batch, so the film is bitwise the same for every
 `ray_chunk`: a device with room may trace the frame in larger batches.
+On the culled backend lanes run in `_tile_swizzle` order (each 1024-lane
+tile a 32x32 pixel block), which the pixel-keyed draws also leave the
+film bitwise unchanged by.
 
 Options of the JAX package that this package does not port yet raise
 NotImplementedError naming the ROADMAP item that will port them.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..core import rng
@@ -55,10 +59,11 @@ class RenderSettings:
              "item 8b"),
             (self.nee, "next-event estimation (nee) is ROADMAP Queue 1 "
              "item 12"),
-            (self.sort_rays or self.balance_lanes > 1
-             or self.balance_tile_sync,
-             "sort_rays and the balanced lane queues are ROADMAP Queue 1 "
-             "item 17"),
+            (self.sort_rays, "sort_rays (the row kernel K11 and its probe "
+             "K8) is ROADMAP Queue 1 item 22"),
+            (self.balance_lanes > 1 or self.balance_tile_sync,
+             "the balanced lane queues (balance_lanes, balance_tile_sync) "
+             "are ROADMAP Queue 1 item 17c"),
         ]
         for hit, what in unported:
             if hit:
@@ -67,6 +72,28 @@ class RenderSettings:
     @property
     def num_pixels(self) -> int:
         return self.width * self.height
+
+
+def _tile_swizzle(w: int, h: int, npix: int):
+    """Lane -> pixel permutation for the cluster-culled backend: each
+    1024-lane tile is a 32x32 pixel block, each 128-lane row a 16x8 block
+    and each 8-lane group a 4x2 block, so the rays that share a cull mask
+    share a compact frustum. Returns (perm, inv) int64 arrays with
+    perm[lane] = pixel, or None when the image does not tile by 32."""
+    if npix != w * h or w % 32 or h % 32:
+        return None
+    lane = np.arange(npix)
+    tile, r = divmod(lane, 1024)
+    blk, i = divmod(r, 128)
+    tx, ty = tile % (w // 32), tile // (w // 32)
+    bx, by = blk % 2, blk // 2
+    g, s = divmod(i, 8)
+    x = tx * 32 + bx * 16 + (g % 4) * 4 + s % 4
+    y = ty * 32 + by * 8 + (g // 4) * 2 + s // 4
+    perm = y * w + x
+    inv = np.empty_like(perm)
+    inv[perm] = lane
+    return perm, inv
 
 
 def render_pass(
@@ -79,32 +106,43 @@ def render_pass(
     attr_pack: torch.Tensor | None = None,
     cdfs: CDFPack | None = None,
     mis_bsdf_fraction: float = 0.5,
+    culled=None,
 ) -> tuple[torch.Tensor, int]:
     """Trace settings.spp_per_pass samples per pixel and add them into
-    `film` (in place); guided modes sample by `cdfs`. Returns (rays
-    traced as an int64 device scalar, wavefront iterations run over all
-    batches: one intersection each)."""
+    `film` (in place); guided modes sample by `cdfs`. With `culled` (a
+    CulledScene) batches are whole 1024-lane tiles in swizzled lane order.
+    Returns (rays traced as an int64 device scalar, wavefront iterations
+    run over all batches: one intersection each)."""
     s = settings
     dev = film.accum.device
     npix = s.num_pixels
     chunk = min(s.ray_chunk, npix)
+    swz = None
+    if culled is not None:
+        chunk = max(1024, (chunk // 1024) * 1024)
+        swz = _tile_swizzle(s.width, s.height, npix)
+    pix = (torch.arange(npix, device=dev) if swz is None
+           else torch.from_numpy(swz[0]).to(dev))
     pass_key = rng.fold_in(key, film.passes)
     path_key = rng.stream_key(pass_key, rng.STREAM_PATH)
     radiance = torch.empty((npix, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     iters = 0
     for start in range(0, npix, chunk):
-        lane_ids = torch.arange(start, min(start + chunk, npix), device=dev)
+        lane_ids = pix[start:start + chunk]
         total, r, it = trace_wavefront(
             geom, camera, lane_ids, path_key,
             width=s.width, height=s.height, spp=s.spp_per_pass,
             max_depth=s.max_depth, tri_pack=tri_pack, attr_pack=attr_pack,
             mode=s.sampling_mode, cdfs=cdfs,
-            mis_bsdf_fraction=mis_bsdf_fraction,
+            mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
         )
         radiance[start:start + lane_ids.shape[0]] = total
         rays += r
         iters += it
+    if swz is not None:
+        # back from lane order to pixel order
+        radiance = radiance[torch.from_numpy(swz[1]).to(dev)]
     film.add_pass(radiance.view(s.height, s.width, 3), s.spp_per_pass)
     return rays, iters
 
@@ -117,10 +155,12 @@ def render_radiosity_view(
     settings: RenderSettings,
     include_emission: bool = True,
     display: str = "current",
+    culled=None,
 ) -> torch.Tensor:
     """Direct radiosity visualization (render_radiosity,
     integrator.h:460-504): primary hit (brute force, as in the JAX
-    package) -> Le + B_i, averaged over spp_per_pass jittered samples,
+    package, or through `culled`, a CulledScene) -> Le + B_i, averaged
+    over spp_per_pass jittered samples,
     sqrt gamma, u8. include_emission=False shows an arbitrary
     per-primitive color field (history delta images); display="legacy"
     is Reinhard + gamma 1/2.2 of B alone.
@@ -148,7 +188,10 @@ def render_radiosity_view(
             jit2 = rng.uniform(rng.fold_in(ckey, samp), (chunk, 2), dev)
             o, d = camera.get_rays((x + jit2[:, 0]) / s.width,
                                    (y + jit2[:, 1]) / s.height)
-            hit = closest_hit(geom, o, d, t_min=RAY_EPS)
+            if culled is not None:
+                hit = culled.closest_hit(geom, o, d, t_min=RAY_EPS)
+            else:
+                hit = closest_hit(geom, o, d, t_min=RAY_EPS)
             base = radiosity[hit.prim]
             if include_emission and display != "legacy":
                 base = base + hit.emission
@@ -192,8 +235,10 @@ class ProgressiveRenderer:
         attr_pack: torch.Tensor | None = None,
         cdfs: CDFPack | None = None,
         mis_bsdf_fraction: float = 0.5,
+        culled=None,
     ):
         self.device = torch.device(device)
+        self.culled = culled
         self.geom = geom.to(self.device)
         self.camera = camera.to(self.device)
         self.settings = settings
@@ -222,6 +267,7 @@ class ProgressiveRenderer:
         rays, iters = render_pass(
             self.geom, self.camera, self.film, self.key, self.settings,
             self.tri_pack, self.attr_pack, self.cdfs, self.mis_bsdf_fraction,
+            self.culled,
         )
         self._rays += rays
         self.iterations += iters
