@@ -7,9 +7,10 @@ its plain versions and renders on the card.
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device    the card's name and power limit (nvidia-smi);
-  2. build     nvcc builds csrc/closest_hit.cu (K1, K2), csrc/any_hit.cu
-               (K3), csrc/cluster_prepass.cu (K4, K5), csrc/grouped_closest.cu
-               (K6) and csrc/grouped_anyhit.cu (K7) from the checkout into
+  2. build     nvcc builds csrc/closest_hit.cu (K1, K2, K9), csrc/any_hit.cu
+               (K3), csrc/cluster_prepass.cu (K4, K5, K8, K10),
+               csrc/grouped_closest.cu (K6), csrc/grouped_anyhit.cu (K7) and
+               csrc/row_closest.cu (K11) from the checkout into
                build/tpu_pathtracer_torch/, one nvcc per source, started
                together;
   3. kernels   every kernel against its plain torch version on the card,
@@ -68,14 +69,32 @@ Phases, one line each (any failure raises and exits non-zero):
                iterations through K7, timed with CUDA events; the sub-3
                solve of phase 5 through the culled backend must equal the
                one through K3 bitwise; the 1024x1024 radiosity view of the
-               sub-5 solution through the culled primary hit.
+               sub-5 solution through the culled primary hit;
+ 10. rows      the row-granular culled backend and ray sorting: K8, K10,
+               K9 and K11 against their plain versions, bitwise, on 65,536
+               camera and 65,536 bounce rays of stress100k (K11 also its
+               visited counts; the early-out must fire on a camera tile),
+               K10 and K11 on the 1M-triangle scene, K11's (t, original
+               id) against K6's and K2's on the sub-3 box; timed against
+               the plain versions in turns. Then stress100k through
+               CulledScene(sort_rays=True) with RenderSettings(sort_rays=
+               True) (K8, K10 and K11 once per wavefront iteration): one
+               warm-up and 3 timed passes, the first pass bitwise equal to
+               phase 8's, as are the first passes through CulledScene(
+               grouped=False), CulledScene(regroup=True) and App(Config(
+               sort_rays=True)).
 
 The second-to-last line is the kernel record (JSON; each kernel's
 launches are those of the phase that drives its path: K2 the headline,
 K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
-passes, K5 the 1M-triangle pass, K7 the sub-5 solve; K1 is on no path of
-the App), the last line {"ok": true, "device": {...}}. Imports nothing of
-jax.
+passes, K5 the 1M-triangle pass, K7 the sub-5 solve, K8, K10 and K11 the
+sorted stress100k passes, K9 its own call; K1 is on no path of the App).
+Each kernel's bound is the larger of its operations at the H100's f32
+peak and its bytes at its memory rate, from the timed call's inputs and
+outputs; the work that depends on the data (pair tests behind the masks,
+the any hits' early exits) is counted as that call needs it. No PyTorch
+call computes a ray-triangle or ray-box query, so `library_ms` is null.
+The last line is {"ok": true, "device": {...}}. Imports nothing of jax.
 """
 
 from __future__ import annotations
@@ -128,9 +147,51 @@ LARGE = dict(scene=STRESS, width=256, height=256, max_depth=4,
 SOLVE5 = dict(scene="cbox_quads", subdivision=5, mc_samples=2,
               radiosity_iterations=8)
 
+# NVIDIA's H100 SXM data sheet (at the 700 W limit): f32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# flops of one ray-triangle test in the Pallas op order (os 6, ds 5, t 2,
+# u 13, v 13, u + v 1) and of one ray-box slab test (per axis 2 sub, 2 mul,
+# min, max and the running max and min)
+PAIR_FLOPS = 40
+SLAB_FLOPS = 24
+
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def bound(flops, *tensors) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for `flops` f32 operations and the bytes of `tensors` (each input read
+    once, each output written once)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def set_bits(x: torch.Tensor) -> int:
+    """Set bits of an int32 tensor."""
+    shift = torch.arange(32, device=x.device, dtype=torch.int32)
+    return int(((x[..., None] >> shift) & 1).sum())
+
+
+def anyhit_pairs(scheduled, maxd, blocked) -> int:
+    """Pair tests an any hit needs: every scheduled pair of an active lane
+    that nothing blocks, one of a blocked lane."""
+    free = (maxd > 0) & ~blocked
+    return int((scheduled * free).sum()) + int(blocked.sum())
+
+
+def group_pairs(gmask) -> torch.Tensor:
+    """(B,) ray-triangle pairs the grouped walk schedules for each ray:
+    128 for every cluster its 8-ray group's bit is set in."""
+    shift = torch.arange(32, device=gmask.device, dtype=torch.int32)
+    per_group = ((gmask[:, :, None, :] >> shift[None, None, :, None]) & 1
+                 ).sum(dim=3).reshape(gmask.shape[0], -1)
+    return per_group.repeat_interleave(8, dim=1).reshape(-1) * 128
 
 
 def rel_rmse(got: np.ndarray, want: np.ndarray) -> float:
@@ -211,22 +272,25 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs()[~same].max())
 
 
+def time_call(fn, reps: int) -> float:
+    """ms per call of fn after one warm-up call, with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_pair(plain, kernel, reps: int = 50) -> tuple[float, float]:
     """ms per call of plain and kernel, with CUDA events, in turns
     plain, kernel, kernel, plain."""
-    def run(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    p1, k1, k2, p2 = run(plain), run(kernel), run(kernel), run(plain)
+    p1, k1, k2, p2 = (time_call(fn, reps)
+                      for fn in (plain, kernel, kernel, plain))
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
@@ -240,12 +304,14 @@ def zero_counts() -> None:
     """Set every kernel's launch count to 0."""
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
 
     ap.closest_tuv.launches = 0
     ap.closest_record.launches = 0
     ap.closest_record.guide_launches = 0
     ap.occluded.launches = 0
     ic.zero_launch_counts()
+    lg.zero_launch_counts()
 
 
 def swizzled_camera_rays(cam, size: int, seed: int, dev):
@@ -301,20 +367,18 @@ def generate_1m(dev_dir: str) -> str:
     return gen.generate(dev_dir, tag="1m", n=709)
 
 
-def culled_kernels(dev, cam, scenes, k3_cases, err, times):
+def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
     """Phase 3, culled part: K4-K7 against their plain versions (bitwise)
     and timed against them at the main paths' shapes; the culled queries
-    against K2 and K3 on the sub-3 box. Returns the 1M scene's path."""
+    against K2 and K3 on the sub-3 box. Returns the 1M scene's path, its
+    CulledPart (one part in both backends, so the same pack) and its
+    camera."""
     from tpu_pathtracer_torch.app import load_prims
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.scene.builtin import cornell_box
     from tpu_pathtracer_torch.scene.mesh import subdivide
     from tpu_pathtracer_torch.utils.config import Config
-
-    def bits(gmask) -> int:
-        shift = torch.arange(32, device=gmask.device, dtype=torch.int32)
-        return int(((gmask[..., None] >> shift) & 1).sum())
 
     # K4 and K6 on stress100k
     cfg = Config(**LARGE)
@@ -344,7 +408,7 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times):
         phase("kernels", f"stress100k ({geom.num_tris} tris, "
               f"{cmin.shape[0]} clusters) {rname}: K4 and K6 bitwise equal "
               f"to plain {ok} (max |d| {e4}, {e6}); {float(active):.1f} "
-              f"active clusters per tile, {bits(k4[0])} (group, cluster) "
+              f"active clusters per tile, {set_bits(k4[0])} (group, cluster) "
               f"bits, {int(torch.isfinite(k6[0]).sum())}/{N_RAYS} hit; K4 "
               f"{t4[1]:.6f} ms vs plain {t4[0]:.6f} ms, K6 {t6[1]:.6f} ms vs "
               f"plain {t6[0]:.6f} ms per call")
@@ -353,6 +417,11 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times):
                                  f" stress100k {rname} (tolerance: bitwise)")
         err["K4"], err["K6"] = max(err["K4"], e4), max(err["K6"], e6)
         times["K4"], times["K6"] = t4, t6     # the bounce rays' times stay
+        c_real = int(torch.isfinite(cmin[:, 0]).sum())
+        bounds["K4"] = bound(N_RAYS * c_real * SLAB_FLOPS, cmin, cmax, o, d,
+                             *k4)
+        bounds["K6"] = bound(set_bits(k4[0]) * 8 * 128 * PAIR_FLOPS, tri,
+                             k4[0], o, d, *k6)
 
     # K4 in segment mode and K7 on form-factor and random segments
     g5 = subdivide(cornell_box("quads"), 5).build(dev)
@@ -372,12 +441,15 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times):
         ok = prepass_equal(k4, p4) and torch.equal(k7, p7)
         phase("kernels", f"K4 (segments) and K7 {cname}: {o.shape[0]} "
               f"segments, {int((maxd > 0).sum())} with maxd > 0, "
-              f"{bits(k4[0])} (group, cluster) bits, {int(k7.sum())} "
+              f"{set_bits(k4[0])} (group, cluster) bits, {int(k7.sum())} "
               f"blocked; bitwise equal to plain {ok}")
         if not ok:
             raise AssertionError(f"K4 or K7 differs from its plain version on"
                                  f" {cname} (tolerance: bitwise)")
         if cname == "cbox_sub5 ff-pairs":
+            bounds["K7"] = bound(
+                anyhit_pairs(group_pairs(k4[0]), maxd, k7) * PAIR_FLOPS,
+                p.tri_pack, k4[0], o, d, maxd, ea, eb, k7)
             times["K7"] = time_pair(
                 lambda: ic.occluded_grouped_plain(p.tri_pack, k4[0], o, d,
                                                   maxd, ea, eb),
@@ -432,6 +504,8 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times):
             raise AssertionError(f"K5 differs from K4 or its plain version on"
                                  f" the 1M scene {rname} (tolerance: bitwise)")
         times["K5"] = t5
+        bounds["K5"] = bound(quarters * 32 * 1024 * SLAB_FLOPS, cmin, cmax,
+                             gate, o, d, *k5)
 
     # the culled queries against K2 and K3 on the sub-3 box
     g3 = scenes["cbox_sub3"]
@@ -453,7 +527,7 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times):
               f"to K3's {same}")
         if not same:
             raise AssertionError("the culled any hit differs from K3")
-    return path1m
+    return path1m, p1, scene_camera(cfg1m, dev)
 
 
 def large_phase(dev, path1m, start, end):
@@ -533,7 +607,7 @@ def large_phase(dev, path1m, start, end):
           f"bitwise equal: {same}")
     if not same:
         raise AssertionError("the culled backend's film differs from K2's")
-    return launches
+    return launches, first
 
 
 def solve_phase(dev, sol3, start, end):
@@ -595,6 +669,240 @@ def solve_phase(dev, sol3, start, end):
     return k7
 
 
+def row_kernels(part, o, d, check_early_out):
+    """K8, K10, K9 and K11 on (o, d) against their plain versions; returns
+    (kernel outputs, max |d| of each, and whether all are bitwise equal)."""
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+
+    cmin, cmax, tri = part.cluster_min, part.cluster_max, part.tri_pack
+    k8 = lg.prepass_probe(cmin, cmax, o, d, 1e-4)
+    k10 = lg.prepass_rows(cmin, cmax, o, d, 1e-4)
+    sched = lg.cluster_list(k10[0], k10[1])
+    k11 = lg.closest_rows(tri, *sched, o, d, k10[2], 1e-4, return_stats=True)
+    mask = lg.cluster_mask(cmin, cmax, o, d, 1e-4)
+    k9 = lg.closest_culled(tri, mask, o, d, 1e-4)
+    plain = {
+        "K8": (lg.prepass_probe_plain(cmin, cmax, o, d, 1e-4),),
+        "K10": lg.prepass_rows_plain(cmin, cmax, o, d, 1e-4),
+        "K11": lg.closest_rows_plain(tri, *sched, o, d, k10[2], 1e-4,
+                                     return_stats=True),
+        "K9": lg.closest_culled_plain(tri, mask, o, d, 1e-4)}
+    torch.cuda.synchronize()
+    out = {"K8": (k8,), "K10": k10, "K11": k11, "K9": k9}
+    errs = {k: max(max_abs_diff(a, b) for a, b in zip(out[k], plain[k]))
+            for k in out}
+    ok = all(prepass_equal(out[k], plain[k]) for k in out)
+    visited, count = k11[2], k11[3]
+    ok &= bool((visited <= count).all())
+    if check_early_out:
+        ok &= bool((visited < count).any())
+    out["sched"], out["mask"] = sched, mask
+    return out, errs, ok
+
+
+def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds):
+    """Phase 10: K8-K11 against their plain versions (bitwise) and timed
+    against them; K11 against K6 and K2 on the sub-3 box; stress100k
+    through the sorted row backend, and the same first pass through the
+    other row-backend options and the App's lane sort, bitwise equal to
+    phase 8's. Returns the launches of K8-K11 on their paths."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+    from tpu_pathtracer_torch.render.renderer import (
+        ProgressiveRenderer,
+        RenderSettings,
+    )
+    from tpu_pathtracer_torch.scene.builtin import cornell_box
+    from tpu_pathtracer_torch.scene.mesh import subdivide
+    from tpu_pathtracer_torch.utils.config import Config
+
+    app = App(Config(**LARGE), device=dev)
+    app.load_scene()
+    geom, cfg = app.geom, app.config
+    sorted_scene = ic.CulledScene(geom, sort_rays=True)
+    part = sorted_scene.parts[0]
+    cmin, cmax, tri = part.cluster_min, part.cluster_max, part.tri_pack
+    c_real = int(torch.isfinite(cmin[:, 0]).sum())
+    rays = [("camera", *swizzled_camera_rays(scene_camera(cfg, dev), 256, 1,
+                                             dev)),
+            ("bounce", *box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                 N_RAYS, 2, dev))]
+    for rname, o, d in rays:
+        out, errs, ok = row_kernels(part, o, d, rname == "camera")
+        for k, v in errs.items():
+            err[k] = max(err[k], v)
+        sched, mask, k10, k11 = out["sched"], out["mask"], out["K10"], \
+            out["K11"]
+        t8 = time_pair(lambda: lg.prepass_probe_plain(cmin, cmax, o, d, 1e-4),
+                       lambda: lg.prepass_probe(cmin, cmax, o, d, 1e-4),
+                       reps=5)
+        t10 = time_pair(lambda: lg.prepass_rows_plain(cmin, cmax, o, d, 1e-4),
+                        lambda: lg.prepass_rows(cmin, cmax, o, d, 1e-4),
+                        reps=5)
+        t11 = time_pair(
+            lambda: lg.closest_rows_plain(tri, *sched, o, d, k10[2], 1e-4),
+            lambda: lg.closest_rows(tri, *sched, o, d, k10[2], 1e-4), reps=1)
+        slabs = N_RAYS * c_real * SLAB_FLOPS
+        bounds["K8"] = bound(slabs, cmin, cmax, o, d, out["K8"][0])
+        bounds["K10"] = bound(slabs, cmin, cmax, o, d, *k10)
+        bounds["K11"] = bound(
+            int(k11[4].sum()) * 128 * 128 * PAIR_FLOPS, tri, *sched, o, d,
+            k10[2], *k11[:3])
+        times["K8"], times["K10"], times["K11"] = t8, t10, t11
+        msg = ""
+        if rname == "bounce":        # K9's plain version walks in Python
+            times["K9"] = time_pair(
+                lambda: lg.closest_culled_plain(tri, mask, o, d, 1e-4),
+                lambda: lg.closest_culled(tri, mask, o, d, 1e-4), reps=1)
+            bounds["K9"] = bound(
+                int(mask.sum()) * 1024 * 128 * PAIR_FLOPS, tri, mask, o, d,
+                *out["K9"])
+            msg = (f", K9 {times['K9'][1]:.6f} vs plain {times['K9'][0]:.6f}"
+                   f" ms ({int(mask.sum())} (tile, cluster) mask words)")
+        phase("rows", f"stress100k ({c_real} clusters) {rname}: K8, K10, K11 "
+              f"and K9 bitwise equal to plain {ok} (max |d| {errs}); K11 "
+              f"visited {int(k11[2].sum())} of {int(k11[3].sum())} scheduled "
+              f"(tile min {int(k11[2].min())}), {int(k11[4].sum())} (row, "
+              f"cluster) tests; K8 {t8[1]:.6f} vs plain {t8[0]:.6f} ms, K10 "
+              f"{t10[1]:.6f} vs plain {t10[0]:.6f} ms, K11 {t11[1]:.6f} vs "
+              f"plain {t11[0]:.6f} ms{msg}; bounds K8 {bounds['K8'][0]:.6f}, "
+              f"K10 {bounds['K10'][0]:.6f}, K11 {bounds['K11'][0]:.6f} ms")
+        if not ok:
+            raise AssertionError(f"a row kernel differs from its plain version"
+                                 f" on stress100k {rname} (tolerance: bitwise)"
+                                 " or visited/scheduled failed")
+        # the sorted query: K8 first; (t, id) equal to the unsorted walk's
+        k_ms = time_pair(
+            lambda: lg.closest_tuv_dma(tri, cmin, cmax, o, d),
+            lambda: lg.closest_tuv_dma(tri, cmin, cmax, o, d, sort_rays=True),
+            reps=3)
+        srt = lg.closest_tuv_dma(tri, cmin, cmax, o, d, sort_rays=True,
+                                 return_stats=True)
+        same = (torch.equal(srt[0], k11[0]) and torch.equal(srt[1], k11[1]))
+        phase("rows", f"stress100k {rname}: the whole row query {k_ms[0]:.6f}"
+              f" ms unsorted, {k_ms[1]:.6f} ms sorted (K11 visits "
+              f"{int(srt[2].sum())} of {int(srt[3].sum())}); sorted (t, id) "
+              f"bitwise equal to unsorted {same}")
+        if not same:
+            raise AssertionError("sort_rays changes the row query's hits")
+
+    # K10 and K11 on the 1M-triangle scene (one part: the same pack)
+    part1m, cam1m = scene1m
+    rays = [("camera", *swizzled_camera_rays(cam1m, 256, 3, dev)),
+            ("bounce", *box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                 N_RAYS, 4, dev))]
+    n1m = int(torch.isfinite(part1m.cluster_min[:, 0]).sum())
+    for rname, o, d in rays:
+        cmin1, cmax1, tri1 = (part1m.cluster_min, part1m.cluster_max,
+                              part1m.tri_pack)
+        k10 = lg.prepass_rows(cmin1, cmax1, o, d, 1e-4)
+        p10 = lg.prepass_rows_plain(cmin1, cmax1, o, d, 1e-4)
+        sched = lg.cluster_list(k10[0], k10[1])
+        k11 = lg.closest_rows(tri1, *sched, o, d, k10[2], 1e-4,
+                              return_stats=True)
+        p11 = lg.closest_rows_plain(tri1, *sched, o, d, k10[2], 1e-4,
+                                    return_stats=True)
+        torch.cuda.synchronize()
+        ok = prepass_equal(k10, p10) and prepass_equal(k11, p11)
+        ms10 = time_call(lambda: lg.prepass_rows(cmin1, cmax1, o, d, 1e-4),
+                         reps=3)
+        ms11 = time_call(
+            lambda: lg.closest_rows(tri1, *sched, o, d, k10[2], 1e-4), reps=3)
+        phase("rows", f"1M scene ({n1m} clusters) {rname}: K10 and K11 "
+              f"bitwise equal to plain {ok}; K11 visited "
+              f"{int(k11[2].sum())} of {int(k11[3].sum())} scheduled, "
+              f"{int(k11[4].sum())} (row, cluster) tests; K10 {ms10:.6f} ms, "
+              f"K11 {ms11:.6f} ms per call")
+        if not ok:
+            raise AssertionError(f"K10 or K11 differs from its plain version "
+                                 f"on the 1M scene {rname}")
+
+    # K11 against K6 and K2 on the sub-3 box
+    g3 = subdivide(cornell_box("quads"), 3).build(dev)
+    tp3, atp3 = ap.pack_triangles(g3), ap.pack_attributes(g3)
+    rows3, grouped3 = ic.CulledScene(g3, grouped=False), ic.CulledScene(g3)
+    for rname, o, d in make_rays(cam, 3, dev):
+        t11, i11, _ = rows3.closest_tuv(o, d)
+        t6, i6, _ = grouped3.closest_tuv(o, d)
+        t2, i2, _ = ap.closest_record(tp3, atp3, o, d)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in (
+            (t11, t6), (i11, i6), (t11, t2), (i11, i2)))
+        phase("rows", f"cbox_sub3 {rname}: K11's (t, original id) bitwise "
+              f"equal to K6's and K2's {same}")
+        if not same:
+            raise AssertionError("K11 differs from K6 or K2 on the sub-3 box")
+
+    # K9 on its own entry point, counted alone
+    o, d = box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0), N_RAYS, 2, dev)
+    zero_counts()
+    lg.closest_tuv_culled(tri, cmin, cmax, o, d)
+    launches = {"K9": lg.closest_culled.launches}
+
+    # the path: stress100k through the sorted row backend
+    settings = {k: LARGE[k] for k in ("width", "height", "max_depth",
+                                      "spp_per_pass", "ray_chunk")}
+    cam_l = app.camera_ctrl.build(dev)
+    r = ProgressiveRenderer(geom, cam_l, RenderSettings(sort_rays=True,
+                                                        **settings),
+                            device=dev, seed=cfg.seed, culled=sorted_scene)
+    r.step()                                   # warm-up pass
+    same_first = torch.equal(r.film.accum, first)
+    r.reset_stats()
+    zero_counts()
+    start.record()
+    for _ in range(TIMED_PASSES):
+        r.step(block=False)
+    end.record()
+    end.synchronize()
+    launches.update(K8=lg.prepass_probe.launches,
+                    K10=lg.prepass_rows.launches,
+                    K11=lg.closest_rows.launches)
+    ms = start.elapsed_time(end)
+    accum = r.film.accum
+    finite = bool(torch.isfinite(accum).all())
+    mean = float(accum.mean()) / max(r.film.spp, 1)
+    phase("rows", f"stress100k 256x256 depth 4, {TIMED_PASSES} passes x 8 "
+          f"spp through CulledScene(sort_rays=True) + the lane sort: "
+          f"{r.total_rays} rays in {ms:.3f} ms (CUDA events) = "
+          f"{r.total_rays / (ms / 1e3) / 1e6:.3f} Mrays/s; {r.iterations} "
+          f"intersect calls, K8 launches {launches['K8']}, K10 "
+          f"{launches['K10']}, K11 {launches['K11']}, K6 "
+          f"{ic.closest_grouped.launches}; film finite {finite}, mean "
+          f"{mean:.6f}; first pass bitwise equal to phase large's "
+          f"{same_first}")
+    if not (finite and mean > 0 and same_first and ic.closest_grouped
+            .launches == 0 and all(launches[k] == r.iterations
+                                   for k in ("K8", "K10", "K11"))):
+        raise AssertionError("the sorted row-backend render failed its "
+                             "checks")
+
+    others = {
+        "CulledScene(grouped=False)": ProgressiveRenderer(
+            geom, cam_l, RenderSettings(**settings), device=dev,
+            seed=cfg.seed, culled=ic.CulledScene(geom, grouped=False)),
+        "CulledScene(regroup=True)": ProgressiveRenderer(
+            geom, cam_l, RenderSettings(**settings), device=dev,
+            seed=cfg.seed, culled=ic.CulledScene(geom, regroup=True)),
+        "App(Config(sort_rays=True))": App(
+            Config(spp=8, sort_rays=True, **LARGE), device=dev).renderer(),
+    }
+    for name, rr in others.items():
+        start.record()
+        rr.step(block=False)
+        end.record()
+        end.synchronize()
+        same = torch.equal(rr.film.accum, first)
+        phase("rows", f"{name}: first pass {start.elapsed_time(end):.3f} ms, "
+              f"{rr.total_rays} rays; film bitwise equal to phase large's "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"{name} changes the stress100k film")
+    return launches
+
+
 def main() -> int:
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -606,6 +914,7 @@ def main() -> int:
     from tpu_pathtracer_torch.core import rng
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
     from tpu_pathtracer_torch.render.camera import CameraController
     from tpu_pathtracer_torch.render.radiosity import solve_radiosity
     from tpu_pathtracer_torch.scene.builtin import cornell_box
@@ -629,7 +938,7 @@ def main() -> int:
     print(smi, flush=True)
 
     # 2. build --------------------------------------------------------------
-    sources = (*ap.KERNEL_SOURCES, *ic.KERNEL_SOURCES)
+    sources = (*ap.KERNEL_SOURCES, *ic.KERNEL_SOURCES, *lg.KERNEL_SOURCES)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build, sources))
     for src, res in zip(sources, built):
@@ -647,8 +956,9 @@ def main() -> int:
         "cbox_sub2": subdivide(cornell_box("quads"), 2).build(dev),
         "cbox_sub3": subdivide(cornell_box("quads"), 3).build(dev),
     }
-    err = {"K1": 0.0, "K2": 0.0, "K2-guide": 0.0, "K3": 0.0, "K4": 0.0,
-           "K5": 0.0, "K6": 0.0, "K7": 0.0}
+    err = dict.fromkeys(("K1", "K2", "K2-guide", "K3", "K4", "K5", "K6",
+                         "K7", "K8", "K9", "K10", "K11"), 0.0)
+    bounds = {}
     g = np.random.default_rng(0)
     for si, sname in enumerate(("cbox", "cbox_mirror", "cbox_sub2",
                                 "cbox_sub3")):
@@ -710,6 +1020,10 @@ def main() -> int:
         "K2": time_pair(lambda: ap.closest_record_plain(tp, atp, o, d),
                         lambda: ap.closest_record(tp, atp, o, d)),
     }
+    k1, k2 = ap.closest_tuv(tp, o, d), ap.closest_record(tp, atp, o, d)
+    pairs = N_RAYS * tp.shape[0] * PAIR_FLOPS
+    bounds["K1"] = bound(pairs, tp, o, d, *k1)
+    bounds["K2"] = bound(pairs, tp, atp, o, d, *k2)
     for k in ("K1", "K2"):
         pm, km = times[k]
         phase("kernels", f"{k} at {N_RAYS} bounce rays x {geom.num_tris} "
@@ -731,12 +1045,21 @@ def main() -> int:
             lambda: ap.occluded(tp3, pp3, *k3_cases[1][2]), reps=5),
     }
     times.update(more)
+    bounds["K2-guide"] = bound(
+        N_RAYS * tp3.shape[0] * PAIR_FLOPS, tp3, gtp3, o, d,
+        *ap.closest_record(tp3, gtp3, o, d))
+    seg3 = k3_cases[1][2]
+    b3 = ap.occluded(tp3, pp3, *seg3)
+    bounds["K3"] = bound(
+        anyhit_pairs(tp3.shape[0], seg3[2], b3) * PAIR_FLOPS, tp3, pp3,
+        *seg3, b3)
     for k, (pm, km) in more.items():
         shape = (f"{k3_cases[1][2][0].shape[0]} ff segments" if k == "K3"
                  else f"{N_RAYS} bounce rays")
         phase("kernels", f"{k} at {shape} x {g3.num_tris} tris: kernel "
               f"{km:.6f} ms, plain torch {pm:.6f} ms per call")
-    path1m = culled_kernels(dev, cam, scenes, k3_cases, err, times)
+    path1m, part1m, cam1m = culled_kernels(dev, cam, scenes, k3_cases, err,
+                                           times, bounds)
 
     # 4. goldens on the card -----------------------------------------------
     for name, kw in GOLDEN_CONFIGS.items():
@@ -922,17 +1245,26 @@ def main() -> int:
         raise AssertionError("film or ray count depends on ray_chunk")
 
     # 8. large: the culled path -------------------------------------------
-    large = large_phase(dev, path1m, start, end)
+    large, first_large = large_phase(dev, path1m, start, end)
 
     # 9. solve: the sub-5 gather solve through K7 ---------------------------
     k7_launches = solve_phase(dev, sol, start, end)
 
-    def entry(name, key, source, replaces, n_launches):
+    # 10. rows: the row-granular culled backend and ray sorting --------------
+    rows = rows_phase(dev, cam, (part1m, cam1m), first_large, start, end, err,
+                      times, bounds)
+
+    def entry(name, key, source, replaces, n_launches,
+              module="intersect_pallas.py"):
         return {"name": name, "route": "cuda",
                 "source": f"tpu_pathtracer_torch/csrc/{source}",
-                "replaces": f"tpu_pathtracer/ops/intersect_pallas.py:{replaces}",
+                "replaces": f"tpu_pathtracer/ops/{module}:{replaces}",
                 "launches": n_launches, "max_abs_err": err[key],
-                "ms": times[key][1], "plain_ms": times[key][0]}
+                "ms": times[key][1], "plain_ms": times[key][0],
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": None}
+
+    legacy = "intersect_pallas_legacy.py"
 
     record = {"kernels": [
         entry("K1 closest_tuv (_kernel)", "K1", "closest_hit.cu", 167,
@@ -951,6 +1283,14 @@ def main() -> int:
               "grouped_closest.cu", 1723, large["K6"]),
         entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
               "grouped_anyhit.cu", 2219, k7_launches),
+        entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
+              "cluster_prepass.cu", 45, rows["K8"], legacy),
+        entry("K9 closest_culled (_kernel_culled)", "K9", "closest_hit.cu",
+              196, rows["K9"], legacy),
+        entry("K10 prepass_rows (_kernel_prepass)", "K10",
+              "cluster_prepass.cu", 306, rows["K10"], legacy),
+        entry("K11 closest_rows (_kernel_culled_dma)", "K11",
+              "row_closest.cu", 572, rows["K11"], legacy),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -459,9 +459,20 @@ def test_wrappers_validate_and_have_no_fallback():
 
 @pytest.mark.parametrize("kw", [dict(sort_rays=True), dict(grouped=False),
                                 dict(regroup=True)])
-def test_unported_culled_options_raise(sub2, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*22"):
-        ic.CulledScene(sub2[1], **kw)
+def test_culled_options_build_and_answer(sub2, kw):
+    """sort_rays, grouped=False (the row kernels K8-K11) and regroup (K8
+    before K6) build and answer closest_hit and occluded as the grouped
+    scene does, bitwise."""
+    _, tg = sub2
+    o, d = (torch.from_numpy(x) for x in _query_rays(3))
+    cs = ic.CulledScene(tg, **kw)
+    ref = ic.CulledScene(tg)
+    got = cs.closest_hit(tg, o, d, camera_mask=torch.arange(N_QUERY) < 512)
+    want = ref.closest_hit(tg, o, d)
+    for f in ("valid", "t", "prim", "n", "albedo", "emission", "material"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    seg = _pair_segments(tg, N_QUERY, 6)
+    assert torch.equal(cs.occluded(*seg), ref.occluded(*seg))
 
 
 # --- (e) the tile swizzle ----------------------------------------------------

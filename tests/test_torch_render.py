@@ -231,13 +231,26 @@ def test_cosine_sample_matches_jax():
     dict(backend="culled", balance_lanes=4),
     dict(backend="bvh"),
     dict(radiosity_solver="shooting", integrator="radiosity"),
-    dict(sort_rays=True),
     dict(balance_lanes=4),
     dict(num_tiles=2),
 ])
 def test_unported_config_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         App(Config(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["brute", "pallas"])
+def test_config_sort_rays_renders_the_unsorted_film(backend):
+    """Config.sort_rays is the integrator's lane sort, as in the JAX App:
+    it reaches RenderSettings and leaves the film bitwise unchanged."""
+    kw = dict(width=16, height=12, spp=2, max_depth=3, backend=backend)
+    r = App(Config(sort_rays=True, **kw), device="cpu").renderer()
+    assert r.settings.sort_rays
+    r.step()
+    plain = App(Config(**kw), device="cpu").renderer()
+    plain.step()
+    assert torch.equal(r.film.accum, plain.film.accum)
+    assert r.total_rays == plain.total_rays > 0
 
 
 _SMALL = dict(width=16, height=12, spp=2, max_depth=3, mc_samples=2,
@@ -280,12 +293,26 @@ def test_guided_and_radiosity_configs_render(kw):
 @pytest.mark.parametrize("kw", [
     dict(nee=True),
     dict(wavefront=False),
-    dict(sort_rays=True),
     dict(balance_lanes=2),
 ])
 def test_unported_render_settings_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderSettings(**kw)
+
+
+def test_render_settings_sort_rays_film_bitwise():
+    """RenderSettings(sort_rays=True) re-sorts the lanes every iteration;
+    the film and ray count are those of the unsorted pass, bitwise."""
+    geom = cornell_box("quads", mirror_tall_box=True).build("cpu")
+    cam = CameraController.default().build("cpu")
+    out = []
+    for sort_rays in (True, False):
+        s = RenderSettings(width=24, height=24, max_depth=5, spp_per_pass=3,
+                           sort_rays=sort_rays)
+        r = ProgressiveRenderer(geom, cam, s, device="cpu", seed=7)
+        r.step()
+        out.append((r.film.accum, r.total_rays))
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1] > 0
 
 
 @pytest.mark.parametrize("mode", [SAMPLING_FORMFACTOR, SAMPLING_RADIOSITY,
@@ -446,7 +473,8 @@ def test_package_imports_without_jax():
     mods = ["tpu_pathtracer_torch." + m for m in (
         "app", "cli", "core.rng", "core.math_utils", "core.constants",
         "ops.cluster_layout", "ops.filters", "ops.guiding", "ops.intersect",
-        "ops.intersect_allpairs", "ops.intersect_culled", "ops.tonemap",
+        "ops.intersect_allpairs", "ops.intersect_culled",
+        "ops.intersect_culled_legacy", "ops.tonemap",
         "render.camera", "render.film", "render.integrator",
         "render.radiosity", "render.renderer", "scene.builtin", "scene.mesh",
         "scene.pbrt_loader",

@@ -1,0 +1,586 @@
+"""The port's row-granular culled backend and ray sorting against the JAX
+package's on the CPU.
+
+The constants and key layout, the plain probe (K8) and row prepass (K10),
+`cluster_list`, the per-tile cluster mask, the plain masked closest hit
+(K9) and row walk (K11) of `ops/intersect_culled_legacy.py`, the
+`CulledScene` options that reach them, and the integrator's lane sort.
+JAX's Pallas kernels run in interpret mode (the package's `_pallas_call`
+interprets on the CPU), on one ray batch shape: 4096 rays, the size its
+`_pad_rays` pads every batch to. Two scenes: the sub-3 box (2,048
+triangles, 16 clusters) and `test_torch_culled.py`'s triangle soup (5,000
+triangles, 40 clusters); the last 128 rays of each batch start outside
+the scene pointing away, as the integrator parks dead lanes.
+
+The bars:
+  * constants, c_best, row bits, tn, texit, keys, count, lostep, the
+    cluster mask, Morton codes and sort permutations: bitwise (min, max,
+    compares, and the same f32 ops in the same order);
+  * c_best of a ray that touches no cluster: INT_MAX in the port, 0 in
+    the JAX probe (its select keeps the first of equal infinities);
+  * closest hits against JAX: t within `test_torch_culled.py`'s bar (4
+    ulp plus the cancellation in os), ids mapped to original triangles
+    equal except where the two best t of a ray lie within twice that bar,
+    where the primitive must still be equal;
+  * closest hits against the port's all-pairs plain version and the
+    grouped backend, sorted against unsorted walks, the films of the lane
+    sort: bitwise (the same eager arithmetic and the lowest-original-id
+    tie rule);
+  * the lane-sort film against the JAX package's: relative RMSE < 0.01,
+    the goldens' bar.
+"""
+
+import dataclasses
+import functools
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpu_pathtracer.ops.intersect_pallas as ip
+import tpu_pathtracer.ops.intersect_pallas_legacy as ipl
+from tpu_pathtracer.ops import cluster_layout as jcl
+from tpu_pathtracer.render import camera as jcamera
+from tpu_pathtracer.render import integrator as jintegrator
+from tpu_pathtracer.render import renderer as jrenderer
+from tpu_pathtracer.scene import builtin as jbuiltin
+from tpu_pathtracer.scene import mesh as jmesh
+from tpu_pathtracer_torch.app import App
+from tpu_pathtracer_torch.core import rng
+from tpu_pathtracer_torch.ops import cluster_layout as cl
+from tpu_pathtracer_torch.ops import intersect as tintersect
+from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+from tpu_pathtracer_torch.ops import intersect_culled as ic
+from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+from tpu_pathtracer_torch.render import integrator as tintegrator
+from tpu_pathtracer_torch.render import renderer as trenderer
+from tpu_pathtracer_torch.render.camera import CameraController
+from tpu_pathtracer_torch.scene import mesh as tmesh
+from tpu_pathtracer_torch.scene.builtin import cornell_box
+from tpu_pathtracer_torch.scene.mesh import subdivide
+from tpu_pathtracer_torch.utils.config import Config
+
+torch.set_num_threads(1)
+
+N = 4096           # one JAX batch: four 1024-ray tiles
+PARKED = 128       # rays at the end of a batch that touch nothing
+ULP = 4
+INT_MAX = 0x7FFFFFFF
+
+
+def _port(jg):
+    return tmesh.geometry_from_arrays(
+        {f.name: np.asarray(getattr(jg, f.name))
+         for f in dataclasses.fields(jg)}, "cpu")
+
+
+def _soup(n=5000, seed=3):
+    """test_torch_culled.py's scene: n random small triangles in a
+    20-unit cube."""
+    g = np.random.default_rng(seed)
+    a = g.uniform(-10, 10, (n, 3)).astype(np.float32)
+    b = a + g.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    c = a + g.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    return jmesh.PrimList(
+        corners=jmesh.make_triangle_corners(a, b, c),
+        is_quad=np.zeros(n, bool),
+        albedo=g.random((n, 3), np.float32),
+        emission=np.zeros((n, 3), np.float32),
+        material=np.zeros(n, np.int32))
+
+
+SCENES = {
+    "cbox_sub3": lambda: jmesh.subdivide(jbuiltin.cornell_box("quads"), 3),
+    "soup": _soup,
+}
+
+
+def _rays(name, corners, seed=0):
+    """N // 2 camera rays of a 64x32 frame in the culled backend's lane
+    order (two tiles of 32x32 pixels; the soup seen from outside its
+    cube), then bounce rays (origins in the scene's box, uniform
+    directions), the last PARKED of them parked outside the scene pointing
+    away. numpy, f32."""
+    g = np.random.default_rng(seed)
+    half = N // 2
+    if name == "cbox_sub3":
+        cam = jcamera.CameraController.default().build()
+        lo = np.array([-2.7, 0.05, -5.45], np.float32)
+        hi = np.array([2.7, 5.45, -0.05], np.float32)
+    else:
+        cam = jcamera.CameraController(
+            lookfrom=np.array([3.0, 4.0, 30.0]), lookat=np.zeros(3),
+            vup=np.array([0.0, 1.0, 0.0]), vfov=45.0, aspect=2.0).build()
+        lo = np.full(3, -10.0, np.float32)
+        hi = np.full(3, 10.0, np.float32)
+    pix = trenderer._tile_swizzle(64, 32, half)[0]
+    jit = g.random((2, half), np.float32)
+    co, cd = (np.asarray(x) for x in cam.get_rays(
+        jnp.asarray(((pix % 64) + jit[0]) / 64, jnp.float32),
+        jnp.asarray(((pix // 64) + jit[1]) / 32, jnp.float32)))
+    bo = lo + (hi - lo) * g.random((half, 3), np.float32)
+    bd = g.standard_normal((half, 3)).astype(np.float32)
+    bd /= np.linalg.norm(bd, axis=1, keepdims=True)
+    o = np.concatenate([co, bo]).astype(np.float32)
+    d = np.concatenate([cd, bd]).astype(np.float32)
+    o[-PARKED:] = corners.reshape(-1, 3).max(0) + 1.0
+    d[-PARKED:] = (1.0, 0.0, 0.0)
+    return o, d
+
+
+@functools.cache
+def _scene(name):
+    """(JAX geometry, port geometry, o, d) of a scene of SCENES."""
+    jg = SCENES[name]().build()
+    o, d = _rays(name, np.asarray(jg.corners))
+    return jg, _port(jg), torch.from_numpy(o), torch.from_numpy(d)
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def case(request):
+    """A scene in both packages, its rays, and the JAX package's row
+    backend outputs on them (each Pallas kernel interpreted once)."""
+    name = request.param
+    jg, tg, o, d = _scene(name)
+    jcs = ip.CulledScene(jg)
+    jo, jd = jnp.asarray(o.numpy()), jnp.asarray(d.numpy())
+    args = (jcs.cluster_min, jcs.cluster_max, jo, jd, 1e-4)
+    pre, texit, cbest, _, _ = ipl._prepass(*args)
+    part = ic.CulledScene(tg, grouped=False).parts[0]
+    return types.SimpleNamespace(
+        name=name, jg=jg, tg=tg, o=o, d=d, order=np.asarray(jcs.order),
+        part=part,
+        n_clusters=-(-tg.num_tris // cl.TRI_CHUNK),
+        probe=np.asarray(ipl._prepass_probe(*args)), pre=np.asarray(pre),
+        texit=np.asarray(texit), cbest=np.asarray(cbest),
+        cluster_list=[np.asarray(x) for x in ipl._cluster_list(*args)],
+        mask=np.asarray(ipl._cluster_mask(*args))[:, 0, :],
+        culled=[np.asarray(x) for x in ipl.pallas_closest_tuv_culled(
+            jcs.tri_pack, *args[:4])],
+        dma=[np.asarray(x) for x in ipl.pallas_closest_tuv_dma(
+            jcs.tri_pack, *args[:4], return_stats=True)])
+
+
+def _boxes(case):
+    p = case.part
+    return p.cluster_min, p.cluster_max, case.o, case.d
+
+
+# --- (a) the layout constants ------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [
+    "TRI_CHUNK", "RAY_TILE", "RAYS_PER_TILE", "DMA_ROWS", "_ID_BITS",
+    "_BITS_SHIFT", "_BUCKET_SHIFT", "_BUCKETS", "_MAX_CLUSTERS", "_GID_BITS",
+    "_GMAX_CLUSTERS"])
+def test_layout_constants_equal_jax(name):
+    assert getattr(cl, name) == getattr(jcl, name)
+
+
+@pytest.mark.parametrize("name", ["_EARLY_BLOCK", "_SORT_BINS",
+                                  "_BIN_SUB_BITS"])
+def test_walk_constants_equal_jax(name):
+    assert getattr(cl, name) == getattr(ipl, name)
+
+
+# --- (b) the prepasses (K8, K10) and the schedule ----------------------------
+
+
+def _touched(c_best):
+    return c_best != INT_MAX
+
+
+def test_probe_plain_vs_jax(case):
+    got = lg.prepass_probe(*_boxes(case), 1e-4).numpy()
+    hit = _touched(got)
+    assert hit[:-PARKED].mean() > 0.5 and not hit[-PARKED:].any()
+    np.testing.assert_array_equal(got[hit], case.probe[hit].astype(np.int64))
+    assert (case.probe[~hit] == 0).all()         # the JAX probe's value
+
+
+def test_rows_prepass_plain_vs_jax(case):
+    rowbits, tn, texit, c_best = (x.numpy() for x in lg.prepass_rows(
+        *_boxes(case), 1e-4))
+    c = case.n_clusters
+    shifts = 1 << np.arange(cl.DMA_ROWS)
+    want_bits = ((case.pre[:, :c, :cl.DMA_ROWS] > 0) * shifts).sum(-1)
+    assert (rowbits[:, :c] != 0).any() and (rowbits[:, :c] == 0).any()
+    np.testing.assert_array_equal(rowbits[:, :c], want_bits)
+    assert (rowbits[:, c:] == 0).all()
+    np.testing.assert_array_equal(tn[:, :c], case.pre[:, :c, cl.DMA_ROWS])
+    np.testing.assert_array_equal(texit, case.texit)
+    hit = _touched(c_best)
+    np.testing.assert_array_equal(c_best[hit], case.cbest[hit])
+    np.testing.assert_array_equal(c_best, lg.prepass_probe(*_boxes(case),
+                                                           1e-4).numpy())
+
+
+def test_row_bits_are_the_or_of_group_bits(case):
+    """K10's row r is 16 of K4's 8-ray groups (word r // 2, half r % 2);
+    tn and texit are K4's."""
+    rowbits, tn, texit, _ = lg.prepass_rows(*_boxes(case), 1e-4)
+    gmask, tn4, texit4 = ic.prepass_plain(*_boxes(case), 1e-4)
+    r = torch.arange(cl.DMA_ROWS)
+    halves = (gmask[:, r // 2, :] >> (16 * (r % 2))[None, :, None]) & 0xFFFF
+    want = ((halves != 0).to(torch.int32) << r[None, :, None]).sum(
+        dim=1, dtype=torch.int32)
+    assert torch.equal(rowbits, want)
+    assert torch.equal(tn, tn4) and torch.equal(texit, texit4)
+
+
+def test_cluster_list_vs_jax(case):
+    rowbits, tn, _, _ = lg.prepass_rows(*_boxes(case), 1e-4)
+    count, keys, lostep = (x.numpy() for x in lg.cluster_list(rowbits, tn))
+    want_count, want_keys, want_lostep, _, _ = case.cluster_list
+    assert keys.shape == want_keys.shape
+    np.testing.assert_array_equal(count, want_count)
+    np.testing.assert_array_equal(keys, want_keys)
+    np.testing.assert_array_equal(lostep, want_lostep)
+    assert (count > 0).all()
+
+
+def test_cluster_mask_vs_jax_and_k4(case):
+    mask = lg.cluster_mask(*_boxes(case), 1e-4)
+    np.testing.assert_array_equal(mask.numpy(), case.mask)
+    gmask, _, _ = ic.prepass_plain(*_boxes(case), 1e-4)
+    assert torch.equal(mask, (gmask != 0).any(dim=1).to(torch.int32))
+
+
+# --- (c) the closest hits (K9, K11) ------------------------------------------
+
+
+def _t_tol(tg, o, d, orig, t):
+    """|dt| bound between XLA's and eager torch's rounding: 4 ulp plus
+    the cancellation in os, as test_torch_culled.py states it."""
+    c = ap.pack_triangles(tg).numpy().astype(np.float64)[orig]
+    o64, d64 = o.astype(np.float64), d.astype(np.float64)
+    mag = np.abs(c[:, 6:9] * o64).sum(axis=1) + np.abs(c[:, 11])
+    ds = np.abs((c[:, 6:9] * d64).sum(axis=1))
+    eps = np.finfo(np.float32).eps
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tol = ULP * np.spacing(np.abs(t)) + ULP * eps * mag / ds
+    return np.where(np.isfinite(t), tol, 0.0)
+
+
+def _near_tie(tg, o, d, tol):
+    out = []
+    for s in range(0, o.shape[0], 1024):
+        t_all = tintersect.intersect_tuv(
+            tg.tri_inv, tg.tri_v0, torch.from_numpy(o[s:s + 1024]),
+            torch.from_numpy(d[s:s + 1024])).numpy()
+        t_all = np.where(t_all >= np.float32(1e-4), t_all, np.inf)
+        two = np.sort(t_all, axis=1)[:, :2]
+        with np.errstate(invalid="ignore"):
+            out.append(np.isfinite(two[:, 0])
+                       & (two[:, 1] - two[:, 0] <= 2 * tol[s:s + 1024]))
+    return np.concatenate(out)
+
+
+def _assert_matches_jax(case, t, orig, t_jax, ridx_jax):
+    """(t, original id) against JAX's (t, reordered id), with the bars of
+    the module docstring, and bitwise against the all-pairs plain hit."""
+    t, orig = t.numpy(), orig.numpy()
+    o, d = case.o.numpy(), case.d.numpy()
+    fin = np.isfinite(t_jax)
+    i_jax = np.where(fin, case.order[np.where(fin, ridx_jax, 0)], 0)
+    assert 0 < fin.mean() < 1
+    np.testing.assert_array_equal(np.isfinite(t), fin)
+    tol = _t_tol(case.tg, o, d, i_jax, t_jax)
+    assert (np.abs(t[fin].astype(np.float64) - t_jax[fin]) <= tol[fin]).all()
+    assert ((orig == i_jax) | _near_tie(case.tg, o, d, tol)).all()
+    prim = case.tg.tri_prim.numpy()
+    np.testing.assert_array_equal(prim[orig], prim[i_jax])
+    t_a, i_a = ap.closest_tuv_plain(ap.pack_triangles(case.tg), case.o,
+                                    case.d)
+    np.testing.assert_array_equal(t, t_a.numpy())
+    np.testing.assert_array_equal(orig, i_a.numpy())
+
+
+def test_masked_closest_plain_vs_jax(case):
+    p = case.part
+    t, orig = lg.closest_tuv_culled(p.tri_pack, *_boxes(case))
+    _assert_matches_jax(case, t, orig, *case.culled)
+
+
+def test_row_walk_plain_vs_jax(case):
+    p = case.part
+    t, orig, visited, count, row_tests = lg.closest_tuv_dma(
+        p.tri_pack, *_boxes(case), return_stats=True)
+    _assert_matches_jax(case, t, orig, *case.dma[:2])
+    np.testing.assert_array_equal(count.numpy(), case.dma[3])
+    assert (visited <= count).all() and (row_tests <= 8 * visited).all()
+    # the same keys, the same early-out: the walks stop at the same place
+    np.testing.assert_array_equal(visited.numpy(), case.dma[2])
+
+
+def test_row_walk_equals_walk_without_early_out(case):
+    """Every (row, cluster) pair the row bits allow, in cluster order and
+    without the early-out, gives the walk's (t, id) bitwise."""
+    p = case.part
+    rowbits, tn, texit, _ = lg.prepass_rows(*_boxes(case), 1e-4)
+    count, keys, lostep = lg.cluster_list(rowbits, tn)
+    t, orig = lg.closest_rows(p.tri_pack, count, keys, lostep, case.o,
+                              case.d, texit)
+    ray = torch.arange(N)
+    tile, row = ray // cl.RAYS_PER_TILE, (ray % cl.RAYS_PER_TILE) // 128
+    walk = ((int(c), ((rowbits[tile, c] >> row) & 1) != 0)
+            for c in torch.nonzero((rowbits != 0).any(dim=0)).flatten())
+    want = ic.closest_walk_plain(p.tri_pack, walk, case.o, case.d, 1e-4)
+    assert torch.equal(t, want[0]) and torch.equal(orig, want[1])
+
+
+def test_early_out_stops_the_walk_where_jax_does():
+    """Eight parallel planes (4 clusters each) before a coherent batch:
+    every ray hits the first plane, so each tile closes at the first
+    refresh past it. The walk stops there, as the JAX kernel's does, with
+    the all-pairs plain hits."""
+    quad = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                    np.float32)
+    corners = np.stack([quad - (0, 0, 2 + 0.5 * i) for i in range(8)])
+    pl_ = jmesh.subdivide(jmesh.PrimList(
+        corners=corners, is_quad=np.ones(8, bool),
+        albedo=np.full((8, 3), 0.5, np.float32),
+        emission=np.zeros((8, 3), np.float32),
+        material=np.zeros(8, np.int32)), 4)
+    jg = pl_.build()
+    tg = _port(jg)
+    g = np.random.default_rng(6)
+    o = np.concatenate([g.uniform(-0.9, 0.9, (N, 2)), np.zeros((N, 1))],
+                       axis=1).astype(np.float32)
+    d = (np.array([0, 0, -1.0]) + g.uniform(-0.02, 0.02, (N, 3))).astype(
+        np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p = ic.CulledScene(tg, grouped=False).parts[0]
+    t, orig, visited, count, row_tests = lg.closest_tuv_dma(
+        p.tri_pack, p.cluster_min, p.cluster_max, torch.from_numpy(o),
+        torch.from_numpy(d), return_stats=True)
+    assert (count == 32).all() and (visited < 16).all()
+    assert (row_tests <= 8 * visited).all() and (row_tests > 0).all()
+    t_a, i_a = ap.closest_tuv_plain(ap.pack_triangles(tg),
+                                    torch.from_numpy(o), torch.from_numpy(d))
+    assert torch.equal(t, t_a) and torch.equal(orig, i_a)
+    jcs = ip.CulledScene(jg)
+    want = ipl.pallas_closest_tuv_dma(
+        jcs.tri_pack, jcs.cluster_min, jcs.cluster_max, jnp.asarray(o),
+        jnp.asarray(d), return_stats=True)
+    np.testing.assert_array_equal(visited.numpy(), np.asarray(want[2]))
+
+
+def test_sorted_walk_equals_unsorted_and_jax_argsort(case):
+    p = case.part
+    plain = lg.closest_tuv_dma(p.tri_pack, *_boxes(case))
+    srt = lg.closest_tuv_dma(p.tri_pack, *_boxes(case), sort_rays=True,
+                             return_stats=True)
+    assert torch.equal(srt[0], plain[0]) and torch.equal(srt[1], plain[1])
+    assert (srt[2] <= srt[3]).all()
+    key = lg.sort_key(lg.prepass_probe(*_boxes(case), 1e-4), case.d)
+    perm = torch.argsort(key, stable=True).numpy()
+    np.testing.assert_array_equal(perm, np.asarray(jnp.argsort(
+        jnp.asarray(key.numpy()))))
+    # the JAX package's key on the rays that touch a cluster
+    oct_ = ((case.d > 0).to(torch.int32)
+            * torch.tensor([1, 2, 4], dtype=torch.int32)).sum(dim=1)
+    hit = key != INT_MAX
+    want = (oct_.numpy() << cl._ID_BITS) | case.probe.astype(np.int32)
+    np.testing.assert_array_equal(key.numpy()[hit.numpy()],
+                                  want[hit.numpy()])
+
+
+# --- (d) CulledScene's options -----------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sort_rays=True), dict(grouped=False), dict(regroup=True),
+    dict(grouped=False, max_tris_per_part=512),
+    dict(sort_rays=True, max_tris_per_part=1024)])
+def test_culled_scene_options_equal_grouped(kw):
+    """On the sub-3 box (a camera tile and a bounce tile), closest_hit
+    through each option equals the grouped one bitwise, with and without
+    a camera mask."""
+    _, tg, o, d = _scene("cbox_sub3")
+    o, d = o[1024:3072], d[1024:3072]
+    cs = ic.CulledScene(tg, **kw)
+    assert cs.grouped == (not kw.get("sort_rays") and kw.get("grouped",
+                                                             True))
+    want = ic.CulledScene(tg).closest_hit(tg, o, d)
+    for mask in (None, torch.arange(2048) < 1024):
+        got = cs.closest_hit(tg, o, d, camera_mask=mask)
+        for f in ("valid", "t", "prim", "p", "n", "albedo", "emission",
+                  "material"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_row_backend_partitions_at_its_cluster_cap(monkeypatch):
+    """The row backend cuts packs at _MAX_CLUSTERS clusters (8,192:
+    1,048,576 triangles), the grouped one at 2**21, as the JAX package
+    does (here with both caps at 2 clusters); regroup needs one part."""
+    jg = jmesh.subdivide(jbuiltin.cornell_box("quads"), 2).build()
+    tg = _port(jg)
+    monkeypatch.setattr(ic, "_MAX_CLUSTERS", 2)
+    monkeypatch.setattr(ip, "_MAX_CLUSTERS", 2)
+    for kw in (dict(grouped=False), dict(sort_rays=True), dict(),
+               dict(regroup=True)):
+        cs = ic.CulledScene(tg, **kw)
+        assert len(cs.parts) == len(ip.CulledScene(jg, **kw).parts), kw
+        assert len(cs.parts) == (1 if cs.grouped else 2), kw
+    assert ic.CulledScene(tg, regroup=True).regroup
+    assert not ic.CulledScene(tg, regroup=True, max_tris_per_part=128).regroup
+    assert not ic.CulledScene(tg, sort_rays=True, regroup=True).regroup
+
+
+@pytest.mark.parametrize("kw", [dict(sort_rays=True), dict(grouped=False),
+                                dict(regroup=True)])
+def test_culled_scene_options_occluded_is_k7(kw):
+    """The any hit runs the grouped walk whatever the options."""
+    _, tg, o, d = _scene("cbox_sub3")
+    o, d = o[1024:3072], d[1024:3072]
+    g = np.random.default_rng(5)
+    maxd = torch.from_numpy(g.uniform(0, 8, 2048).astype(np.float32))
+    want = ic.CulledScene(tg).occluded(o, d, maxd)
+    assert want.any() and not want.all()
+    assert torch.equal(ic.CulledScene(tg, **kw).occluded(o, d, maxd), want)
+
+
+# --- (e) the wrappers --------------------------------------------------------
+
+
+def test_cpu_wrappers_take_plain_versions_without_launch(case):
+    before = [f.launches for f in (lg.prepass_probe, lg.prepass_rows,
+                                   lg.closest_culled, lg.closest_rows)]
+    p = case.part
+    lg.closest_tuv_dma(p.tri_pack, *_boxes(case), sort_rays=True)
+    lg.closest_tuv_culled(p.tri_pack, *_boxes(case))
+    after = [f.launches for f in (lg.prepass_probe, lg.prepass_rows,
+                                  lg.closest_culled, lg.closest_rows)]
+    assert after == before
+
+
+def test_wrappers_validate_and_have_no_fallback():
+    cmin = torch.zeros((128, 3))
+    o = torch.zeros((1024, 3))
+    tri = torch.zeros((128 * 128, 16))
+    cnt = torch.zeros((1,), dtype=torch.int32)
+    keys = torch.zeros((1, 128), dtype=torch.int32)
+    lostep = torch.zeros((1, 2))
+    tex = torch.zeros((1024,))
+    with pytest.raises(ValueError, match="whole 1024-ray tiles"):
+        lg.prepass_rows(cmin, cmin, o[:1000], o[:1000], 1e-4)
+    with pytest.raises(ValueError, match="cap 8192"):
+        big = torch.zeros((8320, 3))
+        lg.prepass_rows(big, big, o, o, 1e-4)
+    with pytest.raises(ValueError):
+        lg.closest_rows(tri, cnt, keys[:, :64], lostep, o, o, tex)
+    with pytest.raises(ValueError):
+        lg.closest_culled(tri, keys[:, :64], o, o)
+    meta = [x.to("meta") for x in (cmin, o, tri, cnt, keys, lostep, tex)]
+    with pytest.raises(ValueError, match="no kernel"):
+        lg.prepass_probe(meta[0], meta[0], meta[1], meta[1], 1e-4)
+    with pytest.raises(ValueError, match="no kernel"):
+        lg.prepass_rows(meta[0], meta[0], meta[1], meta[1], 1e-4)
+    with pytest.raises(ValueError, match="no kernel"):
+        lg.closest_rows(meta[2], *meta[3:6], meta[1], meta[1], meta[6])
+    with pytest.raises(ValueError, match="no kernel"):
+        lg.closest_culled(meta[2], meta[4], meta[1], meta[1])
+
+
+# --- (f) the lane sort -------------------------------------------------------
+
+
+def test_morton30_and_lane_sort_vs_jax():
+    g = np.random.default_rng(2)
+    lo = np.array([-2.0, -1.0, -3.0], np.float32)
+    hi = np.array([3.0, 4.0, 2.0], np.float32)
+    n = 2048
+    p = (lo - 0.5 + (hi - lo + 1.0) * g.random((n, 3))).astype(np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    alive = g.random(n) < 0.7
+    inv_ext = (np.float32(1.0) / np.maximum(hi - lo, np.float32(1e-6)))
+    want = np.asarray(jintegrator._morton30(jnp.asarray(p), jnp.asarray(lo),
+                                            jnp.asarray(inv_ext)))
+    got = tintegrator._morton30(*(torch.from_numpy(x) for x in (p, lo,
+                                                                inv_ext)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) > n // 2
+    jd = jnp.asarray(d)
+    octant = ((jd[:, 0] > 0).astype(jnp.int32)
+              + 2 * (jd[:, 1] > 0).astype(jnp.int32)
+              + 4 * (jd[:, 2] > 0).astype(jnp.int32))
+    code = jnp.where(jnp.asarray(alive), (octant << 27) | (want >> 3),
+                     jnp.int32(2**30))
+    perm = tintegrator.lane_sort_order(
+        torch.from_numpy(p), torch.from_numpy(d), torch.from_numpy(alive),
+        torch.from_numpy(lo), torch.from_numpy(inv_ext))
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jnp.argsort(code)))
+
+
+def _trace(backend, sort_rays, size=32):
+    """One 32x32 wavefront of the mirror box at subdivision 2 (512
+    triangles), lanes in the culled backend's swizzled order."""
+    geom = subdivide(cornell_box("quads", mirror_tall_box=True), 2).build(
+        "cpu")
+    cam = CameraController.default().build("cpu")
+    key = rng.stream_key(rng.fold_in(rng.base_key(4), 0), rng.STREAM_PATH)
+    kw = {}
+    if backend == "pallas":
+        kw = dict(tri_pack=ap.pack_triangles(geom),
+                  attr_pack=ap.pack_attributes(geom))
+    elif backend.startswith("culled"):
+        opts = dict(sort_rays=True) if backend == "culled-rows" else {}
+        kw = dict(culled=ic.CulledScene(geom, **opts))
+    lanes = torch.from_numpy(trenderer._tile_swizzle(size, size,
+                                                     size * size)[0])
+    return tintegrator.trace_wavefront(
+        geom, cam, lanes, key, width=size, height=size, spp=2, max_depth=4,
+        sort_rays=sort_rays, **kw)
+
+
+@pytest.mark.parametrize("backend", ["brute", "pallas", "culled",
+                                     "culled-rows"])
+def test_lane_sort_film_bitwise(backend):
+    """trace_wavefront(sort_rays=True) gives the unsorted sums and ray
+    count bitwise, on every backend (the row one: CulledScene(sort_rays))."""
+    total, rays, _ = _trace(backend, True)
+    want, want_rays, _ = _trace(backend, False)
+    assert torch.equal(total, want) and int(rays) == int(want_rays) > 0
+    if backend != "brute":
+        assert torch.equal(total, _trace("brute", False)[0])
+
+
+def test_lane_sort_film_vs_jax():
+    """The App-level lane sort renders the JAX package's film within the
+    goldens' bar."""
+    jg = jbuiltin.cornell_box("quads").build()
+    jcam = jcamera.CameraController.default().build()
+    s = dict(width=32, height=32, max_depth=3, spp_per_pass=4,
+             sort_rays=True)
+    jr = jrenderer.ProgressiveRenderer(jg, jcam, jrenderer.RenderSettings(**s),
+                                       seed=5)
+    jr.step()
+    want = np.asarray(jr.film.accum, np.float64)
+    tr = trenderer.ProgressiveRenderer(
+        cornell_box("quads").build("cpu"),
+        CameraController.default().build("cpu"),
+        trenderer.RenderSettings(**s), device="cpu", seed=5)
+    tr.step()
+    got = tr.film.accum.numpy().astype(np.float64)
+    rel = np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want ** 2))
+    assert rel < 0.01 and want.max() > 0
+
+
+def test_app_sort_rays_keeps_default_culled_scene():
+    """Config.sort_rays is the lane sort, as in the JAX App: the App's
+    CulledScene keeps its defaults (grouped) and the film is the
+    unsorted one bitwise."""
+    kw = dict(scene="cbox_quads", subdivision=2, width=32, height=32, spp=2,
+              spp_per_pass=2, max_depth=3, backend="culled")
+    sorted_ = App(Config(sort_rays=True, **kw), device="cpu")
+    r = sorted_.renderer()
+    assert r.settings.sort_rays and sorted_.culled.grouped
+    assert not sorted_.culled.sort_rays
+    r.step()
+    plain = App(Config(**kw), device="cpu").renderer()
+    plain.step()
+    assert torch.equal(r.film.accum, plain.film.accum)
+    assert r.total_rays == plain.total_rays

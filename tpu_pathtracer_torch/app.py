@@ -15,9 +15,11 @@ kernels for large scenes (ops/intersect_culled.py: the K4/K5 prepass, K6
 for hits, K7 for visibility) and "brute" the brute-force queries. "auto"
 selects, as the JAX package does on its accelerator and on the CPU, the
 all-pairs kernels on CUDA up to 16,384 triangles and the culled ones
-above, and brute force on the CPU up to 2048 triangles. Options this
-package does not port yet raise NotImplementedError naming the ROADMAP
-item that will port them.
+above, and brute force on the CPU up to 2048 triangles. `sort_rays` is
+the integrator's lane sort on any backend, as in the JAX App; the App's
+`CulledScene` keeps its defaults. Options this package does not port
+yet raise NotImplementedError naming the ROADMAP item that will port
+them.
 """
 
 from __future__ import annotations
@@ -102,9 +104,6 @@ def check_ported(cfg: Config) -> None:
     if cfg.nee:
         raise _not_ported("nee (next-event estimation) is ROADMAP Queue 1 "
                           "item 12")
-    if cfg.sort_rays:
-        raise _not_ported("sort_rays (the row kernel K11 and its probe K8) "
-                          "is ROADMAP Queue 1 item 22")
     if cfg.balance_lanes > 1:
         raise _not_ported("balance_lanes (the balanced lane queues) is "
                           "ROADMAP Queue 1 item 17c")
@@ -341,6 +340,7 @@ class App:
                                else mode),
                 spp_per_pass=min(spp_pass, cfg.spp),
                 ray_chunk=cfg.ray_chunk,
+                sort_rays=cfg.sort_rays,
             )
             self._renderer = ProgressiveRenderer(
                 self.geom,

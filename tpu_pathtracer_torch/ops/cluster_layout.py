@@ -1,11 +1,13 @@
 """Host-side cluster layout for the culled intersectors.
 
-Counterpart: `tpu_pathtracer/ops/cluster_layout.py` (the constants,
-`morton_order`, `median_split_order` copied; `pack_triangles_ordered`
-re-laid for a GPU). Triangles are spatially ordered and cut into
-128-triangle clusters, the culled kernels' granule; a prepass tests
-1024-ray tiles against the clusters' bounding boxes and the walk tests
-only the clusters a ray's 8-ray group can reach.
+Counterpart: `tpu_pathtracer/ops/cluster_layout.py` (the constants and
+the row kernel's key layout, `morton_order`, `median_split_order` copied;
+`pack_triangles_ordered` re-laid for a GPU) and the row walk's constants
+of `tpu_pathtracer/ops/intersect_pallas_legacy.py`. Triangles are
+spatially ordered and cut into 128-triangle clusters, the culled kernels'
+granule; a prepass tests 1024-ray tiles against the clusters' bounding
+boxes and the walk tests only the clusters a ray's 8-ray group (or, in
+the row backend, its 128-ray row) can reach.
 
 Differences from the JAX module, all layout:
   * the ordered pack is row-major (Tpad, 16) f32, so one cluster is one
@@ -32,9 +34,28 @@ GROUP = 8            # rays per cull group (a tile's 8 lane rows)
 RAYS_PER_TILE = RAY_TILE * GROUP      # 1024: the cull-mask tile
 BLOCK_CLUSTERS = 128  # clusters per prepass block (the gate's unit)
 
-# Cluster ids of one pack fit 21 bits in the JAX package's schedule keys;
-# the port keeps the same cap per part.
-_GID_BITS = 21
+# The row kernel's packed schedule key (one int32 per cluster slot):
+#   [bit 30] inactive  [bits 21..29] entry-distance bucket  [bits 13..20]
+#   row-hit bits  [bits 0..12] cluster id
+# so one pack of the row backend holds _MAX_CLUSTERS clusters.
+DMA_ROWS = 8         # 128-ray rows per 1024-ray tile
+_ID_BITS = 13
+_BITS_SHIFT = _ID_BITS
+_BUCKET_SHIFT = _ID_BITS + DMA_ROWS
+_BUCKETS = 1 << (30 - _BUCKET_SHIFT)
+_MAX_CLUSTERS = 1 << _ID_BITS
+
+# The row walk: the early-out refreshes every _EARLY_BLOCK clusters; the
+# schedule is counting-sorted into _SORT_BINS distance bins, the bucket
+# bits above _BIN_SUB_BITS.
+_EARLY_BLOCK = 8
+_SORT_BINS = 256
+_BIN_SUB_BITS = 2
+
+# The grouped kernels keep their masks out of the key, so cluster ids of
+# one pack fit 21 bits (the bucket field's shift); the port keeps the
+# same cap per part.
+_GID_BITS = _BUCKET_SHIFT
 _GMAX_CLUSTERS = 1 << _GID_BITS
 
 

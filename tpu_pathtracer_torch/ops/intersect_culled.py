@@ -42,11 +42,13 @@ of the order in which clusters are visited, so the culled closest hit
 equals K2's (t, id) and a kernel equals its plain version bitwise. (The
 JAX K6 breaks cross-cluster exact ties in schedule order instead.)
 
+`CulledScene`'s `sort_rays`, `grouped=False` and `regroup` options run
+the row-granular kernels K8-K11 of ops/intersect_culled_legacy.py.
+
 Not ported (TPU workarounds or probes): the SMEM schedule ring, the
 comp-pack lane-broadcast expansion, the DMA ring, the halfword-f32 mask
-packing, the bricked attribute fetch, the supercluster walk, and the
-`sort_rays`, `grouped=False` and `regroup` options (ROADMAP Queue 1 item
-22, K8 and K11).
+packing, the bricked attribute fetch, and the supercluster walk (K12,
+K13).
 """
 
 from __future__ import annotations
@@ -63,7 +65,9 @@ from .cluster_layout import (
     GROUP,
     RAYS_PER_TILE,
     TRI_CHUNK,
+    _GID_BITS,
     _GMAX_CLUSTERS,
+    _MAX_CLUSTERS,
     median_split_order,
     pack_triangles_ordered,
     padded_clusters,
@@ -106,6 +110,21 @@ def _tiled(b: int) -> int:
 # --- the prepass (K4, K5) ---------------------------------------------------
 
 
+def _slab(bmin, bmax, o, inv, t_min):
+    """(tn, tf, hit) of every (ray, box) pair, (B, n) each: the entry
+    clamped at t_min, the exit, and exit >= entry with exit > 0."""
+    b = o.shape[0]
+    tn = torch.full((b, bmin.shape[0]), t_min, dtype=torch.float32,
+                    device=o.device)
+    tf = torch.full((b, bmin.shape[0]), torch.inf, device=o.device)
+    for ax in range(3):
+        lo = (bmin[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        hi = (bmax[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        tn = torch.maximum(tn, torch.minimum(lo, hi))
+        tf = torch.minimum(tf, torch.maximum(lo, hi))
+    return tn, tf, (tf >= tn) & (tf > 0.0)
+
+
 def _group_words(hit, tiles):
     """(B, n) bool ray-cluster hits -> (tiles, 4, n) int32 group words."""
     n = hit.shape[1]
@@ -135,15 +154,8 @@ def prepass_plain(cluster_min, cluster_max, o, d, t_min, maxd=None,
         c1 = min(c, c0 + BLOCK_CLUSTERS)
         if c1 <= c0:
             break
-        bmin, bmax = cluster_min[c0:c1], cluster_max[c0:c1]
-        tn = torch.full((b, c1 - c0), t_min, dtype=torch.float32, device=dev)
-        tf = torch.full((b, c1 - c0), torch.inf, device=dev)
-        for ax in range(3):
-            lo = (bmin[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
-            hi = (bmax[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
-            tn = torch.maximum(tn, torch.minimum(lo, hi))
-            tf = torch.minimum(tf, torch.maximum(lo, hi))
-        hit = (tf >= tn) & (tf > 0.0)
+        tn, tf, hit = _slab(cluster_min[c0:c1], cluster_max[c0:c1], o, inv,
+                            t_min)
         if maxd is not None:
             hit &= tn <= maxd[:, None]
         if gate is not None:
@@ -194,6 +206,14 @@ def _library(source: str) -> ctypes.CDLL:
     if source == "cluster_prepass.cu":
         fn = lib.tpt_prepass
         fn.argtypes = [p, p, i, i, p, p, p, i, f, p, p, p, p, p]
+        lib.tpt_prepass_rows.argtypes = [p, p, i, i, p, p, i, f, p, p, p, p,
+                                         p]
+        lib.tpt_prepass_rows.restype = i
+        lib.tpt_prepass_probe.argtypes = [p, p, i, i, p, p, i, f, p, p]
+        lib.tpt_prepass_probe.restype = i
+    elif source == "row_closest.cu":
+        fn = lib.tpt_row_closest
+        fn.argtypes = [p, p, p, p, i, p, p, p, i, f, p, p, p, p, p]
     elif source == "grouped_closest.cu":
         fn = lib.tpt_grouped_closest
         fn.argtypes = [p, p, p, i, p, p, p, i, i, f, p, p]
@@ -303,15 +323,7 @@ def block_gate(cluster_min, cluster_max, o, d, t_min, maxd=None):
     c = cluster_min.shape[0]
     bmin, bmax = _union_boxes(cluster_min, cluster_max, BLOCK_CLUSTERS)
     nblk = bmin.shape[0]
-    inv = _inv_dir(d)
-    tn = torch.full((o.shape[0], nblk), t_min, device=o.device)
-    tf = torch.full((o.shape[0], nblk), torch.inf, device=o.device)
-    for ax in range(3):
-        lo = (bmin[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
-        hi = (bmax[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
-        tn = torch.maximum(tn, torch.minimum(lo, hi))
-        tf = torch.minimum(tf, torch.maximum(lo, hi))
-    hit = (tf >= tn) & (tf > 0.0)
+    tn, _, hit = _slab(bmin, bmax, o, _inv_dir(d), t_min)
     if maxd is not None:
         hit &= tn <= maxd[:, None]
     real = torch.arange(nblk, device=o.device) * BLOCK_CLUSTERS < c
@@ -349,11 +361,11 @@ def cluster_list_groups(gmask):
 
 
 def _tuv(rows, o, d):
-    """t, u, v of (B, n) ray-triangle pairs in the Pallas op order; rows
-    (n, 16) pack rows."""
-    c = rows.T[:, None, :]
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    """t, u, v of (..., B, n) ray-triangle pairs in the Pallas op order;
+    rows (..., n, 16) pack rows, o and d (..., B, 3)."""
+    c = rows.movedim(-1, 0).unsqueeze(-2)
+    ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
+    dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
     os_ = c[6] * ox + c[7] * oy + c[8] * oz - c[11]
     ds_ = c[6] * dx + c[7] * dy + c[8] * dz
     t = -os_ / ds_
@@ -379,27 +391,42 @@ def _walk_plain(gmask, b):
         yield cl, ((gmask[tile, word, cl] >> bit) & 1) != 0
 
 
+def closest_keys(rows, o, d, t_min, on):
+    """The least key (t bits << 32 | original id) over the accepted pairs
+    of rays o, d (..., B, 3) and pack rows (..., n, 16) whose `on` (...,
+    B) is set, as int64 (..., B); _MISS_KEY where none is."""
+    orig = rows[..., 13].contiguous().view(torch.int32).to(torch.int64)
+    t, u, v = _tuv(rows, o, d)
+    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-8)
+          & (t >= t_min) & on[..., None])
+    key = (t.view(torch.int32).to(torch.int64) << 32) | orig.unsqueeze(-2)
+    return torch.where(ok, key, _MISS_KEY).amin(dim=-1)
+
+
+def key_hits(key):
+    """(t f32, original id int32; 0 on a miss) of 64-bit hit keys."""
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    return t, torch.where(torch.isfinite(t), key & _INT_MAX, 0).to(
+        torch.int32)
+
+
+def closest_walk_plain(tri_pack, walk, o, d, t_min):
+    """(t, original id) of the least key over the clusters and ray masks
+    that `walk` yields, (cluster id, (B,) bool) pairs."""
+    best = torch.full((o.shape[0],), _MISS_KEY, dtype=torch.int64,
+                      device=o.device)
+    for cl, on in walk:
+        rows = tri_pack[cl * TRI_CHUNK:(cl + 1) * TRI_CHUNK]
+        best = torch.minimum(best, closest_keys(rows, o, d, t_min, on))
+    return key_hits(best)
+
+
 def closest_grouped_plain(tri_pack, gmask, o, d, t_min=1e-4):
     """Plain torch K6: (t (B,) f32, original triangle id (B,) int32) over
     the (ray, triangle) pairs whose group bit is set; t = inf and id 0 on
     a miss."""
-    b = o.shape[0]
-    t_best = torch.full((b,), torch.inf, device=o.device)
-    id_best = torch.full((b,), _INT_MAX, dtype=torch.int32, device=o.device)
-    for cl, on in _walk_plain(gmask, b):
-        rows = tri_pack[cl * TRI_CHUNK:(cl + 1) * TRI_CHUNK]
-        orig = rows[:, 13].contiguous().view(torch.int32)
-        t, u, v = _tuv(rows, o, d)
-        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-8)
-              & (t >= t_min) & on[:, None])
-        tt = torch.where(ok, t, torch.inf)
-        tmin = tt.amin(dim=1)
-        cand = torch.where(ok & (tt == tmin[:, None]), orig[None, :],
-                           _INT_MAX).amin(dim=1)
-        better = (tmin < t_best) | ((tmin == t_best) & (cand < id_best))
-        t_best = torch.where(better, tmin, t_best)
-        id_best = torch.where(better, cand, id_best)
-    return t_best, torch.where(torch.isfinite(t_best), id_best, 0)
+    return closest_walk_plain(tri_pack, _walk_plain(gmask, o.shape[0]), o,
+                              d, t_min)
 
 
 def occluded_grouped_plain(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
@@ -428,7 +455,9 @@ def _walk_slices(dev, tiles: int) -> int:
     return max(1, min(16, -(-6 * sms // (WORDS * tiles))))
 
 
-def _check_walk(tri_pack, gmask, o, d):
+def _check_tiled_walk(tri_pack, o, d):
+    """Rays in whole 1024-ray tiles and an ordered pack of whole clusters;
+    returns (tiles, cpad)."""
     b = o.shape[0]
     if b % RAYS_PER_TILE:
         raise ValueError(f"the walk takes whole 1024-ray tiles, got {b}")
@@ -438,11 +467,15 @@ def _check_walk(tri_pack, gmask, o, d):
     if (tri_pack.dtype != torch.float32 or tri_pack.ndim != 2
             or tri_pack.shape[1] != 16 or tri_pack.shape[0] % TRI_CHUNK):
         raise ValueError("tri_pack must be (clusters * 128, 16) float32")
-    cpad = padded_clusters(tri_pack.shape[0] // TRI_CHUNK)
+    return b // RAYS_PER_TILE, padded_clusters(tri_pack.shape[0] // TRI_CHUNK)
+
+
+def _check_walk(tri_pack, gmask, o, d):
+    tiles, cpad = _check_tiled_walk(tri_pack, o, d)
     if (gmask.dtype != torch.int32
-            or tuple(gmask.shape) != (b // RAYS_PER_TILE, WORDS, cpad)):
-        raise ValueError(f"gmask must be ({b // RAYS_PER_TILE}, {WORDS}, "
-                         f"{cpad}) int32, got {tuple(gmask.shape)}")
+            or tuple(gmask.shape) != (tiles, WORDS, cpad)):
+        raise ValueError(f"gmask must be ({tiles}, {WORDS}, {cpad}) int32, "
+                         f"got {tuple(gmask.shape)}")
     if any(x.device != o.device for x in (tri_pack, gmask, d)):
         raise ValueError("rays, pack and masks must be on one device")
 
@@ -467,9 +500,7 @@ def closest_grouped(tri_pack, gmask, o, d, t_min=1e-4):
         )
     _raise_on(err, lib, "grouped closest-hit")
     closest_grouped.launches += 1
-    t = (best >> 32).to(torch.int32).view(torch.float32)
-    orig = (best & _INT_MAX).to(torch.int32)
-    return t, torch.where(torch.isfinite(t), orig, 0)
+    return key_hits(best)
 
 
 def occluded_grouped(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
@@ -593,21 +624,32 @@ class CulledScene:
     """The cluster-culled intersector of a scene (CulledScene of the JAX
     package): median-split clusters in one pack, or in contiguous parts of
     at most `max_tris_per_part` triangles; `closest_hit` takes the min
-    over parts and `occluded` the OR."""
+    over parts and `occluded` the OR.
+
+    The closest hit runs the grouped walk (K4/K5 + K6) by default. With
+    grouped=False or sort_rays=True it runs the row walk (K10 + K11,
+    ops/intersect_culled_legacy.py; sort_rays orders each batch by K8's
+    probe first), whose 13-bit cluster ids cut packs at 8,192 clusters.
+    regroup=True (grouped, one part only) re-sorts the lanes of each
+    1024-ray tile by K8's probe before the grouped walk, camera lanes
+    (`camera_mask`) first and in their own order. The any hit is the
+    grouped walk (K7) whatever the options."""
 
     def __init__(self, geom: Geometry, sort_rays=False, grouped=True,
                  regroup=False, max_tris_per_part=None):
-        if sort_rays or not grouped or regroup:
-            raise NotImplementedError(
-                "not ported yet: sort_rays, grouped=False and regroup (the "
-                "row kernel K11 and the probe K8) are ROADMAP Queue 1 item "
-                "22")
-        cap = (_GMAX_CLUSTERS * TRI_CHUNK if max_tris_per_part is None
+        self.sort_rays = sort_rays
+        self.grouped = grouped and not sort_rays
+        self.regroup = regroup and self.grouped
+        kernel_cap = (_GMAX_CLUSTERS if self.grouped
+                      else _MAX_CLUSTERS) * TRI_CHUNK
+        cap = (kernel_cap if max_tris_per_part is None
                else (max_tris_per_part // TRI_CHUNK) * TRI_CHUNK)
         cap = max(cap, TRI_CHUNK)
         self.order = median_split_order(geom)
         self.parts = [CulledPart(geom, self.order[s:s + cap])
                       for s in range(0, self.order.shape[0], cap)]
+        if len(self.parts) > 1:
+            self.regroup = False        # the probe's keys span one pack
         # original triangle id -> its row in its part's pack
         n = self.order.shape[0]
         rank = np.empty(n, np.int64)
@@ -618,17 +660,54 @@ class CulledScene:
     def num_clusters(self) -> int:
         return sum(p.cluster_min.shape[0] for p in self.parts)
 
-    def closest_tuv(self, o, d, t_min=1e-4):
+    def _regrouped_tuv(self, part, o, d, t_min, camera_mask):
+        """The grouped walk on lanes re-sorted within each 1024-ray tile:
+        bounce lanes by ((1 << 30) | octant << 21 | K8's c_best), lanes
+        that touch nothing last, camera lanes first by their own position
+        (a stable sort of a (-1, 1024) view); then un-sorted."""
+        from .intersect_culled_legacy import octant, prepass_probe
+
+        b = o.shape[0]
+        c_best = prepass_probe(part.cluster_min, part.cluster_max, o, d,
+                               t_min)
+        key = torch.where(c_best != _INT_MAX,
+                          (1 << 30) | (octant(d) << _GID_BITS) | c_best,
+                          _INT_MAX)
+        lane = torch.arange(b, dtype=torch.int32, device=o.device)
+        if camera_mask is not None:
+            key = torch.where(camera_mask, lane % RAYS_PER_TILE, key)
+        order = torch.sort(key.view(-1, RAYS_PER_TILE), dim=1,
+                           stable=True).indices
+        lanes = (order + lane.view(-1, RAYS_PER_TILE)[:, :1]).view(-1)
+        t, orig = closest_tuv_grouped(part.tri_pack, part.cluster_min,
+                                      part.cluster_max, o[lanes], d[lanes],
+                                      t_min)
+        return (torch.empty_like(t).index_put_((lanes,), t),
+                torch.empty_like(orig).index_put_((lanes,), orig))
+
+    def _part_tuv(self, part, o, d, t_min, camera_mask):
+        if self.regroup and o.shape[0] % RAYS_PER_TILE == 0:
+            return self._regrouped_tuv(part, o, d, t_min, camera_mask)
+        if self.grouped:
+            return closest_tuv_grouped(part.tri_pack, part.cluster_min,
+                                       part.cluster_max, o, d, t_min)
+        from .intersect_culled_legacy import closest_tuv_dma
+
+        return closest_tuv_dma(part.tri_pack, part.cluster_min,
+                               part.cluster_max, o, d, t_min,
+                               sort_rays=self.sort_rays)
+
+    def closest_tuv(self, o, d, t_min=1e-4, camera_mask=None):
         """(t, original triangle id, part index) of the closest hit over
-        every part; t = inf, id 0 on a miss."""
+        every part; t = inf, id 0 on a miss. `camera_mask` (B,) bool marks
+        camera rays for regroup."""
         multi = len(self.parts) > 1
         t = orig = pidx = None
         for pi, part in enumerate(self.parts):
             op, dp = o, d
             if multi:
                 op, dp = part.park(part.may_hit(o, d, t_min), o, d)
-            t2, o2 = closest_tuv_grouped(part.tri_pack, part.cluster_min,
-                                         part.cluster_max, op, dp, t_min)
+            t2, o2 = self._part_tuv(part, op, dp, t_min, camera_mask)
             if t is None:
                 t, orig, pidx = t2, o2, torch.zeros_like(o2)
                 continue
@@ -639,8 +718,8 @@ class CulledScene:
         return t, orig, pidx
 
     def closest_hit(self, geom: Geometry, o, d, t_min=1e-4,
-                    t_max=torch.inf) -> Hit:
-        t, orig, pidx = self.closest_tuv(o, d, t_min)
+                    t_max=torch.inf, camera_mask=None) -> Hit:
+        t, orig, pidx = self.closest_tuv(o, d, t_min, camera_mask)
         valid = torch.isfinite(t) & (t < t_max)
         safe = torch.where(valid, self.rank[orig.long()], 0)
         row = None

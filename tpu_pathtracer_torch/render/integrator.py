@@ -3,7 +3,8 @@ mirror, RR).
 
 Counterpart: `tpu_pathtracer/render/integrator.py` (`_sample_pure_grid`,
 `_sample_mis`, `_num_draws`, `_shade` without NEE, `_intersect` with the
-all-pairs and culled backends, `trace_wavefront` for one queue slot). The
+all-pairs and culled backends, `_morton30`, `trace_wavefront` for one
+queue slot, with its `sort_rays` lane sort). The
 estimator is the reference's: per bounce, intersect with t_min = 1e-4,
 L += beta * Le, Russian roulette for depth > 2 with p = min(max(beta),
 0.95), beta *= albedo, kill when |beta| < 1e-5, sample the next direction
@@ -52,6 +53,7 @@ from ..core.math_utils import (
 from ..ops import intersect_allpairs
 from ..ops.guiding import CDFPack, cos_theta_edges, sample_grid, sample_grid_mis
 from ..ops.intersect import Hit, closest_hit
+from ..ops.intersect_culled_legacy import octant
 from ..scene.mesh import Geometry
 from .camera import Camera
 
@@ -152,15 +154,40 @@ def _shade(hit: Hit, d, beta, live, draws, do_rr, mode=SAMPLING_BSDF,
     return o_next, nd, beta, live, contribution
 
 
-def _intersect(geom: Geometry, o, d, tri_pack, attr_pack,
-               culled=None) -> Hit:
+def _intersect(geom: Geometry, o, d, tri_pack, attr_pack, culled=None,
+               camera_mask=None) -> Hit:
     if culled is not None:
-        return culled.closest_hit(geom, o, d, t_min=RAY_EPS)
+        return culled.closest_hit(geom, o, d, t_min=RAY_EPS,
+                                  camera_mask=camera_mask)
     if tri_pack is not None:
         return intersect_allpairs.closest_hit(
             geom, tri_pack, o, d, t_min=RAY_EPS, attr_pack=attr_pack
         )
     return closest_hit(geom, o, d, t_min=RAY_EPS)
+
+
+def _morton30(p, lo, inv_ext):
+    """30-bit Morton code (int64) of points p within [lo, lo + 1/inv_ext):
+    10 bits an axis, x highest."""
+    q = ((p - lo) * inv_ext * 1023.0).clamp(0.0, 1023.0).to(torch.int64)
+
+    def expand(v):
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return ((expand(q[..., 0]) << 2) | (expand(q[..., 1]) << 1)
+            | expand(q[..., 2]))
+
+
+def lane_sort_order(o, d, alive, scene_lo, inv_ext):
+    """The lane sort's permutation: a stable argsort of (direction octant
+    << 27 | origin Morton code >> 3), dead lanes (2**30) last."""
+    code = ((octant(d).to(torch.int64) << 27)
+            | (_morton30(o, scene_lo, inv_ext) >> 3))
+    return torch.argsort(torch.where(alive, code, 1 << 30), stable=True)
 
 
 def trace_wavefront(
@@ -180,6 +207,7 @@ def trace_wavefront(
     mis_bsdf_fraction: float = 0.5,
     check_every: int = 8,
     culled=None,
+    sort_rays: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Persistent wavefront with same-pixel respawn.
 
@@ -187,6 +215,13 @@ def trace_wavefront(
     traces `spp` paths for it: when a path ends (miss, Russian roulette,
     throughput cutoff or max_depth) the lane respawns the next camera
     sample of its own pixel in the same iteration.
+
+    With sort_rays, every iteration re-orders the lanes by
+    `lane_sort_order` (direction octant, then the Morton code of the ray
+    origin in the scene's box; dead lanes last) and permutes all lane
+    state with them; the sums are un-permuted at the end. Draws are keyed
+    by pixel and every backend's hit is order-free, so the film is bitwise
+    the same as without.
 
     Args:
         lane_ids: (B,) integer pixel ids.
@@ -215,8 +250,11 @@ def trace_wavefront(
     # Lanes that finished every sample park on a ray that starts outside
     # the scene and points away (the culled prepass schedules nothing for
     # them).
-    park_o = geom.corners.reshape(-1, 3).amax(dim=0) + 1.0
+    scene_lo = geom.corners.reshape(-1, 3).amin(dim=0)
+    scene_hi = geom.corners.reshape(-1, 3).amax(dim=0)
+    park_o = scene_hi + 1.0
     park_d = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    inv_ext = 1.0 / torch.clamp(scene_hi - scene_lo, min=1e-6)
 
     # Purpose-split keys: per-draw identity lives in the counter words.
     key_cam = rng.fold_in(key, 101)
@@ -242,13 +280,15 @@ def trace_wavefront(
     depth = torch.zeros((b,), dtype=torch.int64, device=dev)
     done = torch.ones((b,), dtype=torch.int64, device=dev)  # sample 0 out
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    orig = torch.arange(b, device=dev)     # a lane's place before sorting
 
     it = 0
     while it < max_iters:
         if check_every and it % check_every == 0 and not bool(alive.any()):
             break
         rays += alive.sum()
-        hit = _intersect(geom, o, d, tri_pack, attr_pack, culled)
+        hit = _intersect(geom, o, d, tri_pack, attr_pack, culled,
+                         camera_mask=alive & (depth == 0))
         live = alive & hit.valid
         # (sample, depth) counter: `done` counts started samples, so the
         # in-flight sample is done - 1; depth is pre-increment.
@@ -272,5 +312,12 @@ def trace_wavefront(
         alive = live | respawn
         o = torch.where(alive[:, None], o, park_o)
         d = torch.where(alive[:, None], d, park_d)
+        if sort_rays:
+            perm = lane_sort_order(o, d, alive, scene_lo, inv_ext)
+            (o, d, beta, total, alive, depth, done, pid, px, py, orig) = (
+                x[perm] for x in (o, d, beta, total, alive, depth, done,
+                                  pid, px, py, orig))
         it += 1
+    if sort_rays:
+        total = torch.empty_like(total).index_put_((orig,), total)
     return total, rays, it

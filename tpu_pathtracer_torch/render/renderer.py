@@ -47,7 +47,7 @@ class RenderSettings:
     spp_per_pass: int = 1
     ray_chunk: int = 1 << 16     # lanes per traced batch
     wavefront: bool = True       # same-pixel-respawn wavefront loop
-    sort_rays: bool = False
+    sort_rays: bool = False      # re-sort the lanes every iteration
     nee: bool = False
     balance_tile_sync: bool = False
     balance_lanes: int = 0
@@ -59,8 +59,6 @@ class RenderSettings:
              "item 8b"),
             (self.nee, "next-event estimation (nee) is ROADMAP Queue 1 "
              "item 12"),
-            (self.sort_rays, "sort_rays (the row kernel K11 and its probe "
-             "K8) is ROADMAP Queue 1 item 22"),
             (self.balance_lanes > 1 or self.balance_tile_sync,
              "the balanced lane queues (balance_lanes, balance_tile_sync) "
              "are ROADMAP Queue 1 item 17c"),
@@ -136,6 +134,7 @@ def render_pass(
             max_depth=s.max_depth, tri_pack=tri_pack, attr_pack=attr_pack,
             mode=s.sampling_mode, cdfs=cdfs,
             mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
+            sort_rays=s.sort_rays,
         )
         radiance[start:start + lane_ids.shape[0]] = total
         rays += r
