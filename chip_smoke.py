@@ -9,8 +9,8 @@ Phases, one line each (any failure raises and exits non-zero):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc builds csrc/closest_hit.cu (K1, K2, K9), csrc/any_hit.cu
                (K3), csrc/cluster_prepass.cu (K4, K5, K8, K10),
-               csrc/grouped_closest.cu (K6), csrc/grouped_anyhit.cu (K7) and
-               csrc/row_closest.cu (K11) from the checkout into
+               csrc/grouped_closest.cu (K6, K12), csrc/grouped_anyhit.cu
+               (K7, K13) and csrc/row_closest.cu (K11) from the checkout into
                build/tpu_pathtracer_torch/, one nvcc per source, started
                together;
   3. kernels   every kernel against its plain torch version on the card,
@@ -34,11 +34,12 @@ Phases, one line each (any failure raises and exits non-zero):
                generated by scenes/generate_stress.py into build/; on the
                subdivision-3 box the culled closest hit's (t, original id)
                equals K2's and the culled any hit equals K3's, bitwise;
-  4. goldens   the cbox_bsdf, cbox_mirror, cbox_mis and
+  4. goldens   the cbox_bsdf, cbox_mirror, cbox_mis, cbox_nee and
                cbox_radiosity_view configs of benchmarks/goldens.py
                through App on the card with backend "auto" (the kernels),
                relative RMSE < 0.01 against goldens/*.npz; K3 must launch
-               in the two radiosity configs, K2-guide in cbox_mis;
+               in the two radiosity configs and in cbox_nee (its shadow
+               rays), K2-guide in cbox_mis;
   5. radiosity cbox subdivision 3 (1,024 primitives, 2,048 triangles), the
                App's gather solve (MC form factors, 64 samples, 10
                iterations): timed with CUDA events, K3 launches, segments
@@ -82,13 +83,32 @@ Phases, one line each (any failure raises and exits non-zero):
                warm-up and 3 timed passes, the first pass bitwise equal to
                phase 8's, as are the first passes through CulledScene(
                grouped=False), CulledScene(regroup=True) and App(Config(
-               sort_rays=True)).
+               sort_rays=True));
+ 11. nee       next-event estimation, the balanced lane queues and the
+               supercluster walk: cbox1024_nee (the headline's frame with
+               NEE: warm-up and 3 timed passes, K2 and K3 once per
+               iteration, its extra rays over the headline's are the shadow
+               rays; the first pass at ray_chunk 2**20 bitwise the same);
+               stress100k with balance_lanes=4 (its first pass bitwise phase
+               8's) and stress100k_nee with balance_lanes=4 (warm-up and 3
+               timed passes, K6 and K7 once per iteration; the unbalanced
+               and the tile-synchronised passes bitwise the same). Then,
+               with _SC_MIN_CLUSTERS lowered to 2048 and restored after, on
+               the 1M-triangle scene: K12 against its plain version and K6
+               on 65,536 camera and 65,536 bounce rays, K13 against its
+               plain version and K7 on 65,536 NEE shadow segments, bitwise,
+               timed against K6 / K7 in turns; two NEE passes through the
+               walk (K12 and K13 must launch), timed in turns with two
+               per-cluster passes, their film bitwise the per-cluster one.
 
 The second-to-last line is the kernel record (JSON; each kernel's
 launches are those of the phase that drives its path: K2 the headline,
 K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
 passes, K5 the 1M-triangle pass, K7 the sub-5 solve, K8, K10 and K11 the
-sorted stress100k passes, K9 its own call; K1 is on no path of the App).
+sorted stress100k passes, K9 its own call, K12 and K13 the supercluster
+NEE passes; K1 is on no path of the App; K3 and K7 also carry
+`nee_launches`, their launches in the timed cbox1024_nee and
+stress100k_nee passes).
 Each kernel's bound is the larger of its operations at the H100's f32
 peak and its bytes at its memory rate, from the timed call's inputs and
 outputs; the work that depends on the data (pair tests behind the masks,
@@ -127,6 +147,11 @@ GOLDEN_CONFIGS = {
         scene="cbox_quads", width=64, height=64, spp=16, max_depth=6,
         sampling_mode="bsdf", ray_chunk=4096, spp_per_pass=16, seed=7,
         mirror_tall_box=True,
+    ),
+    "cbox_nee": dict(
+        scene="cbox_quads", width=64, height=64, spp=16, max_depth=4,
+        sampling_mode="bsdf", nee=True, ray_chunk=4096,
+        spp_per_pass=16, seed=2023,
     ),
     "cbox_radiosity_view": dict(
         scene="cbox_quads", width=64, height=64, spp=4, subdivision=1,
@@ -284,6 +309,19 @@ def time_call(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_once(fn):
+    """(fn(), ms) of one call, with CUDA events (no warm-up: for the slow
+    plain versions, whose first call is as fast as any)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_pair(plain, kernel, reps: int = 50) -> tuple[float, float]:
@@ -469,7 +507,8 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
     path1m = generate_1m(os.path.join(HERE, "build", "stress1m"))
     cfg1m = Config(**{**LARGE, "scene": path1m})
     g1m = load_prims(cfg1m).build(dev)
-    p1 = ic.CulledScene(g1m).parts[0]
+    cs1m = ic.CulledScene(g1m)
+    p1 = cs1m.parts[0]
     cmin, cmax = p1.cluster_min, p1.cluster_max
     nblk = cmin.shape[0] // ic.BLOCK_CLUSTERS
     rays = [("camera", *swizzled_camera_rays(scene_camera(cfg1m, dev), 256,
@@ -527,7 +566,7 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
               f"to K3's {same}")
         if not same:
             raise AssertionError("the culled any hit differs from K3")
-    return path1m, p1, scene_camera(cfg1m, dev)
+    return path1m, p1, scene_camera(cfg1m, dev), g1m, cs1m
 
 
 def large_phase(dev, path1m, start, end):
@@ -552,7 +591,7 @@ def large_phase(dev, path1m, start, end):
     end.synchronize()
     launches = {"K4": ic.prepass_dense.launches,
                 "K6": ic.closest_grouped.launches}
-    ms = start.elapsed_time(end)
+    ms = large_ms = start.elapsed_time(end)
     rays = r.total_rays
     accum = r.film.accum
     finite = bool(torch.isfinite(accum).all())
@@ -607,7 +646,7 @@ def large_phase(dev, path1m, start, end):
           f"bitwise equal: {same}")
     if not same:
         raise AssertionError("the culled backend's film differs from K2's")
-    return launches, first
+    return launches, first, large_ms
 
 
 def solve_phase(dev, sol3, start, end):
@@ -903,6 +942,244 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds):
     return launches
 
 
+def nee_phase(dev, start, end, headline, large):
+    """Phase 11a: next-event estimation on the card. cbox1024_nee (K2 and
+    K3 once per iteration; its path rays are the headline's, so its extra
+    rays are the shadow rays) and stress100k_nee with balance_lanes=4 (K6
+    and K7 once per iteration), timed against the NEE-off passes; the
+    balanced, unbalanced and tile-synchronised films bitwise equal, and
+    phase large's pass balanced. Returns K3's and K7's launches."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.render.renderer import (
+        ProgressiveRenderer,
+        RenderSettings,
+    )
+    from tpu_pathtracer_torch.utils.config import Config
+
+    def timed(r):
+        r.reset_stats()
+        zero_counts()
+        start.record()
+        for _ in range(TIMED_PASSES):
+            r.step(block=False)
+        end.record()
+        end.synchronize()
+        accum = r.film.accum
+        ok = bool(torch.isfinite(accum).all()) and float(accum.mean()) > 0
+        return start.elapsed_time(end), r.total_rays, ok
+
+    # cbox1024_nee: bench.py's frame (the headline's with nee)
+    r = App(Config(spp=16 * (TIMED_PASSES + 1), nee=True, **HEADLINE),
+            device=dev).renderer()
+    r.step()                                   # warm-up pass
+    first = r.film.accum.clone()
+    ms, rays, ok = timed(r)
+    k2, k3 = ap.closest_record.launches, ap.occluded.launches
+    head_rays, head_ms = headline
+    shadow = rays - head_rays
+    phase("nee", f"cbox1024_nee: cbox 1024x1024 depth 5, {TIMED_PASSES} "
+          f"passes x 16 spp, NEE: {rays} rays ({shadow} shadow rays) in "
+          f"{ms:.3f} ms (CUDA events) = {rays / (ms / 1e3) / 1e6:.3f} "
+          f"Mrays/s; {r.iterations} iterations, K2 launches {k2}, K3 {k3}; "
+          f"wall per spp {ms / head_ms:.4f}x the headline's; film finite "
+          f"and non-zero {ok}")
+    if not (ok and k2 == k3 == r.iterations > 0 and 0 < shadow < head_rays):
+        raise AssertionError("cbox1024_nee failed its checks")
+    big = App(Config(spp=16, nee=True, **{**HEADLINE, "ray_chunk": 1 << 20}),
+              device=dev).renderer()
+    _, ms_big = time_once(big.step)
+    same = torch.equal(big.film.accum, first)
+    phase("nee", f"cbox1024_nee at ray_chunk 2**20: first pass "
+          f"{big.total_rays} rays in {ms_big:.3f} ms; film bitwise equal to "
+          f"ray_chunk 2**16: {same}")
+    if not same:
+        raise AssertionError("the NEE film depends on ray_chunk")
+
+    # stress100k: the balanced NEE-off pass (phase large's film) and time
+    first_large, large_ms = large
+    rb = App(Config(spp=8 * (TIMED_PASSES + 1), balance_lanes=4, **LARGE),
+             device=dev).renderer()
+    _, probe_ms = time_once(rb.step)           # probe pass + first pass
+    same_large = torch.equal(rb.film.accum, first_large)
+    bal_ms, bal_rays, ok_b = timed(rb)
+    phase("nee", f"stress100k balance_lanes=4, NEE off: probe + first pass "
+          f"{probe_ms:.3f} ms, film bitwise equal to phase large's "
+          f"{same_large}; {TIMED_PASSES} passes {bal_rays} rays in "
+          f"{bal_ms:.3f} ms = {bal_rays / (bal_ms / 1e3) / 1e6:.3f} Mrays/s "
+          f"(unbalanced, phase large: {large_ms:.3f} ms); {rb.iterations} "
+          "iterations")
+    if not (same_large and ok_b and rb._assignment is not None):
+        raise AssertionError("the balanced stress100k pass failed")
+
+    # stress100k_nee: bench.py's cell, balance_lanes=4 and NEE
+    app = App(Config(spp=8 * (TIMED_PASSES + 1), nee=True, balance_lanes=4,
+                     **LARGE), device=dev)
+    r = app.renderer()
+    if app.culled is None or not r.settings.nee:
+        raise AssertionError("stress100k_nee is not on the culled backend")
+    r.step()                                   # probe + warm-up pass
+    first = r.film.accum.clone()
+    ms, rays, ok = timed(r)
+    k6, k7 = ic.closest_grouped.launches, ic.occluded_grouped.launches
+    phase("nee", f"stress100k_nee: 256x256 depth 4, {TIMED_PASSES} passes x "
+          f"8 spp, balance_lanes=4, NEE: {rays} rays ({rays - bal_rays} "
+          f"shadow rays) in {ms:.3f} ms (CUDA events) = "
+          f"{rays / (ms / 1e3) / 1e6:.3f} Mrays/s; {r.iterations} "
+          f"iterations, K6 launches {k6}, K7 {k7}, K4 "
+          f"{ic.prepass_dense.launches}; wall per spp {ms / bal_ms:.4f}x the "
+          f"NEE-off balanced pass's; film finite and non-zero {ok}")
+    if not (ok and r._assignment is not None
+            and k6 == k7 == r.iterations > 0 and rays > bal_rays):
+        raise AssertionError("stress100k_nee failed its checks")
+    settings = {k: LARGE[k] for k in ("width", "height", "max_depth",
+                                      "spp_per_pass", "ray_chunk")}
+    others = {
+        "unbalanced": App(Config(spp=8, nee=True, **LARGE),
+                          device=dev).renderer(),
+        "balance_tile_sync": ProgressiveRenderer(
+            app.geom, app.camera_ctrl.build(dev), RenderSettings(
+                nee=True, balance_lanes=4, balance_tile_sync=True,
+                **settings), device=dev, seed=app.config.seed,
+            culled=app.culled),
+    }
+    for name, rr in others.items():
+        _, ms1 = time_once(rr.step)
+        same = torch.equal(rr.film.accum, first)
+        phase("nee", f"stress100k_nee {name}: first pass {ms1:.3f} ms, "
+              f"{rr.iterations} iterations; film bitwise equal to the "
+              f"balanced one {same}")
+        if not same:
+            raise AssertionError(f"stress100k_nee {name} changes the film")
+    return {"K3": k3, "K7": k7}
+
+
+def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
+                       times, bounds):
+    """Phase 11b: the supercluster walk on the 1M-triangle scene, with
+    _SC_MIN_CLUSTERS lowered to 2048 and restored after. K12 against its
+    plain version and K6, K13 against its plain version and K7, bitwise,
+    timed against K6 / K7 in turns; two NEE passes through the walk (K12
+    and K13 must launch, K6 and K7 not), timed in turns with the
+    per-cluster passes, their film bitwise the per-cluster one. Returns
+    K12's and K13's launches in those passes."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.core.constants import MATERIAL_MIRROR
+    from tpu_pathtracer_torch.core.math_utils import dot
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.render.integrator import (
+        build_nee_pack,
+        nee_shadow_rays,
+    )
+    from tpu_pathtracer_torch.utils.config import Config
+
+    part = cs1m.parts[0]
+    cmin, cmax, tri = part.cluster_min, part.cluster_max, part.tri_pack
+    n_cl = int(torch.isfinite(cmin[:, 0]).sum())
+    saved = ic._SC_MIN_CLUSTERS
+    try:
+        ic._SC_MIN_CLUSTERS = 2048
+        if not ic._sc_mode(cmin.shape[0]):
+            raise AssertionError("the 1M scene is below the lowered threshold")
+        side = int(round(N_RAYS ** 0.5))       # the 256x256 frame
+        rays = [("camera", *swizzled_camera_rays(cam1m, side, 5, dev)),
+                ("bounce", *box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                     N_RAYS, 6, dev))]
+        for rname, o, d in rays:
+            gm = ic.prepass_groups(cmin, cmax, o, d, 1e-4)[0]
+            k12 = ic.closest_grouped_sc(tri, gm, o, d)
+            k6 = ic.closest_grouped(tri, gm, o, d)
+            p12, p_ms = time_once(
+                lambda: ic.closest_grouped_sc_plain(tri, gm, o, d))
+            ok = prepass_equal(k12, p12) and prepass_equal(k12, k6)
+            err["K12"] = max(err["K12"], max_abs_diff(k12[0], p12[0]))
+            t6, t12 = time_pair(lambda: ic.closest_grouped(tri, gm, o, d),
+                                lambda: ic.closest_grouped_sc(tri, gm, o, d),
+                                reps=5)
+            entries = int(ic.supercluster_list(gm)[0].sum())
+            phase("nee", f"1M scene ({n_cl} clusters) {rname}: K12 bitwise "
+                  f"equal to plain and to K6 {ok}; {entries} (tile, entry) "
+                  f"visits, {set_bits(gm)} (group, cluster) bits; K12 "
+                  f"{t12:.6f} ms vs K6 {t6:.6f} ms (turns K6, K12, K12, K6);"
+                  f" plain K12 {p_ms:.3f} ms")
+            if not ok:
+                raise AssertionError(f"K12 differs on the 1M scene {rname} "
+                                     "(tolerance: bitwise)")
+            times["K12"] = (p_ms, t12)          # the bounce rays' stay
+            bounds["K12"] = bound(set_bits(gm) * 8 * 128 * PAIR_FLOPS, tri,
+                                  gm, o, d, *k12)
+
+        # NEE-shaped shadow segments from the camera rays' hits
+        o, d = rays[0][1], rays[0][2]
+        hit = cs1m.closest_hit(g1m, o, d)
+        sn = torch.where((dot(d, hit.n) < 0.0)[:, None], hit.n, -hit.n)
+        u3 = torch.from_numpy(np.random.default_rng(7).random(
+            (N_RAYS, 3), np.float32)).to(dev)
+        seg = nee_shadow_rays(build_nee_pack(g1m), hit, sn,
+                              hit.valid & (hit.material != MATERIAL_MIRROR),
+                              u3)
+        so, sd, maxd = seg.o.contiguous(), seg.d.contiguous(), seg.maxd
+        ea, eb = seg.ex_a.contiguous(), seg.ex_b.contiguous()
+        gm = ic.prepass_groups(cmin, cmax, so, sd, 1e-5, maxd)[0]
+        k13 = ic.occluded_grouped_sc(tri, gm, so, sd, maxd, ea, eb)
+        k7 = ic.occluded_grouped(tri, gm, so, sd, maxd, ea, eb)
+        p13, p_ms = time_once(lambda: ic.occluded_grouped_sc_plain(
+            tri, gm, so, sd, maxd, ea, eb))
+        ok = torch.equal(k13, p13) and torch.equal(k13, k7)
+        t7, t13 = time_pair(
+            lambda: ic.occluded_grouped(tri, gm, so, sd, maxd, ea, eb),
+            lambda: ic.occluded_grouped_sc(tri, gm, so, sd, maxd, ea, eb),
+            reps=5)
+        phase("nee", f"1M scene NEE shadow segments: {int((maxd > 0).sum())}"
+              f" of {N_RAYS} taken, {int(k13.sum())} blocked; K13 bitwise "
+              f"equal to plain and to K7 {ok}; K13 {t13:.6f} ms vs K7 "
+              f"{t7:.6f} ms (turns K7, K13, K13, K7); plain K13 {p_ms:.3f} ms")
+        if not ok:
+            raise AssertionError("K13 differs on the 1M scene (tolerance: "
+                                 "bitwise)")
+        times["K13"] = (p_ms, t13)
+        bounds["K13"] = bound(
+            anyhit_pairs(group_pairs(gm), maxd, k13) * PAIR_FLOPS, tri, gm,
+            so, sd, maxd, ea, eb, k13)
+
+    finally:
+        ic._SC_MIN_CLUSTERS = saved
+
+    # NEE passes of the 1M scene through the walk and per cluster, in the
+    # turns per cluster, walk, walk, per cluster (passes 0 and 1 of each)
+    cfg = Config(spp=16, nee=True, **{**LARGE, "scene": path1m})
+    r, ref = (App(cfg, device=dev).renderer() for _ in range(2))
+    launches = dict.fromkeys(("K12", "K13", "K6", "K7", "ref K12"), 0)
+    ms = {"walk": 0.0, "per cluster": 0.0}
+    for turn in ("per cluster", "walk", "walk", "per cluster"):
+        zero_counts()
+        if turn == "walk":
+            try:
+                ic._SC_MIN_CLUSTERS = 2048
+                ms[turn] += time_once(r.step)[1]
+            finally:
+                ic._SC_MIN_CLUSTERS = saved
+            launches["K12"] += ic.closest_grouped_sc.launches
+            launches["K13"] += ic.occluded_grouped_sc.launches
+            launches["K6"] += ic.closest_grouped.launches
+            launches["K7"] += ic.occluded_grouped.launches
+        else:
+            ms[turn] += time_once(ref.step)[1]
+            launches["ref K12"] += ic.closest_grouped_sc.launches
+    same = torch.equal(r.film.accum, ref.film.accum)
+    phase("nee", f"1M scene NEE passes (256x256 depth 4, 8 spp, passes 0 "
+          f"and 1, in turns): through the supercluster walk {r.total_rays} "
+          f"rays in {ms['walk']:.3f} ms, {r.iterations} iterations, K12 "
+          f"launches {launches['K12']}, K13 {launches['K13']}, K6 "
+          f"{launches['K6']}, K7 {launches['K7']}; per cluster "
+          f"{ms['per cluster']:.3f} ms; films bitwise equal {same}")
+    if not (same and launches["K12"] == launches["K13"] == r.iterations > 0
+            and launches["K6"] == launches["K7"] == launches["ref K12"] == 0):
+        raise AssertionError("the supercluster NEE pass failed its checks")
+    return {k: launches[k] for k in ("K12", "K13")}
+
+
 def main() -> int:
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -957,7 +1234,7 @@ def main() -> int:
         "cbox_sub3": subdivide(cornell_box("quads"), 3).build(dev),
     }
     err = dict.fromkeys(("K1", "K2", "K2-guide", "K3", "K4", "K5", "K6",
-                         "K7", "K8", "K9", "K10", "K11"), 0.0)
+                         "K7", "K8", "K9", "K10", "K11", "K12", "K13"), 0.0)
     bounds = {}
     g = np.random.default_rng(0)
     for si, sname in enumerate(("cbox", "cbox_mirror", "cbox_sub2",
@@ -1058,8 +1335,8 @@ def main() -> int:
                  else f"{N_RAYS} bounce rays")
         phase("kernels", f"{k} at {shape} x {g3.num_tris} tris: kernel "
               f"{km:.6f} ms, plain torch {pm:.6f} ms per call")
-    path1m, part1m, cam1m = culled_kernels(dev, cam, scenes, k3_cases, err,
-                                           times, bounds)
+    path1m, part1m, cam1m, g1m, cs1m = culled_kernels(
+        dev, cam, scenes, k3_cases, err, times, bounds)
 
     # 4. goldens on the card -----------------------------------------------
     for name, kw in GOLDEN_CONFIGS.items():
@@ -1083,6 +1360,8 @@ def main() -> int:
                        or kw["sampling_mode"] != "bsdf")
         if kw.get("integrator") == "radiosity":
             launched = k3 > 0
+        elif kw.get("nee"):            # K3 takes NEE's shadow rays
+            launched = k2 > 0 and k3 > 0
         elif needs_solve:
             launched = k3 > 0 and k2g > 0
         else:
@@ -1212,8 +1491,8 @@ def main() -> int:
     end.synchronize()
     launches = {"K1": ap.closest_tuv.launches,
                 "K2": ap.closest_record.launches}
-    ms = start.elapsed_time(end)
-    rays = r.total_rays
+    ms = headline_ms = start.elapsed_time(end)
+    rays = headline_rays = r.total_rays
     accum = r.film.accum
     finite = bool(torch.isfinite(accum).all())
     mean = float(accum.mean()) / max(r.film.spp, 1)
@@ -1245,7 +1524,7 @@ def main() -> int:
         raise AssertionError("film or ray count depends on ray_chunk")
 
     # 8. large: the culled path -------------------------------------------
-    large, first_large = large_phase(dev, path1m, start, end)
+    large, first_large, large_ms = large_phase(dev, path1m, start, end)
 
     # 9. solve: the sub-5 gather solve through K7 ---------------------------
     k7_launches = solve_phase(dev, sol, start, end)
@@ -1253,6 +1532,12 @@ def main() -> int:
     # 10. rows: the row-granular culled backend and ray sorting --------------
     rows = rows_phase(dev, cam, (part1m, cam1m), first_large, start, end, err,
                       times, bounds)
+
+    # 11. nee: next-event estimation, the queues, the supercluster walk ------
+    nee = nee_phase(dev, start, end, (headline_rays, headline_ms),
+                    (first_large, large_ms))
+    sc = supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
+                            times, bounds)
 
     def entry(name, key, source, replaces, n_launches,
               module="intersect_pallas.py"):
@@ -1265,6 +1550,7 @@ def main() -> int:
                 "library_ms": None}
 
     legacy = "intersect_pallas_legacy.py"
+    lab = "intersect_pallas_lab.py"
 
     record = {"kernels": [
         entry("K1 closest_tuv (_kernel)", "K1", "closest_hit.cu", 167,
@@ -1273,16 +1559,17 @@ def main() -> int:
               240, launches["K2"]),
         entry("K2-guide closest_record, 27 rows (_kernel_full)", "K2-guide",
               "closest_hit.cu", 240, guide_launches),
-        entry("K3 occluded (_kernel_anyhit)", "K3", "any_hit.cu", 765,
-              k3_launches),
+        {**entry("K3 occluded (_kernel_anyhit)", "K3", "any_hit.cu", 765,
+                 k3_launches), "nee_launches": nee["K3"]},
         entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
               "cluster_prepass.cu", 1023, large["K4"]),
         entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
               "cluster_prepass.cu", 1149, large["K5"]),
         entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
               "grouped_closest.cu", 1723, large["K6"]),
-        entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
-              "grouped_anyhit.cu", 2219, k7_launches),
+        {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
+                 "grouped_anyhit.cu", 2219, k7_launches),
+         "nee_launches": nee["K7"]},
         entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
               "cluster_prepass.cu", 45, rows["K8"], legacy),
         entry("K9 closest_culled (_kernel_culled)", "K9", "closest_hit.cu",
@@ -1291,6 +1578,10 @@ def main() -> int:
               "cluster_prepass.cu", 306, rows["K10"], legacy),
         entry("K11 closest_rows (_kernel_culled_dma)", "K11",
               "row_closest.cu", 572, rows["K11"], legacy),
+        entry("K12 closest_grouped_sc (_kernel_grouped_dma_sc)", "K12",
+              "grouped_closest.cu", 36, sc["K12"], lab),
+        entry("K13 occluded_grouped_sc (_kernel_grouped_anyhit_dma_sc)",
+              "K13", "grouped_anyhit.cu", 222, sc["K13"], lab),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -172,30 +172,35 @@ def test_sample_grid_mis_vs_jax(cdfs, lanes, with_bins):
 @pytest.mark.parametrize("frac", [0.5, 0.25, 0.0, 1.0])
 def test_mis_sampler_vs_jax(cdfs, lanes, frac):
     """The integrator's one-sample MIS: the same strategy per lane, the
-    direction within 2e-6 and the weight within 4e-6 relative."""
+    direction within 2e-6, the weight and the mixture pdf NEE weighs
+    against within 4e-6 relative."""
     j, t = cdfs
     n, prim, dr = lanes
-    jd, jw, jv, _ = jintegrator._sample_mis(j, *_j(prim, n, dr),
-                                            jnp.float32(frac))
+    jd, jw, jv, jp = jintegrator._sample_mis(j, *_j(prim, n, dr),
+                                             jnp.float32(frac))
     d_b, _ = tintegrator.cosine_sample_hemisphere(*_t(n, dr[:, 0], dr[:, 1]))
-    td, tw, tv = tintegrator._sample_mis(
+    td, tw, tv, tp = tintegrator._sample_mis(
         t, *_t(prim, n, dr), tintegrator.mis_probabilities(frac), d_b)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     ok = np.asarray(jv)
     np.testing.assert_allclose(td.numpy()[ok], np.asarray(jd)[ok], atol=2e-6)
     np.testing.assert_allclose(tw.numpy()[ok], np.asarray(jw)[ok],
                                rtol=4e-6, atol=1e-7)
+    np.testing.assert_allclose(tp.numpy()[ok], np.asarray(jp)[ok],
+                               rtol=4e-6, atol=1e-7)
 
 
 def test_pure_grid_sampler_vs_jax(cdfs, lanes):
     j, t = cdfs
     n, prim, dr = lanes
-    jd, jw, jv, _ = jintegrator._sample_pure_grid(j, *_j(prim, n, dr))
-    td, tw, tv = tintegrator._sample_pure_grid(t, *_t(prim, n, dr))
+    jd, jw, jv, jp = jintegrator._sample_pure_grid(j, *_j(prim, n, dr))
+    td, tw, tv, tp = tintegrator._sample_pure_grid(t, *_t(prim, n, dr))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     ok = np.asarray(jv)
     np.testing.assert_allclose(td.numpy()[ok], np.asarray(jd)[ok], atol=2e-6)
     np.testing.assert_allclose(tw.numpy()[ok], np.asarray(jw)[ok],
+                               rtol=4e-6, atol=1e-7)
+    np.testing.assert_allclose(tp.numpy()[ok], np.asarray(jp)[ok],
                                rtol=4e-6, atol=1e-7)
 
 

@@ -47,14 +47,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("backend", ["auto", "pallas"])
 @pytest.mark.parametrize("name", ["cbox_bsdf", "cbox_mirror", "cbox_mis",
-                                  "cbox_radiosity_view"])
+                                  "cbox_nee", "cbox_radiosity_view"])
 def test_slice_matches_golden(name, backend):
     """The port's App on the CPU against the JAX package's goldens, with
     the golden gate's bar (relative RMSE < 0.01). "auto" is the brute
     backend here, "pallas" the plain K2 (with guide rows in cbox_mis) and
-    K3. Not bitwise: the films agree to a relative RMSE of ~1e-8 (XLA on
-    the CPU contracts FMAs and has its own sin/cos/sqrt); the radiosity
-    view's u8 image is bitwise equal."""
+    K3 (also for cbox_nee's shadow rays). Not bitwise: the films agree to
+    a relative RMSE of ~1e-8 (XLA on the CPU contracts FMAs and has its
+    own sin/cos/sqrt); the radiosity view's u8 image is bitwise equal."""
     cfg = Config(backend=backend, **CONFIGS[name])
     app = App(cfg, device="cpu")
     if cfg.integrator == "radiosity":
@@ -69,6 +69,8 @@ def test_slice_matches_golden(name, backend):
         assert (r.cdfs is not None) == guided
         if backend == "pallas":
             assert r.attr_pack.shape[0] == (32 if guided else 16)
+        assert r.settings.nee == cfg.nee
+        assert (r.prim_ids is not None) == (cfg.nee and backend == "pallas")
     assert (app.tri_pack is not None) == (backend == "pallas")
     with np.load(os.path.join(GOLDEN_DIR, f"{name}.npz")) as z:
         want = z["image"]
@@ -225,18 +227,43 @@ def test_cosine_sample_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(nee=True),
-    dict(nee=True, sampling_mode="mis"),
     dict(radiosity_solver="shooting"),
-    dict(backend="culled", balance_lanes=4),
     dict(backend="bvh"),
     dict(radiosity_solver="shooting", integrator="radiosity"),
-    dict(balance_lanes=4),
     dict(num_tiles=2),
 ])
 def test_unported_config_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         App(Config(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(nee=True),
+    dict(nee=True, sampling_mode="mis"),
+    dict(backend="culled", balance_lanes=4, subdivision=2),
+    dict(balance_lanes=4),
+])
+def test_config_nee_and_balance_lanes_render(kw):
+    """Config.nee and Config.balance_lanes reach RenderSettings, as in the
+    JAX App, and render on the CPU; the balanced film (64x64: whole
+    4096-pixel deals) is the unbalanced one, bitwise."""
+    base = dict(width=64, height=64, spp=2, max_depth=3, mc_samples=2,
+                radiosity_iterations=2)
+    app = App(Config(**{**base, **kw}), device="cpu")
+    r = app.renderer()
+    assert r.settings.nee == kw.get("nee", False)
+    assert r.settings.balance_lanes == kw.get("balance_lanes", 0)
+    img = app.render()
+    assert img.shape == (64, 64, 3) and img.max() > 0
+    if "balance_lanes" in kw:
+        assert r._assignment is not None
+        plain = App(Config(**{**base, **kw, "balance_lanes": 0}),
+                    device="cpu").renderer()
+        plain.render(2)
+        assert torch.equal(r.film.accum, plain.film.accum)
+    else:
+        assert r.total_rays > 0 and (app.cdfs is not None) == (
+            kw.get("sampling_mode") == "mis")
 
 
 @pytest.mark.parametrize("backend", ["brute", "pallas"])
@@ -295,9 +322,50 @@ def test_guided_and_radiosity_configs_render(kw):
     dict(wavefront=False),
     dict(balance_lanes=2),
 ])
-def test_unported_render_settings_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderSettings(**kw)
+def test_render_settings_nee_scan_and_queues_render(kw):
+    """RenderSettings(nee / wavefront=False / balance_lanes) render: NEE
+    adds shadow rays to the count, the scan integrator runs max_depth
+    bounces a sample and renders the JAX package's scan pass (relative
+    RMSE < 0.01), the queues leave the film bitwise unchanged."""
+    geom = cornell_box("quads", mirror_tall_box=True).build("cpu")
+    cam = CameraController.default().build("cpu")
+    base = dict(width=64, height=32, max_depth=4, spp_per_pass=2)
+    r = ProgressiveRenderer(geom, cam, RenderSettings(**base, **kw),
+                            device="cpu", seed=5)
+    r.step()
+    ref = ProgressiveRenderer(geom, cam, RenderSettings(**base),
+                              device="cpu", seed=5)
+    ref.step()
+    accum = r.film.accum
+    assert torch.isfinite(accum).all() and accum.max() > 0
+    if "balance_lanes" in kw:
+        assert r._assignment is not None
+        assert torch.equal(accum, ref.film.accum)
+        assert r.total_rays == ref.total_rays
+    elif "nee" in kw:
+        assert r.total_rays > ref.total_rays
+        assert not torch.equal(accum, ref.film.accum)
+    else:
+        assert r.iterations == 2 * 4          # 2 spp x depth 4
+        # the JAX package's scan pass with the same seed: the goldens' bar
+        from tpu_pathtracer.render import camera as jcamera
+        from tpu_pathtracer.render import renderer as jrenderer
+        from tpu_pathtracer.scene import builtin as jbuiltin
+
+        jr = jrenderer.ProgressiveRenderer(
+            jbuiltin.cornell_box("quads", mirror_tall_box=True).build(),
+            jcamera.CameraController.default().build(),
+            jrenderer.RenderSettings(**base, **kw), seed=5)
+        jr.step()
+        want = np.asarray(jr.film.accum, np.float64)
+        got = accum.numpy().astype(np.float64)
+        rel = np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))
+        assert rel < 0.01 and r.total_rays == jr.total_rays
+    with pytest.raises(ValueError, match="wavefront"):
+        from tpu_pathtracer_torch.render.renderer import render_pass
+
+        render_pass(geom, cam, r.film, r.key, RenderSettings(
+            **base, wavefront=False), assignment=(torch.zeros(1), None))
 
 
 def test_render_settings_sort_rays_film_bitwise():

@@ -9,17 +9,21 @@ Counterpart: `tpu_pathtracer/app.py` (`load_prims`, `App.load_scene`,
 given; a `Config` JSON and a checkpoint npz load in both packages.
 
 Backends: "pallas" selects the hand-written all-pairs kernels
-(ops/intersect_allpairs.py: K2 for hits, K3 for form-factor visibility;
-their plain torch versions on the CPU), "culled" the cluster-culled
-kernels for large scenes (ops/intersect_culled.py: the K4/K5 prepass, K6
-for hits, K7 for visibility) and "brute" the brute-force queries. "auto"
+(ops/intersect_allpairs.py: K2 for hits, K3 for form-factor visibility
+and NEE's shadow rays; their plain torch versions on the CPU), "culled"
+the cluster-culled kernels for large scenes (ops/intersect_culled.py: the
+K4/K5 prepass, K6 for hits, K7 for visibility and shadow rays; K12/K13
+in supercluster mode) and "brute" the brute-force queries. "auto"
 selects, as the JAX package does on its accelerator and on the CPU, the
 all-pairs kernels on CUDA up to 16,384 triangles and the culled ones
-above, and brute force on the CPU up to 2048 triangles. `sort_rays` is
-the integrator's lane sort on any backend, as in the JAX App; the App's
-`CulledScene` keeps its defaults. Options this package does not port
-yet raise NotImplementedError naming the ROADMAP item that will port
-them.
+above, and brute force on the CPU up to 2048 triangles. As in the JAX
+App, `sort_rays` is the integrator's lane sort on any backend, `nee` the
+integrator's next-event estimation and `balance_lanes` the renderer's
+balanced lane queues (the JAX CLI has no flags for the last two: a
+`--config-json` carries them); the App's `CulledScene` keeps its
+defaults. Options this package does not port yet (the shooting solver,
+the BVH, OBJ scenes, multi-device tiling) raise NotImplementedError
+naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -101,12 +105,6 @@ def check_ported(cfg: Config) -> None:
     _ = cfg.sampling_mode_id
     if cfg.radiosity_solver == "shooting":
         raise _not_ported(_SHOOTING)
-    if cfg.nee:
-        raise _not_ported("nee (next-event estimation) is ROADMAP Queue 1 "
-                          "item 12")
-    if cfg.balance_lanes > 1:
-        raise _not_ported("balance_lanes (the balanced lane queues) is "
-                          "ROADMAP Queue 1 item 17c")
     if cfg.num_tiles > 1:
         raise _not_ported("num_tiles (multi-device tiling) is ROADMAP "
                           "Queue 1 item 21")
@@ -341,6 +339,8 @@ class App:
                 spp_per_pass=min(spp_pass, cfg.spp),
                 ray_chunk=cfg.ray_chunk,
                 sort_rays=cfg.sort_rays,
+                balance_lanes=cfg.balance_lanes,
+                nee=cfg.nee,
             )
             self._renderer = ProgressiveRenderer(
                 self.geom,
@@ -353,6 +353,8 @@ class App:
                 cdfs=self.cdfs,
                 mis_bsdf_fraction=cfg.mis_bsdf_fraction,
                 culled=self.culled,
+                prim_ids=(pack_prim_ids(self.geom)
+                          if cfg.nee and self.tri_pack is not None else None),
             )
         return self._renderer
 

@@ -1,11 +1,14 @@
-"""Cluster-culled queries for large scenes: K4, K5, K6 and K7 on CUDA.
+"""Cluster-culled queries for large scenes: K4-K7, K12 and K13 on CUDA.
 
 Counterpart: the culled half of `tpu_pathtracer/ops/intersect_pallas.py`:
 `_prepass_groups` with K4 (`_kernel_prepass_groups`, `_seg`) and K5
 (`_kernel_prepass_groups_fused`), `_quarter_gate`, `_block_gate`,
-`_cluster_list_groups`, `pallas_closest_tuv_dma_grouped` (K6,
-`_kernel_grouped_dma`), `pallas_occluded_dma_grouped` (K7,
-`_kernel_grouped_anyhit_dma`) and `CulledScene`.
+`_SC_MIN_CLUSTERS`, `_sc_mode`, `_cluster_list_groups` (both schedules),
+`pallas_closest_tuv_dma_grouped` (K6, `_kernel_grouped_dma`),
+`pallas_occluded_dma_grouped` (K7, `_kernel_grouped_anyhit_dma`) and
+`CulledScene`; and `tpu_pathtracer/ops/intersect_pallas_lab.py`'s
+supercluster kernels K12 (`_kernel_grouped_dma_sc`) and K13
+(`_kernel_grouped_anyhit_dma_sc`).
 
 The scheme keeps the JAX package's granules: triangles in spatially
 ordered 128-triangle clusters (ops/cluster_layout.py), rays in 1024-ray
@@ -19,19 +22,33 @@ group's bit is set.
 
 Each query has a plain torch version beside its kernel:
 
-  prepass_dense(...)     K4: the prepass over every cluster;
-  prepass_gated(...)     K5: the same over the gate-ON 32-cluster quarters
-                         only (gate words from K4 run on the quarters'
-                         union boxes, `quarter_gate`); bitwise equal to K4,
-                         since a box that misses implies its members miss;
-  closest_grouped(...)   K6: closest (t, original triangle id);
-  occluded_grouped(...)  K7: any hit in 1e-5 < t < maxd whose primitive is
-                         neither of two excluded ids.
+  prepass_dense(...)       K4: the prepass over every cluster;
+  prepass_gated(...)       K5: the same over the gate-ON 32-cluster
+                           quarters only (gate words from K4 run on the
+                           quarters' union boxes, `quarter_gate`); bitwise
+                           equal to K4, since a box that misses implies its
+                           members miss;
+  closest_grouped(...)     K6: closest (t, original triangle id);
+  occluded_grouped(...)    K7: any hit in 1e-5 < t < maxd whose primitive
+                           is neither of two excluded ids;
+  closest_grouped_sc(...)  K12: K6 over the supercluster schedule;
+  occluded_grouped_sc(...) K13: K7 over the supercluster schedule.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the hand-written kernel (`csrc/cluster_prepass.cu`,
-`csrc/grouped_closest.cu`, `csrc/grouped_anyhit.cu`, built at first use)
-or raises. Each wrapper counts its launches (`.launches`).
+`csrc/grouped_closest.cu` for K6 and K12, `csrc/grouped_anyhit.cu` for K7
+and K13, built at first use) or raises. Each wrapper counts its launches
+(`.launches`).
+
+The supercluster walk (K12, K13; `intersect_pallas_lab.py` of the JAX
+package): a schedule entry is _SC = 8 consecutive clusters whose 1024
+triangle rows are one contiguous span of the pack, with an 8-bit bitmap of
+its members that some group of the tile hits (`supercluster_list`); the
+walk stages an entry's span once and tests each active member's 128-row
+slice as K6/K7 test a cluster. The queries take it when a pack has at
+least `_SC_MIN_CLUSTERS` clusters, read at call time as the JAX package
+reads its own copy: 2**30, so never in production (the TPU measured the
+walk a wash); a caller lowers it to run the walk.
 
 Semantics. The slab test is `_prepass_block_vals`'s, with the inverse
 direction clamped at 1e-8 and NaN bounds (padding clusters) failing every
@@ -47,8 +64,7 @@ the row-granular kernels K8-K11 of ops/intersect_culled_legacy.py.
 
 Not ported (TPU workarounds or probes): the SMEM schedule ring, the
 comp-pack lane-broadcast expansion, the DMA ring, the halfword-f32 mask
-packing, the bricked attribute fetch, and the supercluster walk (K12,
-K13).
+packing and the bricked attribute fetch.
 """
 
 from __future__ import annotations
@@ -81,6 +97,8 @@ QGRAN = 32                   # clusters per gate bit
 QPB = BLOCK_CLUSTERS // QGRAN  # gate bits per 128-cluster block
 WORDS = RAYS_PER_TILE // GROUP // 32   # 4 group-mask words per cluster
 _GATE_MIN_BLOCKS = 16        # gate the prepass from 16 blocks (2048 clusters)
+_SC = 8                      # clusters per supercluster schedule entry
+_SC_MIN_CLUSTERS = 1 << 30   # supercluster walk from this many clusters
 _INT_MAX = 0x7FFFFFFF
 _MISS_KEY = (0x7F800000 << 32) | _INT_MAX   # (t = inf, id = INT_MAX)
 
@@ -217,9 +235,15 @@ def _library(source: str) -> ctypes.CDLL:
     elif source == "grouped_closest.cu":
         fn = lib.tpt_grouped_closest
         fn.argtypes = [p, p, p, i, p, p, p, i, i, f, p, p]
+        lib.tpt_grouped_closest_sc.argtypes = [p, p, p, i, p, p, p, p, i, i,
+                                               f, p, p]
+        lib.tpt_grouped_closest_sc.restype = i
     else:
         fn = lib.tpt_grouped_anyhit
         fn.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, p, p]
+        lib.tpt_grouped_anyhit_sc.argtypes = [p, p, p, p, p, p, i, p, p, p,
+                                              p, i, i, p, p]
+        lib.tpt_grouped_anyhit_sc.restype = i
     fn.restype = i
     lib.tpt_error_string.argtypes = [i]
     lib.tpt_error_string.restype = ctypes.c_char_p
@@ -412,12 +436,16 @@ def key_hits(key):
 
 def closest_walk_plain(tri_pack, walk, o, d, t_min):
     """(t, original id) of the least key over the clusters and ray masks
-    that `walk` yields, (cluster id, (B,) bool) pairs."""
+    that `walk` yields, (cluster id, (B,) bool) pairs. Only the rays of a
+    mask are tested (a min is order-free, so this is exact)."""
     best = torch.full((o.shape[0],), _MISS_KEY, dtype=torch.int64,
                       device=o.device)
     for cl, on in walk:
-        rows = tri_pack[cl * TRI_CHUNK:(cl + 1) * TRI_CHUNK]
-        best = torch.minimum(best, closest_keys(rows, o, d, t_min, on))
+        idx = torch.nonzero(on).flatten()
+        if idx.numel():
+            rows = tri_pack[cl * TRI_CHUNK:(cl + 1) * TRI_CHUNK]
+            best[idx] = torch.minimum(best[idx], closest_keys(
+                rows, o[idx], d[idx], t_min, on[idx]))
     return key_hits(best)
 
 
@@ -439,12 +467,15 @@ def occluded_grouped_plain(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
     ea = ex_a.to(torch.float32)[:, None]
     eb = ex_b.to(torch.float32)[:, None]
     for cl, on in _walk_plain(gmask, b):
+        idx = torch.nonzero(on).flatten()    # the rays of the mask only
+        if not idx.numel():
+            continue
         rows = tri_pack[cl * TRI_CHUNK:(cl + 1) * TRI_CHUNK]
         prim = rows[:, 12][None, :]
-        t, u, v = _tuv(rows, o, d)
+        t, u, v = _tuv(rows, o[idx], d[idx])
         ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
-              & (t < md) & (prim != ea) & (prim != eb) & on[:, None])
-        blocked |= ok.any(dim=1)
+              & (t < md[idx]) & (prim != ea[idx]) & (prim != eb[idx]))
+        blocked[idx] |= ok.any(dim=1)
     return blocked
 
 
@@ -503,16 +534,21 @@ def closest_grouped(tri_pack, gmask, o, d, t_min=1e-4):
     return key_hits(best)
 
 
-def occluded_grouped(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
-    """K7: (B,) bool, True where some pair whose group bit is set hits at
-    1e-5 < t < maxd a triangle of a primitive other than ex_a and ex_b."""
-    _check_walk(tri_pack, gmask, o, d)
+def _check_segments(o, maxd, ex_a, ex_b):
     b = o.shape[0]
     for name, x, dt in (("maxd", maxd, torch.float32),
                         ("ex_a", ex_a, torch.int32),
                         ("ex_b", ex_b, torch.int32)):
         if x.dtype != dt or tuple(x.shape) != (b,) or x.device != o.device:
             raise ValueError(f"{name} must be ({b},) {dt} on {o.device}")
+
+
+def occluded_grouped(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
+    """K7: (B,) bool, True where some pair whose group bit is set hits at
+    1e-5 < t < maxd a triangle of a primitive other than ex_a and ex_b."""
+    _check_walk(tri_pack, gmask, o, d)
+    _check_segments(o, maxd, ex_a, ex_b)
+    b = o.shape[0]
     if o.device.type == "cpu":
         return occluded_grouped_plain(tri_pack, gmask, o, d, maxd, ex_a,
                                       ex_b)
@@ -533,16 +569,148 @@ def occluded_grouped(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
     return blocked
 
 
+# --- the supercluster walk (K12, K13) ---------------------------------------
+
+
+def _sc_mode(n_clusters: int) -> bool:
+    return n_clusters >= _SC_MIN_CLUSTERS
+
+
+def supercluster_list(gmask):
+    """The supercluster walk's schedule: (count (tiles,) int32 active
+    entries per tile, entries (tiles, cpad / 8) int32 active entry ids
+    first in id order, bitmaps (tiles, cpad / 8) int32 in schedule order:
+    bit m is set where member cluster 8 e + m has a set group bit in the
+    tile). The walk reads a member's words from gmask by cluster id."""
+    tiles, _, cpad = gmask.shape
+    member = (gmask != 0).any(dim=1).view(tiles, cpad // _SC, _SC)
+    shift = torch.arange(_SC, dtype=torch.int32, device=gmask.device)
+    bits = (member.to(torch.int32) << shift).sum(dim=-1, dtype=torch.int32)
+    active = bits != 0
+    count = active.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort((~active).to(torch.int32), dim=1, stable=True)
+    return count, order.to(torch.int32), torch.gather(bits, 1, order)
+
+
+def _walk_sc_plain(gmask, b):
+    """Yield (member cluster ids (m,), (m, B) bool: the ray's tile has the
+    member in its entry's bitmap and the ray's group bit set) for every
+    schedule entry some tile has, in entry order."""
+    count, entries, bitmaps = supercluster_list(gmask)
+    dev = gmask.device
+    lane = torch.arange(b, device=dev)
+    tile = lane // RAYS_PER_TILE
+    g = (lane % RAYS_PER_TILE) // GROUP
+    word, bit = g // 32, g % 32
+    ne = gmask.shape[2] // _SC
+    scheduled = torch.arange(entries.shape[1], device=dev)[None, :] < \
+        count[:, None]
+    tile_bits = torch.zeros((gmask.shape[0], ne), dtype=torch.int32,
+                            device=dev)
+    tile_bits.scatter_(1, entries.long(), torch.where(scheduled, bitmaps, 0))
+    shift = torch.arange(_SC, dtype=torch.int32, device=dev)
+    has = ((tile_bits[:, :, None] >> shift) & 1).any(dim=0)   # (ne, 8)
+    for e in torch.nonzero(has.any(dim=1)).flatten().tolist():
+        members = torch.nonzero(has[e]).flatten()
+        cl = e * _SC + members
+        in_map = ((tile_bits[tile, e][None, :] >> members[:, None]) & 1) != 0
+        words = gmask[tile[None, :], word[None, :], cl[:, None]]
+        yield cl, in_map & (((words >> bit[None, :]) & 1) != 0)
+
+
+def closest_grouped_sc_plain(tri_pack, gmask, o, d, t_min=1e-4):
+    """Plain torch K12: K6's result by the supercluster walk: per entry,
+    the least key over its active members' (m, B, 128) pair tests."""
+    best = torch.full((o.shape[0],), _MISS_KEY, dtype=torch.int64,
+                      device=o.device)
+    for cl, on in _walk_sc_plain(gmask, o.shape[0]):
+        idx = torch.nonzero(on.any(dim=0)).flatten()   # the entry's rays
+        rows = tri_pack.view(-1, TRI_CHUNK, 16)[cl]          # (m, 128, 16)
+        keys = closest_keys(rows, o[idx][None], d[idx][None], t_min,
+                            on[:, idx])
+        best[idx] = torch.minimum(best[idx], keys.amin(dim=0))
+    return key_hits(best)
+
+
+def occluded_grouped_sc_plain(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
+    """Plain torch K13: K7's result by the supercluster walk."""
+    b = o.shape[0]
+    blocked = torch.zeros((b,), dtype=torch.bool, device=o.device)
+    md = maxd[None, :, None]
+    ea = ex_a.to(torch.float32)[None, :, None]
+    eb = ex_b.to(torch.float32)[None, :, None]
+    for cl, on in _walk_sc_plain(gmask, b):
+        idx = torch.nonzero(on.any(dim=0)).flatten()   # the entry's rays
+        rows = tri_pack.view(-1, TRI_CHUNK, 16)[cl]
+        prim = rows[:, None, :, 12]
+        t, u, v = _tuv(rows, o[idx][None], d[idx][None])
+        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
+              & (t < md[:, idx]) & (prim != ea[:, idx]) & (prim != eb[:, idx])
+              & on[:, idx, None])
+        blocked[idx] |= ok.any(dim=2).any(dim=0)
+    return blocked
+
+
+def closest_grouped_sc(tri_pack, gmask, o, d, t_min=1e-4):
+    """K12: K6's (t, original triangle id) by the supercluster walk."""
+    _check_walk(tri_pack, gmask, o, d)
+    if o.device.type == "cpu":
+        return closest_grouped_sc_plain(tri_pack, gmask, o, d, t_min)
+    dev = _check_launchable(tri_pack, o, d, gmask)
+    b = o.shape[0]
+    best = torch.full((b,), _MISS_KEY, dtype=torch.int64, device=dev)
+    count, entries, bitmaps = supercluster_list(gmask)
+    lib = _library("grouped_closest.cu")
+    with torch.cuda.device(dev):
+        err = lib.tpt_grouped_closest_sc(
+            tri_pack.data_ptr(), o.data_ptr(), d.data_ptr(), b,
+            count.data_ptr(), entries.data_ptr(), bitmaps.data_ptr(),
+            gmask.data_ptr(), gmask.shape[2],
+            _walk_slices(dev, b // RAYS_PER_TILE), t_min, best.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, lib, "supercluster closest-hit")
+    closest_grouped_sc.launches += 1
+    return key_hits(best)
+
+
+def occluded_grouped_sc(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
+    """K13: K7's (B,) blocked flags by the supercluster walk."""
+    _check_walk(tri_pack, gmask, o, d)
+    _check_segments(o, maxd, ex_a, ex_b)
+    if o.device.type == "cpu":
+        return occluded_grouped_sc_plain(tri_pack, gmask, o, d, maxd, ex_a,
+                                         ex_b)
+    dev = _check_launchable(tri_pack, o, d, gmask, maxd, ex_a, ex_b)
+    b = o.shape[0]
+    blocked = torch.zeros((b,), dtype=torch.bool, device=dev)
+    count, entries, bitmaps = supercluster_list(gmask)
+    lib = _library("grouped_anyhit.cu")
+    with torch.cuda.device(dev):
+        err = lib.tpt_grouped_anyhit_sc(
+            tri_pack.data_ptr(), o.data_ptr(), d.data_ptr(), maxd.data_ptr(),
+            ex_a.data_ptr(), ex_b.data_ptr(), b, count.data_ptr(),
+            entries.data_ptr(), bitmaps.data_ptr(), gmask.data_ptr(),
+            gmask.shape[2], _walk_slices(dev, b // RAYS_PER_TILE),
+            blocked.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, lib, "supercluster any-hit")
+    occluded_grouped_sc.launches += 1
+    return blocked
+
+
 prepass_dense.launches = 0
 prepass_gated.launches = 0
 closest_grouped.launches = 0
 occluded_grouped.launches = 0
+closest_grouped_sc.launches = 0
+occluded_grouped_sc.launches = 0
 
 
 def zero_launch_counts() -> None:
-    """Set the four kernels' launch counters to 0."""
+    """Set the six kernels' launch counters to 0."""
     for fn in (prepass_dense, prepass_gated, closest_grouped,
-               occluded_grouped):
+               occluded_grouped, closest_grouped_sc, occluded_grouped_sc):
         fn.launches = 0
 
 
@@ -552,26 +720,32 @@ def zero_launch_counts() -> None:
 def closest_tuv_grouped(tri_pack, cluster_min, cluster_max, o, d,
                         t_min=1e-4):
     """(t, original triangle id) of the closest hit over an ordered pack,
-    any batch size: the prepass (K4 or K5) and the walk (K6). Padding
-    rays have NaN origins, which hit no box and no triangle."""
+    any batch size: the prepass (K4 or K5) and the walk (K6, or K12 from
+    _SC_MIN_CLUSTERS clusters). Padding rays have NaN origins, which hit
+    no box and no triangle."""
     b = o.shape[0]
     n = _tiled(b)
     o, d = _pad_rays(n, (o, torch.nan), (d, 1.0))
     gmask, _, _ = prepass_groups(cluster_min, cluster_max, o, d, t_min)
-    t, orig = closest_grouped(tri_pack, gmask, o, d, t_min)
+    walk = (closest_grouped_sc if _sc_mode(cluster_min.shape[0])
+            else closest_grouped)
+    t, orig = walk(tri_pack, gmask, o, d, t_min)
     return t[:b], orig[:b]
 
 
 def occluded_dma_grouped(tri_pack, cluster_min, cluster_max, o, d, maxd,
                          ex_a, ex_b):
     """(B,) bool segment any-hit over an ordered pack, any batch size: the
-    segment prepass (t_min 1e-5, culled beyond maxd) and the walk (K7)."""
+    segment prepass (t_min 1e-5, culled beyond maxd) and the walk (K7, or
+    K13 from _SC_MIN_CLUSTERS clusters)."""
     b = o.shape[0]
     n = _tiled(b)
     o, d, maxd, ex_a, ex_b = _pad_rays(
         n, (o, torch.nan), (d, 1.0), (maxd, 0.0), (ex_a, -1), (ex_b, -1))
     gmask, _, _ = prepass_groups(cluster_min, cluster_max, o, d, 1e-5, maxd)
-    return occluded_grouped(tri_pack, gmask, o, d, maxd, ex_a, ex_b)[:b]
+    walk = (occluded_grouped_sc if _sc_mode(cluster_min.shape[0])
+            else occluded_grouped)
+    return walk(tri_pack, gmask, o, d, maxd, ex_a, ex_b)[:b]
 
 
 class CulledPart:
