@@ -29,7 +29,12 @@ Phases, one line each (any failure raises and exits non-zero):
                256x256 frame in tile-swizzled order) and 65,536 bounce rays
                of scenes/stress100k.pbrt (101,704 triangles); K4 in segment
                mode and K7 on form-factor segments of the boxes at
-               subdivisions 3 and 5 and on random segments; K5 against K4
+               subdivisions 3 and 5 and on random segments (on the sub-5
+               segments K7's visits and set bits per visit, and K4's bound
+               from the segments that can enter a box); K4, K5, K8 and K10
+               on adversarial_prepass's boxes and rays, K7 and K13 on
+               adversarial_segments of the subdivision-3 box (K5 also
+               against K4, K13 against K7); K5 against K4
                and the plain prepass on a 1,003,948-triangle scene
                generated by scenes/generate_stress.py into build/; on the
                subdivision-3 box the culled closest hit's (t, original id)
@@ -92,7 +97,9 @@ Phases, one line each (any failure raises and exits non-zero):
                stress100k with balance_lanes=4 (its first pass bitwise phase
                8's) and stress100k_nee with balance_lanes=4 (warm-up and 3
                timed passes, K6 and K7 once per iteration; the unbalanced
-               and the tile-synchronised passes bitwise the same). Then,
+               and the tile-synchronised passes bitwise the same; then one
+               more pass keeps the inputs of a K4 and a K7 call and times
+               them per launch at the queues' 16,384 lanes). Then,
                with _SC_MIN_CLUSTERS lowered to 2048 and restored after, on
                the 1M-triangle scene: K12 against its plain version and K6
                on 65,536 camera and 65,536 bounce rays, K13 against its
@@ -106,9 +113,13 @@ launches are those of the phase that drives its path: K2 the headline,
 K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
 passes, K5 the 1M-triangle pass, K7 the sub-5 solve, K8, K10 and K11 the
 sorted stress100k passes, K9 its own call, K12 and K13 the supercluster
-NEE passes; K1 is on no path of the App; K3 and K7 also carry
+NEE passes; K1 is on no path of the App; K3, K4 and K7 also carry
 `nee_launches`, their launches in the timed cbox1024_nee and
-stress100k_nee passes).
+stress100k_nee passes, K4 and K7 `nee_shape_ms`, their time per launch at
+stress100k_nee's 16,384 lanes, and K4 `solve_launches`, its launches in
+the sub-5 solve, and `segments_ms`, `segments_plain_ms`,
+`segments_bound_ms` and `segments_bound_by` on the sub-5 form-factor
+segments).
 Each kernel's bound is the larger of its operations at the H100's f32
 peak and its bytes at its memory rate, from the timed call's inputs and
 outputs; the work that depends on the data (pair tests behind the masks,
@@ -288,6 +299,138 @@ def random_segments(seed: int, dev):
                  for x in (o, d, maxd, ex[0], ex[1]))
 
 
+def adversarial_prepass(n_rays: int, seed: int):
+    """The prepass's hard cases, as numpy (cmin, cmax, o, d, maxd): 280
+    boxes along a line (the CPU tests' layout), 8 of them about 1e37 away
+    so that their slabs overflow to +-inf, and n_rays rays (whole 1024-ray
+    tiles) from around the line's first part. Every second tile has maxd =
+    0 throughout; in the others, warps 0-1 have maxd = 0, warp 2 maxd =
+    -1, warp 3 a NaN maxd, warp 4 NaN origins (padding lanes: d = (1, 1,
+    1), maxd 0), warp 5 maxd cycling 0, -1, NaN, 30 and inf lane by lane,
+    warp 6 directions (+-1, +-1e-9, +-0) with maxd inf on even lanes (they
+    reach the far boxes), warp 7 an infinite direction or origin component
+    on its first four lanes, and the rest maxd 30."""
+    g = np.random.default_rng(seed)
+    c = 280
+    ctr = np.stack([np.linspace(0, 400, c), g.uniform(-5, 5, c),
+                    g.uniform(-5, 5, c)], -1).astype(np.float32)
+    half = g.uniform(0.1, 1.5, (c, 3)).astype(np.float32)
+    cmin, cmax = ctr - half, ctr + half
+    far = np.arange(c - 8, c)             # x in [1e37, 2e37] or its mirror
+    cmin[far] = np.float32(-1e37)
+    cmin[far, 0] = np.where(far % 2 == 0, 1e37, -2e37)
+    cmax[far] = cmin[far] + np.array([1e37, 2e37, 2e37], np.float32)
+    o = g.uniform(-10, 60, (n_rays, 3)).astype(np.float32)
+    d = g.standard_normal((n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    maxd = np.full(n_rays, 30.0, np.float32)
+    lane = np.arange(n_rays) % 1024
+    warp = lane // 32
+    quiet = (np.arange(n_rays) // 1024) % 2 == 1
+    maxd[warp <= 1] = 0.0
+    maxd[warp == 2] = -1.0
+    maxd[warp == 3] = np.nan
+    pad = warp == 4
+    o[pad], d[pad], maxd[pad] = np.nan, 1.0, 0.0
+    w5 = warp == 5
+    maxd[w5] = np.array([0.0, -1.0, np.nan, 30.0, np.inf],
+                        np.float32)[lane[w5] % 5]
+    w6 = warp == 6
+    k6 = lane[w6]
+    d[w6, 0] = np.where(k6 % 2 == 0, 1.0, -1.0)
+    d[w6, 1] = np.where(k6 % 4 < 2, 1e-9, -1e-9)
+    d[w6, 2] = np.where(k6 % 3 == 0, -0.0, 0.0)
+    maxd[w6] = np.where(k6 % 2 == 0, np.inf, 30.0)
+    w7 = np.nonzero((warp == 7) & (lane % 32 < 4))[0]
+    for k, i in enumerate(w7):
+        if k % 4 == 3:
+            o[i, 0] = -np.inf
+        else:
+            d[i, k % 3] = np.inf if k % 2 == 0 else -np.inf
+    maxd[quiet] = 0.0
+    return cmin, cmax, o, d, maxd
+
+
+def adversarial_segments(geom, order, n: int, seed: int):
+    """Segments that lean on the any-hit walk's early exits, made from
+    numpy in 256-lane blocks (one K7 block each) cycling four kinds:
+    (0) from inside the box to just beyond a triangle of the first cluster
+    (the ordered triangles order[:128]), no exclusion: the first scheduled
+    cluster blocks most of them; (1) across one primitive, from 1e-3
+    behind it to 1e-3 in front along its normal, that primitive excluded
+    (as ex_a on even lanes, ex_b on odd): the walk tests its pairs and the
+    exclusion rejects every one; (2) maxd = 0, -1 on every 8th lane and
+    NaN on every 16th: decided from the start; (3) runs of 32 lanes
+    cycling kinds 0, 1, 2 and padding lanes (NaN origin, d = (1, 1, 1),
+    maxd 0, no exclusion). n is a multiple of 1024. Returns (o, d, maxd,
+    ex_a, ex_b) on geom's device."""
+    from tpu_pathtracer_torch.render.radiosity import sample_on_corners
+
+    dev = geom.device
+    g = np.random.default_rng(seed)
+    lane = np.arange(n)
+    kind = (lane // 256) % 4
+    run = (lane // 32) % 4
+    kind = np.where(kind == 3, np.where(run == 3, 4, run), kind)
+
+    lo = np.array([-2.7, 0.05, -5.45], np.float32)
+    hi = np.array([2.7, 5.45, -0.05], np.float32)
+    start = torch.from_numpy(lo + (hi - lo) * g.random((n, 3), np.float32))
+    first = torch.from_numpy(np.asarray(order[:128], np.int64)[
+        g.integers(0, min(128, len(order)), n)]).to(dev)
+    ctr = geom.tri_v0[first] + (geom.tri_e1[first] + geom.tri_e2[first]) / 3
+    start = start.to(dev)
+    end = ctr + (ctr - start) * 0.01
+    seg = end - start
+    r0 = torch.linalg.vector_norm(seg, dim=1)
+    d0 = seg / r0[:, None]
+
+    prim = torch.from_numpy(g.integers(0, geom.num_prims, n)).to(dev)
+    u = torch.from_numpy(g.random((2, n), np.float32)).to(dev)
+    p = sample_on_corners(geom.corners[prim], u[0], u[1])
+    nrm = geom.normal[prim]
+
+    k = torch.from_numpy(kind).to(dev)[:, None]
+    o = torch.where(k == 0, start, p - nrm * 1e-3)
+    d = torch.where(k == 0, d0, nrm)
+    maxd = torch.where(k[:, 0] == 0, r0, torch.full_like(r0, 2e-3))
+    quiet = np.where(lane % 16 == 0, np.nan, np.where(lane % 8 == 0, -1.0,
+                                                       0.0))
+    maxd = torch.where(k[:, 0] == 2, torch.from_numpy(
+        quiet.astype(np.float32)).to(dev), maxd)
+    pad = k[:, 0] == 4
+    o = torch.where(pad[:, None], torch.nan, o)
+    d = torch.where(pad[:, None], 1.0, d)
+    maxd = torch.where(pad, 0.0, maxd)
+    excl = torch.where(k[:, 0] == 1, prim, -1).to(torch.int32)
+    even = torch.from_numpy(lane % 2 == 0).to(dev)
+    none = torch.full_like(excl, -1)
+    ex_a = torch.where(even, excl, none)
+    ex_b = torch.where(even, none, excl)
+    return (o.contiguous(), d.contiguous(), maxd.contiguous(),
+            ex_a.contiguous(), ex_b.contiguous())
+
+
+def shadow_segments(scene, geom, o, d, seed: int):
+    """NEE's shadow segments from the closest hits of rays o, d on a
+    CulledScene, light samples from numpy: (o, d, maxd, ex_a, ex_b)."""
+    from tpu_pathtracer_torch.core.constants import MATERIAL_MIRROR
+    from tpu_pathtracer_torch.core.math_utils import dot
+    from tpu_pathtracer_torch.render.integrator import (
+        build_nee_pack,
+        nee_shadow_rays,
+    )
+
+    hit = scene.closest_hit(geom, o, d)
+    sn = torch.where((dot(d, hit.n) < 0.0)[:, None], hit.n, -hit.n)
+    u3 = torch.from_numpy(np.random.default_rng(seed).random(
+        (o.shape[0], 3), np.float32)).to(o.device)
+    seg = nee_shadow_rays(build_nee_pack(geom), hit, sn,
+                          hit.valid & (hit.material != MATERIAL_MIRROR), u3)
+    return (seg.o.contiguous(), seg.d.contiguous(), seg.maxd,
+            seg.ex_a.contiguous(), seg.ex_b.contiguous())
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b|, with equal infinities counting as 0 and unequal ones
     as inf."""
@@ -414,6 +557,7 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
     from tpu_pathtracer_torch.app import load_prims
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
     from tpu_pathtracer_torch.scene.builtin import cornell_box
     from tpu_pathtracer_torch.scene.mesh import subdivide
     from tpu_pathtracer_torch.utils.config import Config
@@ -493,15 +637,74 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
                                                   maxd, ea, eb),
                 lambda: ic.occluded_grouped(p.tri_pack, k4[0], o, d, maxd, ea,
                                             eb), reps=2)
-            t_seg = time_pair(
+            times["K4 segments"] = t_seg = time_pair(
                 lambda: ic.prepass_plain(p.cluster_min, p.cluster_max, o, d,
                                          1e-5, maxd),
                 lambda: ic.prepass_dense(p.cluster_min, p.cluster_max, o, d,
                                          1e-5, maxd), reps=3)
+            # the slab tests of the segments that can enter a box
+            c_real = int(torch.isfinite(p.cluster_min[:, 0]).sum())
+            bounds["K4 segments"] = bound(
+                int((maxd > 0).sum()) * c_real * SLAB_FLOPS, p.cluster_min,
+                p.cluster_max, o, d, maxd, *k4)
+            visits = int((k4[0] != 0).sum())
+            bits = set_bits(k4[0])
             phase("kernels", f"at {cname} ({g5.num_tris} tris): K7 "
-                  f"{times['K7'][1]:.6f} ms vs plain {times['K7'][0]:.6f} ms,"
-                  f" K4 (segments) {t_seg[1]:.6f} ms vs plain {t_seg[0]:.6f}"
-                  " ms per call")
+                  f"{times['K7'][1]:.6f} ms vs plain {times['K7'][0]:.6f} ms "
+                  f"(bound {bounds['K7'][0]:.6f}), K4 (segments) "
+                  f"{t_seg[1]:.6f} ms vs plain {t_seg[0]:.6f} ms (bound "
+                  f"{bounds['K4 segments'][0]:.6f}) per call; K7 visits "
+                  f"{visits} (tile, word, cluster)s with a non-zero word, "
+                  f"{bits} set bits, {bits / max(visits, 1):.3f} per visit")
+
+    # the adversarial batches: K4 and K5 (and K8, K10: the same template)
+    # on the prepass's hard cases, K7 and K13 on the walk's
+    cmin, cmax, o, d, maxd = (torch.from_numpy(x).to(dev)
+                              for x in adversarial_prepass(4096, 11))
+    for mode, md in (("rays", None), ("segments", maxd)):
+        k4 = ic.prepass_dense(cmin, cmax, o, d, 1e-5, md)
+        gate = ic.quarter_gate(cmin, cmax, o, d, 1e-5, md)
+        k5 = ic.prepass_gated(cmin, cmax, gate, o, d, 1e-5, md)
+        p4 = ic.prepass_plain(cmin, cmax, o, d, 1e-5, md)
+        p5 = ic.prepass_plain(cmin, cmax, o, d, 1e-5, md, gate=gate)
+        ok = (prepass_equal(k4, p4) and prepass_equal(k5, p5)
+              and prepass_equal(k5, k4))
+        if md is None:
+            ok &= (torch.equal(lg.prepass_probe(cmin, cmax, o, d, 1e-5),
+                               lg.prepass_probe_plain(cmin, cmax, o, d, 1e-5))
+                   and prepass_equal(
+                       lg.prepass_rows(cmin, cmax, o, d, 1e-5),
+                       lg.prepass_rows_plain(cmin, cmax, o, d, 1e-5)))
+        torch.cuda.synchronize()
+        phase("kernels", f"adversarial prepass batch ({mode}, 4096 rays x "
+              f"{cmin.shape[0]} boxes, {set_bits(k4[0])} group bits, "
+              f"{int((k4[1][:, 272:280] > 1e30).sum())} far-box entries): "
+              f"K4, K5"
+              f"{', K8, K10' if md is None else ''} bitwise equal to plain "
+              f"and K5 to K4 {ok}")
+        if not ok:
+            raise AssertionError(f"a prepass kernel differs on the adversarial"
+                                 f" {mode} batch (tolerance: bitwise)")
+    g3 = scenes["cbox_sub3"]
+    p3 = cs3.parts[0]
+    seg = adversarial_segments(g3, cs3.order, 4096, 12)
+    gm = ic.prepass_dense(p3.cluster_min, p3.cluster_max, seg[0], seg[1],
+                          1e-5, seg[2])[0]
+    k7 = ic.occluded_grouped(p3.tri_pack, gm, *seg)
+    k13 = ic.occluded_grouped_sc(p3.tri_pack, gm, *seg)
+    ok = (torch.equal(k7, ic.occluded_grouped_plain(p3.tri_pack, gm, *seg))
+          and torch.equal(k13, ic.occluded_grouped_sc_plain(p3.tri_pack, gm,
+                                                            *seg))
+          and torch.equal(k13, k7)
+          and torch.equal(k7, ap.occluded(ap.pack_triangles(g3),
+                                          ap.pack_prim_ids(g3), *seg)))
+    phase("kernels", f"adversarial segments (cbox_sub3, 4096: first-cluster "
+          f"blockers, all-excluded crossings, maxd <= 0 / NaN, padding): "
+          f"{int(k7.sum())} blocked; K7 and K13 bitwise equal to plain, "
+          f"K13 to K7 and K7 to K3 {ok}")
+    if not ok:
+        raise AssertionError("K7 or K13 differs on the adversarial segments "
+                             "(tolerance: bitwise)")
 
     # K5 against K4 and the plain prepass on the 1M-triangle scene
     path1m = generate_1m(os.path.join(HERE, "build", "stress1m"))
@@ -666,17 +869,17 @@ def solve_phase(dev, sol3, start, end):
     sol = app.run_solver()
     end.record()
     end.synchronize()
-    k7 = ic.occluded_grouped.launches
+    k7, k4 = ic.occluded_grouped.launches, ic.prepass_dense.launches
     ms = start.elapsed_time(end)
     finite = all(bool(torch.isfinite(x).all()) for x in (
         sol.form_factors, sol.radiosity, sol.rad_grid))
     phase("solve", f"cbox sub 5 ({app.geom.num_prims} prims, "
           f"{app.geom.num_tris} tris) gather solve, 2 MC samples, 8 "
           f"iterations: {ms:.3f} ms (CUDA events); K7 launches {k7}, K4 "
-          f"(segments) {ic.prepass_dense.launches}; peak device memory "
+          f"(segments) {k4}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; finite "
           f"{finite}; radiosity sum {float(sol.radiosity.sum()):.6f}")
-    if not (finite and k7 > 0):
+    if not (finite and k7 > 0 and k4 == k7):
         raise AssertionError("the sub-5 solve failed its checks")
 
     c3 = App(Config(spp=32, backend="culled", **GUIDED), device=dev)
@@ -705,7 +908,7 @@ def solve_phase(dev, sol3, start, end):
           f"{img.shape}, mean {img.mean():.3f}, max {img.max()}")
     if img.shape != (1024, 1024, 3) or img.max() == 0:
         raise AssertionError("sub-5 radiosity view failed its checks")
-    return k7
+    return k7, k4
 
 
 def row_kernels(part, o, d, check_early_out):
@@ -1023,13 +1226,14 @@ def nee_phase(dev, start, end, headline, large):
     first = r.film.accum.clone()
     ms, rays, ok = timed(r)
     k6, k7 = ic.closest_grouped.launches, ic.occluded_grouped.launches
+    k4 = ic.prepass_dense.launches
     phase("nee", f"stress100k_nee: 256x256 depth 4, {TIMED_PASSES} passes x "
           f"8 spp, balance_lanes=4, NEE: {rays} rays ({rays - bal_rays} "
           f"shadow rays) in {ms:.3f} ms (CUDA events) = "
           f"{rays / (ms / 1e3) / 1e6:.3f} Mrays/s; {r.iterations} "
-          f"iterations, K6 launches {k6}, K7 {k7}, K4 "
-          f"{ic.prepass_dense.launches}; wall per spp {ms / bal_ms:.4f}x the "
-          f"NEE-off balanced pass's; film finite and non-zero {ok}")
+          f"iterations, K6 launches {k6}, K7 {k7}, K4 {k4}; wall per spp "
+          f"{ms / bal_ms:.4f}x the NEE-off balanced pass's; film finite and "
+          f"non-zero {ok}")
     if not (ok and r._assignment is not None
             and k6 == k7 == r.iterations > 0 and rays > bal_rays):
         raise AssertionError("stress100k_nee failed its checks")
@@ -1052,7 +1256,43 @@ def nee_phase(dev, start, end, headline, large):
               f"balanced one {same}")
         if not same:
             raise AssertionError(f"stress100k_nee {name} changes the film")
-    return {"K3": k3, "K7": k7}
+
+    # one more pass keeping the inputs of the third K4 (rays and segments)
+    # and K7 calls, then their times per launch at the queues' lane count
+    real = (ic.prepass_dense, ic.occluded_grouped)
+    seen, kept = {}, {}
+
+    def keep(key, args):
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] == 3:
+            kept[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args)
+
+    def prepass(*args):
+        keep("K4 rays" if len(args) < 6 or args[5] is None
+             else "K4 segments", args)
+        return real[0](*args)
+
+    def walk(*args):
+        keep("K7", args)
+        return real[1](*args)
+
+    prepass.launches = walk.launches = 0       # the kernels count on these
+    try:
+        ic.prepass_dense, ic.occluded_grouped = prepass, walk
+        r.step()
+    finally:
+        ic.prepass_dense, ic.occluded_grouped = real
+    per_launch = {
+        k: time_call(lambda a=a, f=(ic.occluded_grouped if k == "K7"
+                                    else ic.prepass_dense): f(*a), reps=20)
+        for k, a in kept.items()}
+    lanes = kept["K7"][2].shape[0]
+    phase("nee", f"stress100k_nee per launch at {lanes} lanes (third call of "
+          "a pass): " + ", ".join(f"{k} {v:.6f} ms"
+                                  for k, v in per_launch.items()))
+    return {"K3": k3, "K7": k7, "K4": k4, "K4 ms": per_launch["K4 segments"],
+            "K7 ms": per_launch["K7"]}
 
 
 def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
@@ -1065,13 +1305,7 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
     per-cluster passes, their film bitwise the per-cluster one. Returns
     K12's and K13's launches in those passes."""
     from tpu_pathtracer_torch.app import App
-    from tpu_pathtracer_torch.core.constants import MATERIAL_MIRROR
-    from tpu_pathtracer_torch.core.math_utils import dot
     from tpu_pathtracer_torch.ops import intersect_culled as ic
-    from tpu_pathtracer_torch.render.integrator import (
-        build_nee_pack,
-        nee_shadow_rays,
-    )
     from tpu_pathtracer_torch.utils.config import Config
 
     part = cs1m.parts[0]
@@ -1111,16 +1345,8 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
                                   gm, o, d, *k12)
 
         # NEE-shaped shadow segments from the camera rays' hits
-        o, d = rays[0][1], rays[0][2]
-        hit = cs1m.closest_hit(g1m, o, d)
-        sn = torch.where((dot(d, hit.n) < 0.0)[:, None], hit.n, -hit.n)
-        u3 = torch.from_numpy(np.random.default_rng(7).random(
-            (N_RAYS, 3), np.float32)).to(dev)
-        seg = nee_shadow_rays(build_nee_pack(g1m), hit, sn,
-                              hit.valid & (hit.material != MATERIAL_MIRROR),
-                              u3)
-        so, sd, maxd = seg.o.contiguous(), seg.d.contiguous(), seg.maxd
-        ea, eb = seg.ex_a.contiguous(), seg.ex_b.contiguous()
+        so, sd, maxd, ea, eb = shadow_segments(cs1m, g1m, rays[0][1],
+                                               rays[0][2], 7)
         gm = ic.prepass_groups(cmin, cmax, so, sd, 1e-5, maxd)[0]
         k13 = ic.occluded_grouped_sc(tri, gm, so, sd, maxd, ea, eb)
         k7 = ic.occluded_grouped(tri, gm, so, sd, maxd, ea, eb)
@@ -1527,7 +1753,7 @@ def main() -> int:
     large, first_large, large_ms = large_phase(dev, path1m, start, end)
 
     # 9. solve: the sub-5 gather solve through K7 ---------------------------
-    k7_launches = solve_phase(dev, sol, start, end)
+    k7_launches, k4_solve = solve_phase(dev, sol, start, end)
 
     # 10. rows: the row-granular culled backend and ray sorting --------------
     rows = rows_phase(dev, cam, (part1m, cam1m), first_large, start, end, err,
@@ -1561,15 +1787,21 @@ def main() -> int:
               "closest_hit.cu", 240, guide_launches),
         {**entry("K3 occluded (_kernel_anyhit)", "K3", "any_hit.cu", 765,
                  k3_launches), "nee_launches": nee["K3"]},
-        entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
-              "cluster_prepass.cu", 1023, large["K4"]),
+        {**entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
+                 "cluster_prepass.cu", 1023, large["K4"]),
+         "solve_launches": k4_solve, "nee_launches": nee["K4"],
+         "segments_ms": times["K4 segments"][1],
+         "segments_plain_ms": times["K4 segments"][0],
+         "segments_bound_ms": bounds["K4 segments"][0],
+         "segments_bound_by": bounds["K4 segments"][1],
+         "nee_shape_ms": nee["K4 ms"]},
         entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
               "cluster_prepass.cu", 1149, large["K5"]),
         entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
               "grouped_closest.cu", 1723, large["K6"]),
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
-         "nee_launches": nee["K7"]},
+         "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"]},
         entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
               "cluster_prepass.cu", 45, rows["K8"], legacy),
         entry("K9 closest_culled (_kernel_culled)", "K9", "closest_hit.cu",

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import tpu_pathtracer.ops.intersect_pallas as ip
 from tpu_pathtracer.ops import cluster_layout as jcl
 from tpu_pathtracer.render import camera as jcamera
@@ -216,6 +217,37 @@ def test_gated_prepass_vs_dense_and_jax(line_clusters, monkeypatch,
             jnp.asarray(cmin), jnp.asarray(cmax), comps, 1e-4,
             N_PREPASS // cl.RAYS_PER_TILE, c, cpad, maxd=md)))
     assert ((gate != 0) <= (block != 0)).all()
+
+
+@pytest.mark.parametrize("mode", ["rays", "segments"])
+def test_adversarial_prepass_vs_jax(monkeypatch, mode):
+    """The cases the CUDA prepass decides outside its pair loop, as
+    chip_smoke runs them on the card: maxd <= 0 in whole warps and a whole
+    tile, negative, NaN and infinite maxd, NaN padding origins, direction
+    components under 1e-8, infinite direction and origin components, and
+    boxes so far away that their slabs overflow to +-inf. The plain prepass
+    (dense, and gated behind the quarter gate) equals the JAX package's
+    bitwise."""
+    cmin, cmax, o, d, maxd = chip_smoke.adversarial_prepass(N_PREPASS, 11)
+    if mode == "rays":
+        maxd = None
+    words, tn, texit, comps, md = _jax_prepass(cmin, cmax, o, d, maxd)
+    args = [torch.from_numpy(x) for x in (cmin, cmax, o, d)]
+    tmd = None if maxd is None else torch.from_numpy(maxd)
+    dense = ic.prepass_dense(*args, 1e-4, tmd)
+    for name, a, w in zip(("gmask", "tn", "texit"), dense,
+                          (words, tn, texit)):
+        np.testing.assert_array_equal(a.numpy(), w, err_msg=name)
+    # the case reaches the far boxes and the infinities it is made for
+    assert (dense[0] != 0).any() and (dense[1][:, 272:280] > 1e30).any()
+    monkeypatch.setattr(ic, "_GATE_MIN_BLOCKS", 1)
+    gated = ic.prepass_groups(*args, 1e-4, tmd)
+    for name, a, b in zip(("gmask", "tn", "texit"), gated, dense):
+        assert torch.equal(a, b), name
+    gate = ic.quarter_gate(*args, 1e-4, tmd).numpy()
+    np.testing.assert_array_equal(gate, np.asarray(ip._quarter_gate(
+        jnp.asarray(cmin), jnp.asarray(cmax), comps, 1e-4, N_PREPASS,
+        cmin.shape[0], 384, maxd=md)))
 
 
 # --- (c) closest hit ---------------------------------------------------------
@@ -406,6 +438,52 @@ def test_culled_occluded_vs_jax(sub3_segments):
     diff = got != want
     assert diff.sum() <= 4, np.nonzero(diff)
     assert not (diff & (maxd == 0)).any() and not got[maxd == 0].any()
+
+
+@pytest.fixture(scope="module")
+def adversarial_walk(sub3_segments):
+    """chip_smoke's adversarial segments on the sub-3 box in one pack, the
+    port's plain culled any hit and the JAX package's interpret-mode one."""
+    jg, tg, _ = sub3_segments
+    cs = ic.CulledScene(tg)
+    p = cs.parts[0]
+    seg = chip_smoke.adversarial_segments(tg, cs.order, N_QUERY, 12)
+    got = ic.occluded_dma_grouped(p.tri_pack, p.cluster_min, p.cluster_max,
+                                  *seg)
+    jcs = ip.CulledScene(jg)
+    want = np.asarray(ip.pallas_occluded_dma_grouped(
+        jcs.tri_pack, jcs.cluster_min, jcs.cluster_max,
+        *(jnp.asarray(x.numpy()) for x in seg)))
+    return tg, p, seg, got, want
+
+
+@pytest.mark.parametrize("kind", ["first_cluster_blocks", "all_excluded"])
+def test_adversarial_occluded_vs_jax(adversarial_walk, kind):
+    """256 segments blocked by the first scheduled cluster, 256 whose every
+    candidate pair is an excluded primitive's, 256 with maxd <= 0 or NaN
+    and 256 in runs of those and NaN-origin padding lanes: the plain walk
+    (K7's plain version) equals the JAX package's kernel up to the
+    module's knife-edge bar and the all-pairs plain version bitwise, and
+    the block of `kind` is what it claims to be."""
+    tg, p, seg, got, want = adversarial_walk
+    assert torch.equal(got, ap.occluded_plain(
+        ap.pack_triangles(tg), ap.pack_prim_ids(tg), *seg))
+    maxd = seg[2].numpy()
+    diff = got.numpy() != want
+    assert diff.sum() <= 4, np.nonzero(diff)
+    assert not (diff & ~(maxd > 0)).any() and not got[~(maxd > 0)].any()
+    gm = ic.prepass_dense(p.cluster_min, p.cluster_max, seg[0], seg[1], 1e-5,
+                          seg[2])[0]
+    block = slice(0, 256) if kind == "first_cluster_blocks" else \
+        slice(256, 512)
+    assert (chip_smoke.group_pairs(gm)[block] > 0).all()   # all scheduled
+    if kind == "first_cluster_blocks":
+        first = gm.clone()
+        first[..., 1:] = 0
+        by_first = ic.occluded_grouped_plain(p.tri_pack, first, *seg)
+        assert by_first[block].float().mean() > 0.9
+    else:
+        assert not got[block].any()
 
 
 # --- the wrappers -------------------------------------------------------------

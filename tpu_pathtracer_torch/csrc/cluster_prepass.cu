@@ -43,19 +43,34 @@
 // the int bits of non-negative floats, which order as the floats do, and
 // cbest with a 64-bit atomicMin (the entry is at least t_min > 0).
 //
-// What bounds it. About 18 flops and 40 instructions per (ray, cluster)
-// pair and a few bytes per pair of output: arithmetic and warp-collective
-// bound. One block is one (tile, 128-cluster block): 1024 threads, one per
-// ray, the block's 128 boxes in shared memory (every thread of a warp reads
-// the same box, which shared memory broadcasts). A warp's four 8-ray groups
-// fold into a 4-bit nibble with one __ballot_sync, its least entry with one
-// __reduce_min_sync on the entry's bits (positive floats order as ints);
-// lane 0 stores both per (warp, cluster) in shared memory and 128 threads
-// combine the 32 warps at the end (a row is 4 warps), so there are no
-// atomics on the per-cluster outputs. The probe needs no per-cluster
-// output and keeps only its per-ray key in a register. A gated-off block
-// only writes its empty result; the TPU kernel's worklist of ON blocks is
-// a grid-step-overhead workaround.
+// What bounds it. Instruction issue: ~24 flops per (ray, cluster) pair and
+// a few bytes per pair of output. One block is one (tile, 128-cluster
+// block): 1024 threads, one per ray, the block's 128 boxes in shared memory
+// (two 16-byte loads a box, which every lane of a warp reads at once and
+// shared memory broadcasts). A warp's four 8-ray groups fold into a 4-bit
+// nibble with one __ballot_sync, its least entry with one __reduce_min_sync
+// on the entry's bits (positive floats order as ints); over 32 clusters,
+// lane k keeps cluster k's ballot and minimum in registers and each lane
+// stores its own once, and 128 threads combine the 32 warps at the end (a
+// row is 4 warps), so there are no atomics on the per-cluster outputs.
+//
+// What the design does about it, exactly:
+//   * NaN handling leaves the pair loop. The inverse direction is finite;
+//     with a finite origin and direction, (bound - o) * inv is NaN only for
+//     a NaN bound, so a box with a NaN bound is flagged once at staging and
+//     misses, and the loop uses fminf / fmaxf, equal to the NaN-propagating
+//     min / max when no argument is NaN. A warp with an open lane whose
+//     origin or direction has an infinite component runs the
+//     NaN-propagating arithmetic for the whole warp.
+//   * Lanes that can hit no box are decided once: a NaN origin component
+//     (padding lanes) and, in segment mode, maxd < t_min or NaN (the entry
+//     is at least t_min); a warp whose 32 lanes are all decided skips the
+//     cluster loop and stores the empty result (no group bit, tn = inf, no
+//     texit), which is what the loop would have produced. Padding lanes and
+//     non-facing form-factor pairs come in runs, so whole warps skip.
+// The probe needs no per-cluster output and keeps only its per-ray key in
+// a register. A gated-off block only writes its empty result; the TPU
+// kernel's worklist of ON blocks is a grid-step-overhead workaround.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +94,33 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
+// One axis of the slab test: the running entry tn and exit tf against the
+// box's bounds lo, hi on that axis, with NaN-propagating min / max (NAN_SAFE)
+// or the plain ones (no argument may then be NaN).
+template <bool NAN_SAFE>
+__device__ __forceinline__ void slab_axis(float lo, float hi, float o,
+                                          float inv, float& tn, float& tf) {
+  const float a = (lo - o) * inv;
+  const float b = (hi - o) * inv;
+  if (NAN_SAFE) {
+    tn = max_nan(tn, min_nan(a, b));
+    tf = min_nan(tf, max_nan(a, b));
+  } else {
+    tn = fmaxf(tn, fminf(a, b));
+    tf = fminf(tf, fmaxf(a, b));
+  }
+}
+
+template <bool NAN_SAFE>
+__device__ __forceinline__ void slab(const float4& lo, const float4& hi,
+                                     float ox, float oy, float oz, float ix,
+                                     float iy, float iz, float& tn,
+                                     float& tf) {
+  slab_axis<NAN_SAFE>(lo.x, hi.x, ox, ix, tn, tf);
+  slab_axis<NAN_SAFE>(lo.y, hi.y, oy, iy, tn, tf);
+  slab_axis<NAN_SAFE>(lo.z, hi.z, oz, iz, tn, tf);
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(kTile)
 prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
@@ -88,7 +130,8 @@ prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
                int* __restrict__ gmask, float* __restrict__ tn_out,
                unsigned* __restrict__ texit,
                unsigned long long* __restrict__ cbest) {
-  __shared__ float box[6][kBlock];
+  // box[k][0] = (min, 1 if a bound is NaN else 0), box[k][1] = (max, 0)
+  __shared__ float4 box[kBlock][2];
   __shared__ unsigned char nib[kWarps][kBlock];
   __shared__ unsigned tnw[kWarps][kBlock];
 
@@ -98,56 +141,72 @@ prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int c0 = j * kBlock;
+  const int nc = min(kBlock, c - c0);        // the block's real clusters
   const int word = gate ? gate[tile * (cpad / kBlock) + j] : 0xF;
 
-  if (MODE != kProbe) {
-    for (int k = tid; k < kWarps * kBlock; k += kTile) {
-      (&nib[0][0])[k] = 0;
-      (&tnw[0][0])[k] = kInfBits;
-    }
-  }
-  if (tid < kBlock && c0 + tid < c) {
+  if (tid < nc) {
     const int cl = c0 + tid;
-    for (int ax = 0; ax < 3; ++ax) {
-      box[ax][tid] = cmin[3 * cl + ax];
-      box[3 + ax][tid] = cmax[3 * cl + ax];
-    }
+    float4 lo, hi;
+    lo.x = cmin[3 * cl];
+    lo.y = cmin[3 * cl + 1];
+    lo.z = cmin[3 * cl + 2];
+    hi.x = cmax[3 * cl];
+    hi.y = cmax[3 * cl + 1];
+    hi.z = cmax[3 * cl + 2];
+    const bool nan_bound = (lo.x != lo.x) | (lo.y != lo.y) | (lo.z != lo.z) |
+                           (hi.x != hi.x) | (hi.y != hi.y) | (hi.z != hi.z);
+    lo.w = nan_bound ? 1.f : 0.f;
+    hi.w = 0.f;
+    box[tid][0] = lo;
+    box[tid][1] = hi;
   }
   __syncthreads();
 
-  if (word != 0) {
-    const int ray = tile * kTile + tid;
-    const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-    const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-    const float ix = 1.0f / (fabsf(dx) > 1e-8f ? dx : 1e-8f);
-    const float iy = 1.0f / (fabsf(dy) > 1e-8f ? dy : 1e-8f);
-    const float iz = 1.0f / (fabsf(dz) > 1e-8f ? dz : 1e-8f);
-    const float md = maxd ? maxd[ray] : 0.f;
-    float ex = __int_as_float(0xff800000);   // -inf: no box hit yet
-    unsigned long long best = ~0ull;         // no box hit yet
-    for (int q = 0; q < kBlock / kQuarter; ++q) {
-      if (!((word >> q) & 1)) continue;      // uniform over the block
-      for (int k = 0; k < kQuarter; ++k) {
+  const int ray = tile * kTile + tid;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
+  float md = 0.f;
+  bool decided = true;                       // a gated-off block tests none
+  if (word != 0) {                           // uniform over the block
+    ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
+    dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
+    if (maxd) md = maxd[ray];
+    // a lane that hits no box: a NaN origin component makes every slab
+    // NaN; the entry is at least t_min, so a segment ending before it (or
+    // a NaN maxd or t_min) is never entered
+    decided = (ox != ox) | (oy != oy) | (oz != oz) | (t_min != t_min) |
+              (maxd && !(md >= t_min));
+  }
+  const float ix = 1.0f / (fabsf(dx) > 1e-8f ? dx : 1e-8f);
+  const float iy = 1.0f / (fabsf(dy) > 1e-8f ? dy : 1e-8f);
+  const float iz = 1.0f / (fabsf(dz) > 1e-8f ? dz : 1e-8f);
+  const bool open = !__all_sync(0xffffffffu, decided);
+  // an infinite origin or direction component of an open lane can make a
+  // slab NaN with no NaN bound: that warp keeps the NaN-propagating
+  // arithmetic (decided lanes' results are discarded)
+  const bool nan_safe = __any_sync(
+      0xffffffffu, !decided & !(isfinite(ox) & isfinite(oy) & isfinite(oz) &
+                                isfinite(dx) & isfinite(dy) & isfinite(dz)));
+  float ex = __int_as_float(0xff800000);     // -inf: no box hit yet
+  unsigned long long best = ~0ull;           // no box hit yet
+  for (int q = 0; q < kBlock / kQuarter; ++q) {
+    unsigned my_bal = 0u;                    // lane k: cluster q*32+k's
+    unsigned my_tn = kInfBits;
+    // uniform over the warp: the gate word, the decided vote, nc
+    if (open && ((word >> q) & 1)) {
+      const int kc = min(kQuarter, nc - q * kQuarter);
+      for (int k = 0; k < kc; ++k) {
         const int cl = q * kQuarter + k;
-        bool hit = false;
+        const float4 lo = box[cl][0];
+        const float4 hi = box[cl][1];
         float tn = t_min;
         float tf = __int_as_float(0x7f800000);
-        if (c0 + cl < c) {                   // uniform over the block
-          float lo = (box[0][cl] - ox) * ix;
-          float hi = (box[3][cl] - ox) * ix;
-          tn = max_nan(tn, min_nan(lo, hi));
-          tf = min_nan(tf, max_nan(lo, hi));
-          lo = (box[1][cl] - oy) * iy;
-          hi = (box[4][cl] - oy) * iy;
-          tn = max_nan(tn, min_nan(lo, hi));
-          tf = min_nan(tf, max_nan(lo, hi));
-          lo = (box[2][cl] - oz) * iz;
-          hi = (box[5][cl] - oz) * iz;
-          tn = max_nan(tn, min_nan(lo, hi));
-          tf = min_nan(tf, max_nan(lo, hi));
-          hit = (tf >= tn) & (tf > 0.f);
-          if (maxd) hit = hit & (tn <= md);
+        if (nan_safe) {
+          slab<true>(lo, hi, ox, oy, oz, ix, iy, iz, tn, tf);
+        } else {
+          slab<false>(lo, hi, ox, oy, oz, ix, iy, iz, tn, tf);
         }
+        bool hit = !decided & (lo.w == 0.f) & (tf >= tn) & (tf > 0.f);
+        if (maxd) hit = hit & (tn <= md);
         if (MODE != kGroups && hit) {
           const unsigned long long key =
               (static_cast<unsigned long long>(__float_as_uint(tn)) << 32) |
@@ -159,19 +218,25 @@ prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
         const unsigned tmin = __reduce_min_sync(
             0xffffffffu, hit ? __float_as_uint(tn) : kInfBits);
         if (hit) ex = fmaxf(ex, tf);
-        if (lane == 0) {
-          nib[warp][cl] = static_cast<unsigned char>(
-              ((bal & 0x000000ffu) ? 1 : 0) | ((bal & 0x0000ff00u) ? 2 : 0) |
-              ((bal & 0x00ff0000u) ? 4 : 0) | ((bal & 0xff000000u) ? 8 : 0));
-          tnw[warp][cl] = tmin;
+        if (lane == k) {
+          my_bal = bal;
+          my_tn = tmin;
         }
       }
     }
-    if (MODE != kProbe && ex > 0.f) {
-      atomicMax(&texit[ray], __float_as_uint(ex));
+    if (MODE != kProbe) {
+      nib[warp][q * kQuarter + lane] = static_cast<unsigned char>(
+          ((my_bal & 0x000000ffu) ? 1 : 0) |
+          ((my_bal & 0x0000ff00u) ? 2 : 0) |
+          ((my_bal & 0x00ff0000u) ? 4 : 0) |
+          ((my_bal & 0xff000000u) ? 8 : 0));
+      tnw[warp][q * kQuarter + lane] = my_tn;
     }
-    if (MODE != kGroups && best != ~0ull) atomicMin(&cbest[ray], best);
   }
+  if (MODE != kProbe && ex > 0.f) {
+    atomicMax(&texit[ray], __float_as_uint(ex));
+  }
+  if (MODE != kGroups && best != ~0ull) atomicMin(&cbest[ray], best);
   if (MODE == kProbe) return;                // uniform: no per-cluster output
   __syncthreads();
 
