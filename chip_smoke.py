@@ -21,9 +21,16 @@ Phases, one line each (any failure raises and exits non-zero):
                rows) on the same rays, K3 on form-factor-shaped segments
                of the subdivided boxes (surface-point pairs with their
                exclusions, about half the lanes at maxd = 0) and on
-               random segments. Timed with CUDA events at the main paths'
-               shapes: K1/K2 at 65,536 rays x 32 triangles, K2 and
-               K2-guide at 65,536 x 2,048, K3 at the solve's batch x 2,048.
+               random segments; K1, K2 and K2-guide on adversarial_allpairs
+               batches (exact ties across the kernel's 4 row parts, rays
+               along the axes with ds = 0, padding rows and rays) at 32,
+               1,024 and 2,048 rows. Timed
+               with CUDA events at the main paths' shapes: K1/K2 at 65,536
+               rays x 32 triangles (also their device time, device_ms: a
+               CUDA graph of the calls, as the wrapper calls' event time
+               there is mostly the host's), K2 and K2-guide at 65,536 x
+               2,048 (K2-guide's device time too), K3 at the solve's batch
+               x 2,048.
                The culled kernels, bitwise against their plain versions
                and timed against them: K4 and K6 on 65,536 camera rays (the
                256x256 frame in tile-swizzled order) and 65,536 bounce rays
@@ -80,6 +87,9 @@ Phases, one line each (any failure raises and exits non-zero):
                K9 and K11 against their plain versions, bitwise, on 65,536
                camera and 65,536 bounce rays of stress100k (K11 also its
                visited counts; the early-out must fire on a camera tile),
+               K11 on adversarial_rows' tiles (camera rays, rows of padding
+               rays, a count-0 tile, bounce rows) with K10's texit and
+               with adversarial_texit's (a row forced open, one closed),
                K10 and K11 on the 1M-triangle scene, K11's (t, original
                id) against K6's and K2's on the sub-3 box; timed against
                the plain versions in turns. Then stress100k through
@@ -93,13 +103,15 @@ Phases, one line each (any failure raises and exits non-zero):
                supercluster walk: cbox1024_nee (the headline's frame with
                NEE: warm-up and 3 timed passes, K2 and K3 once per
                iteration, its extra rays over the headline's are the shadow
-               rays; the first pass at ray_chunk 2**20 bitwise the same);
-               stress100k with balance_lanes=4 (its first pass bitwise phase
+               rays; the first pass at ray_chunk 2**20 bitwise the same;
+               one more pass keeps a K3 call's inputs and times it per
+               launch, wrapper events and device time); stress100k with
+               balance_lanes=4 (its first pass bitwise phase
                8's) and stress100k_nee with balance_lanes=4 (warm-up and 3
                timed passes, K6 and K7 once per iteration; the unbalanced
                and the tile-synchronised passes bitwise the same; then one
-               more pass keeps the inputs of a K4 and a K7 call and times
-               them per launch at the queues' 16,384 lanes). Then,
+               more pass keeps the inputs of a K4, a K6 and a K7 call and
+               times them per launch at the queues' 16,384 lanes). Then,
                with _SC_MIN_CLUSTERS lowered to 2048 and restored after, on
                the 1M-triangle scene: K12 against its plain version and K6
                on 65,536 camera and 65,536 bounce rays, K13 against its
@@ -113,13 +125,18 @@ launches are those of the phase that drives its path: K2 the headline,
 K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
 passes, K5 the 1M-triangle pass, K7 the sub-5 solve, K8, K10 and K11 the
 sorted stress100k passes, K9 its own call, K12 and K13 the supercluster
-NEE passes; K1 is on no path of the App; K3, K4 and K7 also carry
-`nee_launches`, their launches in the timed cbox1024_nee and
-stress100k_nee passes, K4 and K7 `nee_shape_ms`, their time per launch at
-stress100k_nee's 16,384 lanes, and K4 `solve_launches`, its launches in
-the sub-5 solve, and `segments_ms`, `segments_plain_ms`,
-`segments_bound_ms` and `segments_bound_by` on the sub-5 form-factor
-segments).
+NEE passes; K1 is on no path of the App; K2, K3, K4, K6 and K7 also
+carry `nee_launches`, their launches in the timed cbox1024_nee and
+stress100k_nee passes, K3, K4, K6 and K7 `nee_shape_ms`, their time per
+launch at cbox1024_nee's 65,536 shadow rays (K3, with
+`nee_shape_device_ms`) or stress100k_nee's 16,384 lanes, and K4
+`solve_launches`, its launches in the sub-5 solve, and `segments_ms`,
+`segments_plain_ms`, `segments_bound_ms` and `segments_bound_by` on the
+sub-5 form-factor segments; K1, K2, K2-guide and K11 carry `device_ms`
+and their launch shape: `blocks`, `threads_per_block`,
+`shared_bytes_per_block`, `registers_per_thread`, K11 the same for its
+sort (`sort_*`) and its stats on the bounce rays,
+`visited`, `scheduled` and `row_tests`).
 Each kernel's bound is the larger of its operations at the H100's f32
 peak and its bytes at its memory rate, from the timed call's inputs and
 outputs; the work that depends on the data (pair tests behind the masks,
@@ -411,6 +428,79 @@ def adversarial_segments(geom, order, n: int, seed: int):
             ex_a.contiguous(), ex_b.contiguous())
 
 
+def adversarial_allpairs(geom, tri_pack, attr_pack, n: int, seed: int):
+    """K1/K2's hard cases, made from numpy on the packs' device: returns
+    (tri_pack, attr_pack, o, d). Rows [tpad/2, 3 tpad/4) of the triangle
+    pack become copies of rows [0, tpad/4) (their attribute columns stay),
+    so a hit on a first-quarter triangle ties exactly with a row of the
+    third quarter, in another of the kernel's 4 row parts, and the lower
+    row must win; the last tpad/32 rows (at least one) become padding rows
+    (zero, so t is NaN). n rays (a multiple of 128) in runs of 32 lanes
+    cycling four kinds: (0) from inside the box at a first-quarter
+    triangle's centroid (the ties); (1) uniform bounce rays; (2) along a
+    coordinate axis with the other components +0 or -0, from random points
+    or from points on the plane y = 0 of the floor (ds = 0 on every
+    triangle parallel to the axis, and os = 0 too on the floor's); (3)
+    padding rays (NaN origins, d = (1, 1, 1))."""
+    g = np.random.default_rng(seed)
+    dev = tri_pack.device
+    tp = tri_pack.cpu().numpy().copy()
+    tpad = tp.shape[0]
+    q = tpad // 4
+    tp[2 * q:3 * q] = tp[:q]
+    tp[tpad - max(1, tpad // 32):] = 0.0
+    lane = np.arange(n)
+    kind = (lane // 32) % 4
+    lo = np.array([-2.7, 0.05, -5.45], np.float32)
+    hi = np.array([2.7, 5.45, -0.05], np.float32)
+    o = lo + (hi - lo) * g.random((n, 3), np.float32)
+    v0 = geom.tri_v0.cpu().numpy()
+    ctr = v0 + (geom.tri_e1.cpu().numpy() + geom.tri_e2.cpu().numpy()) / 3
+    target = ctr[g.integers(0, min(q, ctr.shape[0]), n)]
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    d[kind == 0] = (target - o)[kind == 0]
+    axis = g.integers(0, 3, n)
+    sign = np.where(g.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    zeros = np.where(g.random((n, 3)) < 0.5, -0.0, 0.0).astype(np.float32)
+    d_axis = zeros.copy()
+    d_axis[lane, axis] = sign
+    on_floor = (kind == 2) & (lane % 2 == 0)
+    o[on_floor, 1] = 0.0
+    d_axis[on_floor, 1] = zeros[on_floor, 1]
+    d_axis[on_floor, 0] = sign[on_floor]
+    d[kind == 2] = d_axis[kind == 2]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[kind == 3], d[kind == 3] = np.nan, 1.0
+    return (torch.from_numpy(tp).to(dev), attr_pack,
+            torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
+
+
+def adversarial_rows(cam, bounce):
+    """K11's hard cases as four 1024-ray tiles (o, d) from camera rays and
+    bounce rays (each at least 2048 rays): tile 0 camera rays (the
+    early-out fires), tile 1 bounce rays whose rows 4-7 are padding rays
+    (NaN origins: no set bit), tile 2 padding rays only (count 0), tile 3
+    bounce rays (on a closed scene no bounce row closes)."""
+    (co, cd), (bo, bd) = cam, bounce
+    o = torch.cat([co[:1024], bo[:1024], bo[1024:2048], bo[1024:2048]])
+    d = torch.cat([cd[:1024], bd[:1024], bd[1024:2048], bd[1024:2048]])
+    o[1536:3072] = torch.nan
+    d[1536:3072] = 1.0
+    return o.contiguous(), d.contiguous()
+
+
+def adversarial_texit(texit):
+    """texit with three rows changed: tile 1's row 5 (padding rays, no
+    set bit) +inf, so it never closes and walks every refresh untested;
+    tile 3's row 0 +inf (a row that never closes and tests); tile 3's row
+    1 -inf (closed at the first refresh)."""
+    tex = texit.clone()
+    tex[1024 + 5 * 128:1024 + 6 * 128] = torch.inf
+    tex[3072:3072 + 128] = torch.inf
+    tex[3072 + 128:3072 + 256] = -torch.inf
+    return tex
+
+
 def shadow_segments(scene, geom, o, d, seed: int):
     """NEE's shadow segments from the closest hits of rays o, d on a
     CulledScene, light samples from numpy: (o, d, maxd, ex_a, ex_b)."""
@@ -475,10 +565,98 @@ def time_pair(plain, kernel, reps: int = 50) -> tuple[float, float]:
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """ms per call of the device work of fn: reps calls captured in one
+    CUDA graph after a warm-up call, the graph replayed once between CUDA
+    events, so the host's enqueue of each call is not in it (the kernels
+    and the fills and gaps between them are). torch.profiler's kernel
+    durations agree with it in a short process, but lost kernels in this
+    one."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def launch_shape(lib, fn: str, *args, n: int) -> list[int]:
+    """The n ints a kernel library's shape query `fn(*args, out)` writes:
+    blocks, threads and static shared bytes a block, registers a thread,
+    as the launcher would use them for these arguments."""
+    import ctypes
+
+    out = (ctypes.c_int * n)()
+    err = getattr(lib, fn)(*args, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{fn} failed: {lib.tpt_error_string(err)}")
+    return list(out)
+
+
+def k2_shape(n_out: int, n: int) -> dict:
+    """K1/K2's launch facts at n rays (closest_hit.cu)."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+
+    v = launch_shape(ap._library("closest_hit.cu"), "tpt_closest_shape",
+                     n_out, n, n=4)
+    return dict(zip(("blocks", "threads_per_block", "shared_bytes_per_block",
+                     "registers_per_thread"), v))
+
+
+def k11_shape(n_rays: int) -> dict:
+    """K11's launch facts at n_rays rays: the walk's, then the sort's."""
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+
+    v = launch_shape(lg._library("row_closest.cu"), "tpt_row_closest_shape",
+                     n_rays, n=8)
+    keys = ("blocks", "threads_per_block", "shared_bytes_per_block",
+            "registers_per_thread")
+    return {**dict(zip(keys, v[:4])),
+            **{f"sort_{k}": x for k, x in zip(keys, v[4:])}}
+
+
 def solutions_equal(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
         "form_factors", "radiosity", "unshot", "grid_counts", "rad_grid",
         "history"))
+
+
+def keep_third_calls(step, fns) -> dict:
+    """Run step() with each of fns, (module, function name, key of a
+    call's positional arguments), wrapped so that the arguments of the
+    third call under each key are kept (cloned); returns {key: args}."""
+    seen, kept, real = {}, {}, []
+
+    def wrap(fn, key_of):
+        def call(*args):
+            key = key_of(args)
+            seen[key] = seen.get(key, 0) + 1
+            if seen[key] == 3:
+                kept[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                  else a for a in args)
+            return fn(*args)
+
+        call.launches = 0                     # the kernels count on these
+        return call
+
+    try:
+        for mod, name, key_of in fns:
+            real.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, wrap(getattr(mod, name), key_of))
+        step()
+    finally:
+        for mod, name, fn in reversed(real):
+            setattr(mod, name, fn)
+    return kept
 
 
 def zero_counts() -> None:
@@ -942,7 +1120,8 @@ def row_kernels(part, o, d, check_early_out):
     return out, errs, ok
 
 
-def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds):
+def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
+               facts):
     """Phase 10: K8-K11 against their plain versions (bitwise) and timed
     against them; K11 against K6 and K2 on the sub-3 box; stress100k
     through the sorted row backend, and the same first pass through the
@@ -993,6 +1172,11 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds):
             int(k11[4].sum()) * 128 * 128 * PAIR_FLOPS, tri, *sched, o, d,
             k10[2], *k11[:3])
         times["K8"], times["K10"], times["K11"] = t8, t10, t11
+        facts["K11"] = {   # the bounce rays' stay
+            "visited": int(k11[2].sum()), "scheduled": int(k11[3].sum()),
+            "row_tests": int(k11[4].sum()), "device_ms": device_ms(
+                lambda: lg.closest_rows(tri, *sched, o, d, k10[2], 1e-4),
+                reps=5), **k11_shape(o.shape[0])}
         msg = ""
         if rname == "bounce":        # K9's plain version walks in Python
             times["K9"] = time_pair(
@@ -1010,7 +1194,8 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds):
               f"cluster) tests; K8 {t8[1]:.6f} vs plain {t8[0]:.6f} ms, K10 "
               f"{t10[1]:.6f} vs plain {t10[0]:.6f} ms, K11 {t11[1]:.6f} vs "
               f"plain {t11[0]:.6f} ms{msg}; bounds K8 {bounds['K8'][0]:.6f}, "
-              f"K10 {bounds['K10'][0]:.6f}, K11 {bounds['K11'][0]:.6f} ms")
+              f"K10 {bounds['K10'][0]:.6f}, K11 {bounds['K11'][0]:.6f} ms; "
+              f"K11 {facts['K11']}")
         if not ok:
             raise AssertionError(f"a row kernel differs from its plain version"
                                  f" on stress100k {rname} (tolerance: bitwise)"
@@ -1029,6 +1214,28 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds):
               f"bitwise equal to unsorted {same}")
         if not same:
             raise AssertionError("sort_rays changes the row query's hits")
+
+    # K11's adversarial tiles: camera rays, rows of padding rays (no set
+    # bit), a count-0 tile, bounce rows that never close; with K10's texit
+    # and with rows forced open (+inf) and closed (-inf)
+    o, d = adversarial_rows(rays[0][1:], rays[1][1:])
+    k10 = lg.prepass_rows(cmin, cmax, o, d, 1e-4)
+    sched = lg.cluster_list(k10[0], k10[1])
+    for tname, tex in (("K10's texit", k10[2]),
+                       ("texit changed", adversarial_texit(k10[2]))):
+        k11 = lg.closest_rows(tri, *sched, o, d, tex, 1e-4, return_stats=True)
+        p11 = lg.closest_rows_plain(tri, *sched, o, d, tex, 1e-4,
+                                    return_stats=True)
+        torch.cuda.synchronize()
+        ok = (prepass_equal(k11, p11) and int(sched[0][2]) == 0
+              and int(k11[2][2]) == 0)
+        phase("rows", f"K11 adversarial tiles ({tname}): count "
+              f"{sched[0].tolist()}, visited {k11[2].tolist()}, row tests "
+              f"{k11[4].tolist()}, {int(torch.isfinite(k11[0]).sum())} hit; "
+              f"bitwise equal to plain (t, id and stats) {ok}")
+        if not ok:
+            raise AssertionError(f"K11 differs on the adversarial tiles "
+                                 f"({tname}; tolerance: bitwise)")
 
     # K10 and K11 on the 1M-triangle scene (one part: the same pack)
     part1m, cam1m = scene1m
@@ -1199,6 +1406,16 @@ def nee_phase(dev, start, end, headline, large):
           f"ray_chunk 2**16: {same}")
     if not same:
         raise AssertionError("the NEE film depends on ray_chunk")
+    # one more pass keeping the third K3 call's inputs (the shadow rays of
+    # one iteration), then K3's time per launch at that shape
+    (k3_args,) = keep_third_calls(
+        r.step, [(ap, "occluded", lambda a: "K3")]).values()
+    k3_ms = time_call(lambda: ap.occluded(*k3_args), reps=20)
+    k3_dev = device_ms(lambda: ap.occluded(*k3_args), reps=20)
+    phase("nee", f"cbox1024_nee K3 per launch at {k3_args[2].shape[0]} "
+          f"shadow rays x {k3_args[0].shape[0]} rows (third call of a pass):"
+          f" {k3_ms:.6f} ms per wrapper call (CUDA events), {k3_dev:.6f} ms "
+          "of device time (a CUDA graph of 20 calls)")
 
     # stress100k: the balanced NEE-off pass (phase large's film) and time
     first_large, large_ms = large
@@ -1257,42 +1474,24 @@ def nee_phase(dev, start, end, headline, large):
         if not same:
             raise AssertionError(f"stress100k_nee {name} changes the film")
 
-    # one more pass keeping the inputs of the third K4 (rays and segments)
-    # and K7 calls, then their times per launch at the queues' lane count
-    real = (ic.prepass_dense, ic.occluded_grouped)
-    seen, kept = {}, {}
-
-    def keep(key, args):
-        seen[key] = seen.get(key, 0) + 1
-        if seen[key] == 3:
-            kept[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
-                              else a for a in args)
-
-    def prepass(*args):
-        keep("K4 rays" if len(args) < 6 or args[5] is None
-             else "K4 segments", args)
-        return real[0](*args)
-
-    def walk(*args):
-        keep("K7", args)
-        return real[1](*args)
-
-    prepass.launches = walk.launches = 0       # the kernels count on these
-    try:
-        ic.prepass_dense, ic.occluded_grouped = prepass, walk
-        r.step()
-    finally:
-        ic.prepass_dense, ic.occluded_grouped = real
-    per_launch = {
-        k: time_call(lambda a=a, f=(ic.occluded_grouped if k == "K7"
-                                    else ic.prepass_dense): f(*a), reps=20)
-        for k, a in kept.items()}
+    # one more pass keeping the inputs of the third K4 (rays and segments),
+    # K6 and K7 calls, then their times per launch at the queues' lanes
+    fns = {"K4 rays": ic.prepass_dense, "K4 segments": ic.prepass_dense,
+           "K6": ic.closest_grouped, "K7": ic.occluded_grouped}
+    kept = keep_third_calls(r.step, [
+        (ic, "prepass_dense", lambda a: "K4 rays" if len(a) < 6
+         or a[5] is None else "K4 segments"),
+        (ic, "closest_grouped", lambda a: "K6"),
+        (ic, "occluded_grouped", lambda a: "K7")])
+    per_launch = {k: time_call(lambda a=a, f=fns[k]: f(*a), reps=20)
+                  for k, a in kept.items()}
     lanes = kept["K7"][2].shape[0]
     phase("nee", f"stress100k_nee per launch at {lanes} lanes (third call of "
           "a pass): " + ", ".join(f"{k} {v:.6f} ms"
                                   for k, v in per_launch.items()))
-    return {"K3": k3, "K7": k7, "K4": k4, "K4 ms": per_launch["K4 segments"],
-            "K7 ms": per_launch["K7"]}
+    return {"K2": k2, "K3": k3, "K6": k6, "K7": k7, "K4": k4, "K4 ms": per_launch["K4 segments"],
+            "K6 ms": per_launch["K6"], "K7 ms": per_launch["K7"],
+            "K3 ms": k3_ms, "K3 device ms": k3_dev}
 
 
 def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
@@ -1462,6 +1661,7 @@ def main() -> int:
     err = dict.fromkeys(("K1", "K2", "K2-guide", "K3", "K4", "K5", "K6",
                          "K7", "K8", "K9", "K10", "K11", "K12", "K13"), 0.0)
     bounds = {}
+    facts = {}             # the redesigned kernels' device times and shapes
     g = np.random.default_rng(0)
     for si, sname in enumerate(("cbox", "cbox_mirror", "cbox_sub2",
                                 "cbox_sub3")):
@@ -1497,7 +1697,40 @@ def main() -> int:
             for k, v in e.items():
                 err[k] = max(err[k], v)
 
-    k3_cases = [(f"{s} ff-pairs", scenes[s], ff_segments(scenes[s], i))
+    # the adversarial batches of K1 and K2 (both instances): exact ties
+    # across the kernel's 4 row parts, ds = 0, padding rows and rays, at
+    # 32, 1,024 and 2,048 rows
+    g3 = scenes["cbox_sub3"]
+    for sname, geom, rows in (("cbox", scenes["cbox"], None),
+                              ("cbox_sub3 rows 0-1023", g3, 1024),
+                              ("cbox_sub3", g3, None)):
+        tp, atp = ap.pack_triangles(geom), ap.pack_attributes(geom)
+        gtp = ap.pack_attributes(geom, guide_table=g.random(
+            (geom.num_prims, 16), np.float32))
+        if rows is not None:
+            tp, atp, gtp = (tp[:rows].contiguous(), atp[:, :rows].contiguous(),
+                            gtp[:, :rows].contiguous())
+        tpa, _, o, d = adversarial_allpairs(geom, tp, None, 4096, 21)
+        pairs = {"K1": (ap.closest_tuv(tpa, o, d),
+                        ap.closest_tuv_plain(tpa, o, d))}
+        for k, pack in (("K2", atp), ("K2-guide", gtp)):
+            pairs[k] = (ap.closest_record(tpa, pack, o, d),
+                        ap.closest_record_plain(tpa, pack, o, d))
+        torch.cuda.synchronize()
+        ok = all(prepass_equal(kk, pp) for kk, pp in pairs.values())
+        q = tpa.shape[0] // 4
+        won = pairs["K2"][1][1]
+        phase("kernels", f"adversarial all-pairs batch {sname} ({tpa.shape[0]}"
+              f" rows in 4 parts; 4096 rays: ties across parts, ds = 0, "
+              f"padding rows and rays): {int(torch.isfinite(pairs['K1'][1][0]).sum())} hit, "
+              f"{int((won[torch.isfinite(pairs['K2'][1][0])] < q).sum())} "
+              f"won by a first-quarter row; K1, K2, K2-guide bitwise equal "
+              f"to plain {ok}")
+        if not ok:
+            raise AssertionError(f"K1 or K2 differs on the adversarial batch "
+                                 f"{sname} (tolerance: bitwise)")
+
+    k3_cases =[(f"{s} ff-pairs", scenes[s], ff_segments(scenes[s], i))
                 for i, s in enumerate(("cbox_sub2", "cbox_sub3"))]
     k3_cases.append(("cbox_sub3 random", scenes["cbox_sub3"],
                      random_segments(7, dev)))
@@ -1527,10 +1760,20 @@ def main() -> int:
     pairs = N_RAYS * tp.shape[0] * PAIR_FLOPS
     bounds["K1"] = bound(pairs, tp, o, d, *k1)
     bounds["K2"] = bound(pairs, tp, atp, o, d, *k2)
+    # the kernels' own time at this shape: the wrapper calls' event time
+    # above is mostly the host's enqueue
+    facts["K1"] = {"device_ms": device_ms(
+        lambda: ap.closest_tuv(tp, o, d), reps=50),
+        **k2_shape(0, N_RAYS)}
+    facts["K2"] = {"device_ms": device_ms(
+        lambda: ap.closest_record(tp, atp, o, d), reps=50),
+        **k2_shape(11, N_RAYS)}
     for k in ("K1", "K2"):
         pm, km = times[k]
         phase("kernels", f"{k} at {N_RAYS} bounce rays x {geom.num_tris} "
-              f"tris: kernel {km:.6f} ms, plain torch {pm:.6f} ms per call")
+              f"tris: kernel {km:.6f} ms per wrapper call (CUDA events), "
+              f"plain torch {pm:.6f} ms per call; device time (a CUDA graph) "
+              f"and launch {facts[k]}")
     g3 = scenes["cbox_sub3"]
     tp3, pp3 = ap.pack_triangles(g3), ap.pack_prim_ids(g3)
     atp3 = ap.pack_attributes(g3)
@@ -1556,11 +1799,15 @@ def main() -> int:
     bounds["K3"] = bound(
         anyhit_pairs(tp3.shape[0], seg3[2], b3) * PAIR_FLOPS, tp3, pp3,
         *seg3, b3)
+    facts["K2-guide"] = {"device_ms": device_ms(
+        lambda: ap.closest_record(tp3, gtp3, o, d)),
+        **k2_shape(27, N_RAYS)}
     for k, (pm, km) in more.items():
         shape = (f"{k3_cases[1][2][0].shape[0]} ff segments" if k == "K3"
                  else f"{N_RAYS} bounce rays")
+        extra = f"; {facts[k]}" if k == "K2-guide" else ""
         phase("kernels", f"{k} at {shape} x {g3.num_tris} tris: kernel "
-              f"{km:.6f} ms, plain torch {pm:.6f} ms per call")
+              f"{km:.6f} ms, plain torch {pm:.6f} ms per call{extra}")
     path1m, part1m, cam1m, g1m, cs1m = culled_kernels(
         dev, cam, scenes, k3_cases, err, times, bounds)
 
@@ -1757,7 +2004,7 @@ def main() -> int:
 
     # 10. rows: the row-granular culled backend and ray sorting --------------
     rows = rows_phase(dev, cam, (part1m, cam1m), first_large, start, end, err,
-                      times, bounds)
+                      times, bounds, facts)
 
     # 11. nee: next-event estimation, the queues, the supercluster walk ------
     nee = nee_phase(dev, start, end, (headline_rays, headline_ms),
@@ -1779,14 +2026,18 @@ def main() -> int:
     lab = "intersect_pallas_lab.py"
 
     record = {"kernels": [
-        entry("K1 closest_tuv (_kernel)", "K1", "closest_hit.cu", 167,
-              launches["K1"]),
-        entry("K2 closest_record (_kernel_full)", "K2", "closest_hit.cu",
-              240, launches["K2"]),
-        entry("K2-guide closest_record, 27 rows (_kernel_full)", "K2-guide",
-              "closest_hit.cu", 240, guide_launches),
+        {**entry("K1 closest_tuv (_kernel)", "K1", "closest_hit.cu", 167,
+                 launches["K1"]), **facts["K1"]},
+        {**entry("K2 closest_record (_kernel_full)", "K2", "closest_hit.cu",
+                 240, launches["K2"]), **facts["K2"],
+         "nee_launches": nee["K2"]},
+        {**entry("K2-guide closest_record, 27 rows (_kernel_full)",
+                 "K2-guide", "closest_hit.cu", 240, guide_launches),
+         **facts["K2-guide"]},
         {**entry("K3 occluded (_kernel_anyhit)", "K3", "any_hit.cu", 765,
-                 k3_launches), "nee_launches": nee["K3"]},
+                 k3_launches), "nee_launches": nee["K3"],
+         "nee_shape_ms": nee["K3 ms"],
+         "nee_shape_device_ms": nee["K3 device ms"]},
         {**entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
                  "cluster_prepass.cu", 1023, large["K4"]),
          "solve_launches": k4_solve, "nee_launches": nee["K4"],
@@ -1797,8 +2048,9 @@ def main() -> int:
          "nee_shape_ms": nee["K4 ms"]},
         entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
               "cluster_prepass.cu", 1149, large["K5"]),
-        entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
-              "grouped_closest.cu", 1723, large["K6"]),
+        {**entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
+                 "grouped_closest.cu", 1723, large["K6"]),
+         "nee_launches": nee["K6"], "nee_shape_ms": nee["K6 ms"]},
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
          "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"]},
@@ -1808,8 +2060,9 @@ def main() -> int:
               196, rows["K9"], legacy),
         entry("K10 prepass_rows (_kernel_prepass)", "K10",
               "cluster_prepass.cu", 306, rows["K10"], legacy),
-        entry("K11 closest_rows (_kernel_culled_dma)", "K11",
-              "row_closest.cu", 572, rows["K11"], legacy),
+        {**entry("K11 closest_rows (_kernel_culled_dma)", "K11",
+                 "row_closest.cu", 572, rows["K11"], legacy),
+         **facts["K11"]},
         entry("K12 closest_grouped_sc (_kernel_grouped_dma_sc)", "K12",
               "grouped_closest.cu", 36, sc["K12"], lab),
         entry("K13 occluded_grouped_sc (_kernel_grouped_anyhit_dma_sc)",

@@ -1,87 +1,149 @@
 #!/usr/bin/env python3
-"""Old-against-new timing of the port's prepass and any-hit kernels on one
-NVIDIA GPU: this checkout's csrc/cluster_prepass.cu (K4, K5, K8, K10) and
-csrc/grouped_anyhit.cu (K7, K13) against the same files of another
+"""Old-against-new timing of the port's redesigned kernels on one NVIDIA
+GPU: this checkout's csrc/cluster_prepass.cu (K4, K5, K8, K10),
+csrc/grouped_anyhit.cu (K7, K13), csrc/row_closest.cu (K11) and
+csrc/closest_hit.cu (K1, K2, K9) against the same files of another
 checkout, through this checkout's wrappers.
 
-    python3 kernel_ab.py --baseline DIR [--out FILE]
+    python3 kernel_ab.py --baseline DIR [--out FILE] [--cases LIST]
 
 DIR is the root of another checkout of this repository (for example the
-parent commit, unpacked with `git archive` into the ignored build/). Its two
+parent commit, unpacked with `git archive` into the ignored build/). Its
 sources are built with the same nvcc flags into build/tpu_pathtracer_torch/
-(the library names carry a hash of the source). Every case runs both builds
-on the same inputs; their outputs must be bitwise equal to each other and
-to the plain torch versions. Times are CUDA events per call, in the turns
-baseline, this, this, baseline:
+(the library names carry a hash of the source); a baseline whose
+row_closest.cu takes no schedule scratch is called without it. Every case
+runs both builds on the same inputs; their outputs must be bitwise equal to
+each other and to the plain torch versions. Times are CUDA events per call,
+in the turns baseline, this, this, baseline:
   - K4 (segment mode) and K7 on the sub-5 form-factor segments
     (chip_smoke.ff_segments, 1,048,576 segments);
   - K4 on stress100k's 65,536 camera rays (the 256x256 frame in tile
-    order) and 65,536 bounce rays, and K8 and K10 on the same rays;
+    order) and 65,536 bounce rays, and K8, K10 and K11 (with its stats and
+    device time) on the same rays;
   - the gated prepass (quarter gate through K4, then K5) and K7 on the
-    1M-triangle scene's 65,536 NEE shadow segments;
+    1M-triangle scene's 65,536 NEE shadow segments, and K11 on its 65,536
+    camera and bounce rays;
+  - K2 and its guide instance (27 rows) at 65,536 bounce rays x 2,048
+    triangles (the sub-3 box), and K2 at 65,536 x 32 (the Cornell box),
+    each also with its device time (a CUDA graph of the calls replayed
+    between CUDA events, chip_smoke.device_ms);
+  - the first pass of stress100k through CulledScene(sort_rays=True) (K8,
+    K10, K11) and of the sub-3 MIS frame (K2-guide), films bitwise equal;
   - the sub-5 gather solve (2 MC samples, 8 iterations) end to end, and one
     solve of each under torch.profiler: device time by kernel, the K4 and
     K7 shares of it, and the device-busy share (kernel time over the
     unprofiled solve's time).
-Prints a line per case and, last, one JSON object with every number
-(also written to FILE, default chiprun_out/kernel_ab.json). Imports nothing
-of jax.
+The sections, in this order (--cases picks some): segments (the sub-5
+segments), stress100k, 1m, k2, renders, solve. Prints a line per case and,
+last, one JSON object with every number (also written to FILE, default
+chiprun_out/kernel_ab.json, after every section). Imports nothing of jax.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 
 HERE = Path(__file__).resolve().parent
-SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu")
+SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
+           "closest_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
+CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve")
+
+
+class _Tolerant:
+    """A kernel library whose symbols missing from an older build read as
+    inert stand-ins, so that this checkout's declarations apply to it."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return argparse.Namespace()
+
+
+class _RowsWithoutScratch:
+    """A row_closest.cu build whose tpt_row_closest takes no schedule
+    scratch (the one-block-a-tile design): the call drops that argument."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tpt_row_closest.argtypes = [p, p, p, p, i, p, p, p, i, f, p, p,
+                                        p, p, p]
+        lib.tpt_row_closest.restype = i
+
+    def tpt_row_closest(self, *args):
+        return self._lib.tpt_row_closest(*args[:14], args[15])
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def baseline_libraries(root: Path) -> dict:
-    """The baseline checkout's two kernel libraries, built and declared as
+    """The baseline checkout's kernel libraries, built and declared as
     this checkout's are."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.utils import cuda_build
 
-    csrc = root / "tpu_pathtracer_torch" / "csrc"
-    saved = cuda_build.CSRC_DIR
+    saved = cuda_build.CSRC_DIR, cuda_build.load
     try:
-        cuda_build.CSRC_DIR = csrc
-        return {src: ic._library.__wrapped__(src) for src in SOURCES}
+        cuda_build.CSRC_DIR = root / "tpu_pathtracer_torch" / "csrc"
+        cuda_build.load = lambda src: _Tolerant(
+            ctypes.CDLL(str(cuda_build.build(src).path)))
+        libs = {}
+        for src in SOURCES:
+            mod = ap if src == "closest_hit.cu" else ic
+            libs[src] = mod._library.__wrapped__(src)
+            if src == "row_closest.cu" and isinstance(
+                    libs[src].tpt_row_closest_shape, argparse.Namespace):
+                libs[src] = _RowsWithoutScratch(libs[src]._lib)
+        return libs
     finally:
-        cuda_build.CSRC_DIR = saved
+        cuda_build.CSRC_DIR, cuda_build.load = saved
 
 
 @contextlib.contextmanager
 def side(name: str, libs: dict):
     """Route the wrappers to the baseline's libraries (name "baseline") or
     leave them on this checkout's."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
 
     if name != "baseline":
         yield
         return
-    own = ic._library
+    own, own_ap = ic._library, ap._library
 
     def pick(src):
         return libs[src] if src in libs else own(src)
 
+    def pick_ap(src):
+        return libs[src] if src in libs else own_ap(src)
+
     try:
         ic._library = lg._library = pick
+        ap._library = lg._allpairs_library = pick_ap
         yield
     finally:
         ic._library = lg._library = own
+        ap._library = lg._allpairs_library = own_ap
 
 
 def equal(a, b) -> bool:
@@ -90,10 +152,12 @@ def equal(a, b) -> bool:
     return all(equal(x, y) for x, y in zip(a, b))
 
 
-def ab(name: str, fn, plain, libs: dict, reps: int, out: dict) -> None:
+def ab(name: str, fn, plain, libs: dict, reps: int, out: dict,
+       graph: bool = False) -> None:
     """Check fn's output under both builds against plain's, time fn in the
     turns baseline, this, this, baseline and record (baseline ms, this ms)
-    under out[name]."""
+    under out[name]; with `graph`, also the device time of a call in the
+    same turns (chip_smoke.device_ms: a CUDA graph of reps calls)."""
     results = {}
     for s in ("baseline", "this"):
         with side(s, libs):
@@ -103,16 +167,67 @@ def ab(name: str, fn, plain, libs: dict, reps: int, out: dict) -> None:
     ok = equal(results["this"], results["baseline"]) and equal(
         results["this"], ref)
     ms = {"baseline": [], "this": []}
+    dev = {"baseline": [], "this": []}
     for s in SIDES:
         with side(s, libs):
             ms[s].append(cs.time_call(fn, reps))
+            if graph:
+                dev[s].append(cs.device_ms(fn, reps))
     base, this = (sum(ms[s]) / 2 for s in ("baseline", "this"))
+    rec = {"baseline_ms": base, "this_ms": this, "turns": ms}
+    msg = ""
+    if graph:
+        rec["device_turns"] = dev
+        rec["baseline_device_ms"], rec["this_device_ms"] = (
+            sum(dev[s]) / 2 for s in ("baseline", "this"))
+        msg = (f"; device time baseline {rec['baseline_device_ms']:.6f}, "
+               f"this {rec['this_device_ms']:.6f} ms")
     cs.phase("ab", f"{name}: baseline {base:.6f} ms, this {this:.6f} ms per "
-             f"call ({this / base:.3f}x; turns {ms}); outputs bitwise equal "
-             f"to each other and to plain {ok}")
+             f"call ({this / base:.3f}x; turns {ms}){msg}; outputs bitwise "
+             f"equal to each other and to plain {ok}")
     if not ok:
         raise AssertionError(f"{name}: outputs differ (tolerance: bitwise)")
-    out[name] = {"baseline_ms": base, "this_ms": this, "turns": ms}
+    out[name] = rec
+
+
+def render_ab(name: str, make, libs: dict, out: dict) -> None:
+    """The first pass of a fresh renderer from make() per turn (baseline,
+    this, this, baseline), CUDA events; the four films bitwise equal."""
+    make().step()                                # warm-up pass
+    ms, films = {"baseline": [], "this": []}, []
+    for s in SIDES:
+        r = make()
+        with side(s, libs):
+            ms[s].append(cs.time_once(lambda: r.step(block=False))[1])
+        films.append(r.film.accum)
+    same = all(torch.equal(f, films[0]) for f in films)
+    rec = {"turns": ms, "rays": r.total_rays, "iterations": r.iterations,
+           **{f"{s}_ms": sum(v) / 2 for s, v in ms.items()}}
+    cs.phase("ab", f"{name}: first pass baseline {rec['baseline_ms']:.3f} ms, "
+             f"this {rec['this_ms']:.3f} ms "
+             f"({rec['this_ms'] / rec['baseline_ms']:.3f}x; turns {ms}), "
+             f"{rec['rays']} rays, {rec['iterations']} iterations; films "
+             f"bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"{name}: films differ between the builds")
+    out[name] = rec
+
+
+def k11_ab(name: str, part, o, d, libs: dict, out: dict) -> None:
+    """K11 with its stats on rays o, d of a CulledPart, through the K10
+    prepass and cluster_list of this checkout, under both builds."""
+    from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+
+    tri = part.tri_pack
+    k10 = lg.prepass_rows(part.cluster_min, part.cluster_max, o, d, 1e-4)
+    sched = lg.cluster_list(k10[0], k10[1])
+    args = (tri, *sched, o, d, k10[2], 1e-4)
+    ab(name, lambda: lg.closest_rows(*args, return_stats=True),
+       lambda: lg.closest_rows_plain(*args, return_stats=True), libs, 5, out,
+       graph=True)
+    stats = lg.closest_rows_plain(*args, return_stats=True)[2:]
+    out[name].update(zip(("visited", "scheduled", "row_tests"),
+                         (int(x.sum()) for x in stats)))
 
 
 def solve_profile(libs: dict, out: dict) -> None:
@@ -190,15 +305,24 @@ def main() -> int:
     ap.add_argument("--baseline", required=True, type=Path)
     ap.add_argument("--out", default=str(HERE / "chiprun_out" /
                                          "kernel_ab.json"))
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated sections to run, of "
+                         + ", ".join(CASES) + " (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is False; this needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from tpu_pathtracer_torch.app import load_prims
+    from tpu_pathtracer_torch.app import App, load_prims
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap_mod
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+    from tpu_pathtracer_torch.render.camera import CameraController
+    from tpu_pathtracer_torch.render.renderer import (
+        ProgressiveRenderer,
+        RenderSettings,
+    )
     from tpu_pathtracer_torch.scene.builtin import cornell_box
     from tpu_pathtracer_torch.scene.mesh import subdivide
     from tpu_pathtracer_torch.utils.config import Config
@@ -219,71 +343,131 @@ def main() -> int:
                 cs.phase("build", ln.strip())
     libs = baseline_libraries(args.baseline.resolve())
     out = {"device": smi}
+    cases = args.cases.split(",")
 
-    # the sub-5 form-factor segments
-    g5 = subdivide(cornell_box("quads"), 5).build(dev)
-    p = ic.CulledScene(g5).parts[0]
-    cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
-    o, d, maxd, ea, eb = cs.ff_segments(g5, 5)
-    gm = ic.prepass_dense(cmin, cmax, o, d, 1e-5, maxd)[0]
-    visits, bits = int((gm != 0).sum()), cs.set_bits(gm)
-    cs.phase("ab", f"sub-5 segments: {o.shape[0]}, {int((maxd > 0).sum())} "
-             f"with maxd > 0; {visits} (tile, word, cluster) visits, {bits} "
-             f"set bits, {bits / visits:.3f} per visit")
-    out["sub5_segments"] = {"visits": visits, "bits": bits}
-    ab("K4 sub-5 segments",
-       lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-5, maxd),
-       lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-5, maxd), libs, 20, out)
-    ab("K7 sub-5 segments",
-       lambda: ic.occluded_grouped(tri, gm, o, d, maxd, ea, eb),
-       lambda: ic.occluded_grouped_plain(tri, gm, o, d, maxd, ea, eb), libs,
-       10, out)
+    def save() -> None:           # after every section: a cut call keeps it
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
 
-    # stress100k's camera and bounce rays
-    cfg = Config(**cs.LARGE)
-    geom = load_prims(cfg).build(dev)
-    p = ic.CulledScene(geom).parts[0]
-    cmin, cmax = p.cluster_min, p.cluster_max
-    rays = [("camera", *cs.swizzled_camera_rays(cs.scene_camera(cfg, dev),
-                                                256, 1, dev)),
-            ("bounce", *cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
-                                    cs.N_RAYS, 2, dev))]
-    for rname, o, d in rays:
-        ab(f"K4 stress100k {rname}",
-           lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4),
-           lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-4), libs, 20, out)
-        ab(f"K8 stress100k {rname}",
-           lambda: lg.prepass_probe(cmin, cmax, o, d, 1e-4),
-           lambda: lg.prepass_probe_plain(cmin, cmax, o, d, 1e-4), libs, 20,
+    if "segments" in cases:       # the sub-5 form-factor segments
+        g5 = subdivide(cornell_box("quads"), 5).build(dev)
+        p = ic.CulledScene(g5).parts[0]
+        cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
+        o, d, maxd, ea, eb = cs.ff_segments(g5, 5)
+        gm = ic.prepass_dense(cmin, cmax, o, d, 1e-5, maxd)[0]
+        visits, bits = int((gm != 0).sum()), cs.set_bits(gm)
+        cs.phase("ab", f"sub-5 segments: {o.shape[0]}, "
+                 f"{int((maxd > 0).sum())} with maxd > 0; {visits} (tile, "
+                 f"word, cluster) visits, {bits} set bits, "
+                 f"{bits / visits:.3f} per visit")
+        out["sub5_segments"] = {"visits": visits, "bits": bits}
+        ab("K4 sub-5 segments",
+           lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-5, maxd),
+           lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-5, maxd), libs, 20,
            out)
-        ab(f"K10 stress100k {rname}",
-           lambda: lg.prepass_rows(cmin, cmax, o, d, 1e-4),
-           lambda: lg.prepass_rows_plain(cmin, cmax, o, d, 1e-4), libs, 20,
+        ab("K7 sub-5 segments",
+           lambda: ic.occluded_grouped(tri, gm, o, d, maxd, ea, eb),
+           lambda: ic.occluded_grouped_plain(tri, gm, o, d, maxd, ea, eb),
+           libs, 10, out)
+        save()
+
+    scene_app = App(Config(**cs.LARGE), device=dev)
+    geom_large = scene_app.load_scene()
+    if "stress100k" in cases:     # stress100k's camera and bounce rays
+        p = ic.CulledScene(geom_large).parts[0]
+        cmin, cmax = p.cluster_min, p.cluster_max
+        rays = [("camera", *cs.swizzled_camera_rays(
+                    cs.scene_camera(scene_app.config, dev), 256, 1, dev)),
+                ("bounce", *cs.box_rays((-2.0, -1.05, -2.0),
+                                        (2.0, 2.5, 2.0), cs.N_RAYS, 2, dev))]
+        for rname, o, d in rays:
+            ab(f"K4 stress100k {rname}",
+               lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4),
+               lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-4), libs, 20,
+               out)
+            ab(f"K8 stress100k {rname}",
+               lambda: lg.prepass_probe(cmin, cmax, o, d, 1e-4),
+               lambda: lg.prepass_probe_plain(cmin, cmax, o, d, 1e-4), libs,
+               20, out)
+            ab(f"K10 stress100k {rname}",
+               lambda: lg.prepass_rows(cmin, cmax, o, d, 1e-4),
+               lambda: lg.prepass_rows_plain(cmin, cmax, o, d, 1e-4), libs,
+               20, out)
+            k11_ab(f"K11 stress100k {rname}", p, o, d, libs, out)
+        save()
+
+    if "1m" in cases:             # the 1M-triangle scene
+        path1m = cs.generate_1m(os.path.join(HERE, "build", "stress1m"))
+        cfg1m = Config(**{**cs.LARGE, "scene": path1m})
+        g1m = load_prims(cfg1m).build(dev)
+        cs1m = ic.CulledScene(g1m)
+        p = cs1m.parts[0]
+        cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
+        cam_1m = cs.scene_camera(cfg1m, dev)
+        cam_o, cam_d = cs.swizzled_camera_rays(cam_1m, 256, 5, dev)
+        so, sd, md, sa, sb = cs.shadow_segments(cs1m, g1m, cam_o, cam_d, 7)
+        ab("gated prepass (K4 gate + K5) 1M shadow segments",
+           lambda: ic.prepass_groups(cmin, cmax, so, sd, 1e-5, md),
+           lambda: ic.prepass_plain(cmin, cmax, so, sd, 1e-5, md), libs, 10,
            out)
+        gm = ic.prepass_groups(cmin, cmax, so, sd, 1e-5, md)[0]
+        ab("K7 1M shadow segments",
+           lambda: ic.occluded_grouped(tri, gm, so, sd, md, sa, sb),
+           lambda: ic.occluded_grouped_plain(tri, gm, so, sd, md, sa, sb),
+           libs, 10, out)
+        rays = [("camera", *cs.swizzled_camera_rays(cam_1m, 256, 3, dev)),
+                ("bounce", *cs.box_rays((-2.0, -1.05, -2.0),
+                                        (2.0, 2.5, 2.0), cs.N_RAYS, 4, dev))]
+        for rname, o, d in rays:
+            k11_ab(f"K11 1M {rname}", p, o, d, libs, out)
+        save()
 
-    # the 1M-triangle scene's NEE shadow segments
-    path1m = cs.generate_1m(os.path.join(HERE, "build", "stress1m"))
-    cfg1m = Config(**{**cs.LARGE, "scene": path1m})
-    g1m = load_prims(cfg1m).build(dev)
-    cs1m = ic.CulledScene(g1m)
-    p = cs1m.parts[0]
-    cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
-    cam_o, cam_d = cs.swizzled_camera_rays(cs.scene_camera(cfg1m, dev), 256,
-                                           5, dev)
-    so, sd, md, sa, sb = cs.shadow_segments(cs1m, g1m, cam_o, cam_d, 7)
-    ab("gated prepass (K4 gate + K5) 1M shadow segments",
-       lambda: ic.prepass_groups(cmin, cmax, so, sd, 1e-5, md),
-       lambda: ic.prepass_plain(cmin, cmax, so, sd, 1e-5, md), libs, 10, out)
-    gm = ic.prepass_groups(cmin, cmax, so, sd, 1e-5, md)[0]
-    ab("K7 1M shadow segments",
-       lambda: ic.occluded_grouped(tri, gm, so, sd, md, sa, sb),
-       lambda: ic.occluded_grouped_plain(tri, gm, so, sd, md, sa, sb), libs,
-       10, out)
+    if "k2" in cases:             # K2 and K2-guide at the guided path's
+        cam = CameraController.default().build(dev)       # shape, K2 at the
+        _, o, d = cs.make_rays(cam, 0, dev)[1]             # main path's
+        g3 = subdivide(cornell_box("quads"), 3).build(dev)
+        g = np.random.default_rng(0)
+        for gname, geom in (("65,536 x 2,048", g3),
+                            ("65,536 x 32", cornell_box("quads").build(dev))):
+            tp = ap_mod.pack_triangles(geom)
+            packs = [("K2", ap_mod.pack_attributes(geom))]
+            if geom is g3:
+                packs.append(("K2-guide", ap_mod.pack_attributes(
+                    geom, guide_table=g.random((geom.num_prims, 16),
+                                               np.float32))))
+            for kname, atp in packs:
+                ab(f"{kname} {gname}",
+                   lambda: ap_mod.closest_record(tp, atp, o, d),
+                   lambda: ap_mod.closest_record_plain(tp, atp, o, d), libs,
+                   20, out, graph=True)
+        save()
 
-    solve_profile(libs, out)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
+    if "renders" in cases:        # the sorted stress100k and sub-3 MIS passes
+        sorted_scene = ic.CulledScene(geom_large, sort_rays=True)
+        settings = {k: cs.LARGE[k] for k in ("width", "height", "max_depth",
+                                             "spp_per_pass", "ray_chunk")}
+        cam_l = scene_app.camera_ctrl.build(dev)
+        render_ab("stress100k CulledScene(sort_rays=True)",
+                  lambda: ProgressiveRenderer(
+                      geom_large, cam_l, RenderSettings(sort_rays=True,
+                                                        **settings),
+                      device=dev, seed=scene_app.config.seed,
+                      culled=sorted_scene), libs, out)
+        mis = App(Config(spp=32, **cs.GUIDED), device=dev)
+        mis.load_scene()
+        mis.run_solver()
+
+        def fresh():
+            mis._renderer = None
+            return mis.renderer()
+
+        render_ab("sub-3 MIS pass", fresh, libs, out)
+        save()
+
+    if "solve" in cases:
+        solve_profile(libs, out)
+        save()
     print(json.dumps(out), flush=True)
     return 0
 

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import tpu_pathtracer.ops.intersect_pallas as ip
 from tpu_pathtracer.ops import intersect as jintersect
 from tpu_pathtracer.render import camera as jcamera
@@ -315,6 +316,56 @@ def test_closest_record_guide_plain_vs_pallas(case):
     h = ap.closest_hit(tg, tp, torch.from_numpy(o), torch.from_numpy(d),
                        attr_pack=ap.pack_attributes(tg, guide_table=table))
     np.testing.assert_array_equal(h.guide.numpy(), a_g[11:].T)
+
+
+MISS_KEY = (0x7F800000 << 32) | 0x7FFFFFFF
+
+
+def _merged_by_parts(tp, o, d, split):
+    """closest_tuv_plain on each of `split` row ranges [tpad * p // split,
+    tpad * (p + 1) // split), merged by the least 64-bit (t bits << 32 |
+    row) key: K2's merge of its parts."""
+    tpad = tp.shape[0]
+    key = torch.full((o.shape[0],), MISS_KEY, dtype=torch.int64)
+    for p in range(split):
+        lo, hi = tpad * p // split, tpad * (p + 1) // split
+        t, i = ap.closest_tuv_plain(tp[lo:hi], o, d)
+        k = (t.view(torch.int32).to(torch.int64) << 32) | (i + lo)
+        key = torch.minimum(key, torch.where(torch.isfinite(t), k, MISS_KEY))
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    return t, torch.where(torch.isfinite(t), key & 0x7FFFFFFF, 0).to(
+        torch.int32)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("batch", ["rays", "adversarial"])
+def test_closest_record_parts_merge_to_plain(case, split, batch):
+    """K2's design on the CPU: the parts' plain hits merged by (t bits,
+    row) equal closest_record_plain bitwise, t, id and the 11 and 27
+    attribute rows (the kernel splits the rows in 4; 1 and 2 hold too). The adversarial batch is chip_smoke's (the card holds
+    K1/K2 on it): the first quarter of the pack copied over the third, so
+    exact ties cross the parts and the lower row must win, rays along the
+    axes (ds = 0), padding rows and padding rays."""
+    name, jg, tg, o, d = case
+    tp, atp = ap.pack_triangles(tg), ap.pack_attributes(tg)
+    gtp = ap.pack_attributes(tg, guide_table=_guide_table(tg.num_prims))
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    if batch == "adversarial":
+        tp, _, o, d = chip_smoke.adversarial_allpairs(tg, tp, None, 4096, 21)
+    t, idx = _merged_by_parts(tp, o, d, split)
+    for pack in (atp, gtp):
+        want = ap.closest_record_plain(tp, pack, o, d)
+        assert torch.equal(t, want[0]) and torch.equal(idx, want[1])
+        rows = ap._record_rows(pack)
+        got = torch.where(torch.isfinite(t)[None], rows[:, idx.long()], 0.0)
+        assert torch.equal(got, want[2])
+    if batch == "adversarial":
+        q = tp.shape[0] // 4
+        t_copy, _ = ap.closest_tuv_plain(tp[2 * q:3 * q], o, d)
+        tie = torch.isfinite(t) & (t == t_copy) & (idx < q)
+        assert int(tie.sum()) > 100                 # the lower row won
+        assert torch.isnan(o[:, 0]).any() and not torch.isfinite(t[
+            torch.isnan(o[:, 0])]).any()
 
 
 def _ff_segments(tg, seed=0):

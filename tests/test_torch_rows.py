@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import tpu_pathtracer.ops.intersect_pallas as ip
 import tpu_pathtracer.ops.intersect_pallas_legacy as ipl
 from tpu_pathtracer.ops import cluster_layout as jcl
@@ -329,6 +330,52 @@ def test_row_walk_equals_walk_without_early_out(case):
             for c in torch.nonzero((rowbits != 0).any(dim=0)).flatten())
     want = ic.closest_walk_plain(p.tri_pack, walk, case.o, case.d, 1e-4)
     assert torch.equal(t, want[0]) and torch.equal(orig, want[1])
+
+
+@pytest.mark.parametrize("batch", ["rays", "adversarial"])
+def test_row_walk_decomposes_by_rows(batch):
+    """K11's design on the CPU: each row walks alone. With every key's row
+    bits masked to bit r and the other rows closed at the first refresh
+    (texit -inf), the plain walk gives the unmasked walk's (t, id) on row
+    r; the largest visited and the sum of row tests over r are the
+    unmasked stats. On the sub-3 box's batch (nine plain walks; the soup's
+    take four times as long), and on chip_smoke's adversarial batch made
+    from it (the card holds K11 on the same): camera rays, rows of padding
+    rays (no set bit), a count-0 tile and bounce rows, with one row forced
+    open (+inf texit; it never closes) and one closed."""
+    _, tg, o, d = _scene("cbox_sub3")
+    p = ic.CulledScene(tg, grouped=False).parts[0]
+    if batch == "adversarial":
+        o, d = chip_smoke.adversarial_rows((o[:N // 2], d[:N // 2]),
+                                           (o[N // 2:], d[N // 2:]))
+    rowbits, tn, texit, _ = lg.prepass_rows(p.cluster_min, p.cluster_max, o,
+                                            d, 1e-4)
+    if batch == "adversarial":
+        texit = chip_smoke.adversarial_texit(texit)
+    count, keys, lostep = lg.cluster_list(rowbits, tn)
+    args = (count, keys, lostep, o, d)
+    t, orig, visited, _, row_tests = lg.closest_rows_plain(
+        p.tri_pack, *args, texit, return_stats=True)
+    row = (torch.arange(N) % cl.RAYS_PER_TILE) // cl.RAY_TILE
+    bits = (keys >> cl._BITS_SHIFT) & 0xFF
+    per_row = []
+    for r in range(cl.DMA_ROWS):
+        masked = (keys & ~(0xFF << cl._BITS_SHIFT)) | (
+            bits & (1 << r)) << cl._BITS_SHIFT
+        t_r, o_r, v_r, _, rt_r = lg.closest_rows_plain(
+            p.tri_pack, count, masked, lostep, o, d,
+            torch.where(row == r, texit, -torch.inf), return_stats=True)
+        on = row == r
+        assert torch.equal(t_r[on], t[on]) and torch.equal(o_r[on], orig[on])
+        per_row.append((v_r, rt_r))
+    v = torch.stack([x[0] for x in per_row])
+    assert torch.equal(v.amax(dim=0), visited)
+    assert torch.equal(sum(x[1] for x in per_row), row_tests)
+    if batch == "adversarial":
+        assert count[2] == 0 and visited[2] == 0
+        # tile 1's row 5: no set bit, forced open, walks all its schedule
+        assert count[1] > 0 and v[5, 1] == count[1] and per_row[5][1][1] == 0
+        assert (v[1, 3] == 1) and per_row[1][1][3] == 0   # closed at once
 
 
 def test_early_out_stops_the_walk_where_jax_does():

@@ -1,15 +1,17 @@
-// All-pairs closest-hit kernel for NVIDIA Hopper (sm_90a), plain C interface.
+// All-pairs closest-hit kernels for NVIDIA Hopper (sm_90a), plain C
+// interface.
 //
 // Replaces the Pallas TPU kernels of tpu_pathtracer/ops/intersect_pallas.py:
-//   N_OUT = 11  -> _kernel_full (+ _row_closest_full), reached through
-//                  pallas_closest_record: closest hit plus the winner's 11
-//                  shading attributes;
+//   N_OUT = 11  -> _kernel_full (:240, + _row_closest_full), reached
+//                  through pallas_closest_record (:319): closest hit plus
+//                  the winner's 11 shading attributes (K2);
 //   N_OUT = 27  -> the same on a guide-augmented (32-row) attribute pack:
-//                  the 11 plus the 16 guided-sampling rows [16:32];
-//   N_OUT = 0   -> _kernel (+ _row_closest), reached through
-//                  pallas_closest_tuv: closest (t, triangle id) only;
-//   CULLED      -> _kernel_culled of tpu_pathtracer/ops/
-//                  intersect_pallas_legacy.py (K9, via
+//                  the 11 plus the 16 guided-sampling rows [16:32] (K2's
+//                  guide instance);
+//   N_OUT = 0   -> _kernel (:167, + _row_closest), reached through
+//                  pallas_closest_tuv: closest (t, triangle id) only (K1);
+//   culled      -> _kernel_culled of tpu_pathtracer/ops/
+//                  intersect_pallas_legacy.py:196 (K9, via
 //                  pallas_closest_tuv_culled): closest (t, original id)
 //                  over an ordered pack of 128-row clusters, skipping each
 //                  cluster that the ray's 1024-ray tile masks off (the
@@ -20,10 +22,10 @@
 // The Python side is tpu_pathtracer_torch/ops/intersect_allpairs.py, whose
 // closest_tuv_plain / closest_record_plain are the plain torch versions of
 // the same function (ops/intersect_culled_legacy.py closest_culled_plain
-// for K9); the kernel equals them bitwise when built with
-// -fmad=false (no contraction into FMA, as eager torch rounds every op) and
-// without --use_fast_math (IEEE division keeps the NaN rejection of padding
-// rows, whose inverse is zero).
+// for K9); the kernels equal them bitwise when built with -fmad=false (no
+// contraction into FMA, as eager torch rounds every op) and without
+// --use_fast_math (IEEE division keeps the NaN rejection of padding rows,
+// whose inverse is zero).
 //
 // Layout. The triangle pack is (tpad, 16) f32 rows [inv (9) | inv @ v0 (3) |
 // pad]; the attribute pack is (16, tpad) f32 rows [n(3) albedo(3)
@@ -32,133 +34,217 @@
 // id (n,) i32 and attrs (N_OUT, n) f32, output row k being pack row k for
 // k < 11 and pack row k + 5 beyond.
 //
-// What bounds it. The main path's scene is the 32-triangle Cornell box:
-// 32 x 64 B of triangle constants against 24 B of ray and 56 B of output per
-// ray, and about 40 flops (one of them an IEEE division) per ray-triangle
-// pair, so the kernel is bound by arithmetic per ray, not by device memory.
-// The design therefore spends no bandwidth or instructions on anything but
-// that arithmetic: one thread per ray keeps its ray and its running (t, id)
-// in registers; a block stages triangle rows into shared memory 128 at a
-// time, and every thread of a warp reads the same row, which shared memory
-// broadcasts. The TPU kernel's one-hot matmul attribute select has no
-// counterpart: after the loop the thread loads the winner's attribute
-// column straight from the (16, tpad) pack.
+// What bounds it. About 40 flops a ray-triangle pair, one of them an IEEE
+// division, and 48 B of triangle constants a row shared by every ray: the
+// kernel is bound by instruction issue, not by device memory. Built with
+// -fmad=false every flop is its own instruction and the division takes
+// about ten (reciprocal, four FMAs, the range check and its branch), so the
+// loop runs about 63 instructions a pair (this build's SASS: 8 pairs in
+// 503): at 65,536 rays x 2,048 rows the floor is about 0.25 ms on an H100
+// at 1,980 MHz, three times the 40-flop bound at the f32 FMA rate.
+//
+// The design (K1, K2). A block is 4 warps sharing 64 rays, two a thread,
+// and the pack's rows in 4 parts, one a warp: a row read from L1 serves
+// 64 pair tests of a warp, the two rays' chains run side by side, and
+// 65,536 rays make 1,024 blocks (about 31 warps an SM, where one ray a
+// thread and 128-thread blocks made 15.5). Rows are read straight from the
+// pack through L1 (every lane of a warp reads the same address): nothing
+// is staged, and the loop has no barrier. Each thread keeps its rays'
+// least (t, row) within its part, rows in ascending order; one barrier,
+// then one thread a ray merges the parts by the min of 64-bit (t bits <<
+// 32 | row) keys in shared memory (an accepted t is positive and finite,
+// so the key orders as (t, row) and on equal t the lowest row wins, as
+// the plain version's first minimum) and writes t and the id; after a
+// second barrier the block's threads write the N_OUT attribute rows of
+// the winners, reading the attribute columns straight from the pack (the
+// TPU kernel's one-hot matmul select has no counterpart). The parts are 4
+// at every pack size: on the H100 (device time at 65,536 rays) 4 parts
+// beat 2 and none at 32, 512 and 2,048 rows; against the port's first
+// design (one ray a thread, no parts) they win at 512 and 2,048 rows and
+// for K1 at 32, and lose for K2 at the main path's 32 rows (8.2 against
+// 7.7 us: the merge and the attribute writes outweigh 16 pair tests a
+// thread).
+//
+// The design (K9) is the port's first one: one thread per ray, 128-row
+// chunks staged in shared memory between two barriers.
 //
 // Semantics kept exactly from the Pallas kernels: the affine arithmetic in
 // their op order (os = c6*ox + c7*oy + c8*oz - c11, t = -os/ds, ...); the
-// accept test u>=0 & v>=0 & u+v<=1 & t>1e-8 & t>=t_min; a strict '<' in
-// triangle order, so on equal t the lowest triangle id wins; on a miss
-// t = +inf, id = 0 and all attributes are zero.
+// accept test u>=0 & v>=0 & u+v<=1 & t>1e-8 & t>=t_min; on equal t the
+// lowest triangle id wins; on a miss t = +inf, id = 0 and all attributes
+// are zero.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRaysPerBlock = 128;   // one thread per ray
-constexpr int kChunk = 128;          // triangle rows staged per step
+constexpr int kWarps = 4;            // warps per block (K1, K2): row parts
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockRays = 64;       // two rays a thread
 constexpr int kTriCols = 16;         // floats per triangle row
-constexpr int kRowVec = 3;           // float4s read per row (columns 0..11)
 constexpr int kAttrs = 11;           // shading attribute rows of a record
 constexpr int kAttrCols = 16;        // rows of the plain attribute pack
+constexpr int kChunk = 128;          // triangle rows staged per step (K9)
+constexpr int kRowVec = 4;           // float4s staged per row (K9)
 constexpr int kTile = 1024;          // rays per cull-mask tile (K9)
 constexpr unsigned long long kMissKey = 0x7f8000007fffffffull;  // inf, max id
 
-template <int N_OUT, bool CULLED>
-__global__ void __launch_bounds__(kRaysPerBlock)
-closest_hit_kernel(const float* __restrict__ tri, const float* __restrict__ attr,
-                   int tpad, const float* __restrict__ o,
-                   const float* __restrict__ d, int n, float t_min,
-                   const int* __restrict__ mask, int cpad,
-                   float* __restrict__ t_out, int* __restrict__ id_out,
-                   float* __restrict__ attr_out) {
-  constexpr int kVec = CULLED ? kRowVec + 1 : kRowVec;   // + row 13's float4
-  __shared__ float4 rows[kChunk * kVec];
+// One ray-triangle pair in the Pallas op order: writes t, returns accepted.
+__device__ __forceinline__ bool pair_test(float4 a, float4 b, float4 c,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float t_min, float& t) {
+  const float os = b.z * ox + b.w * oy + c.x * oz - c.w;
+  const float ds = b.z * dx + b.w * dy + c.x * dz;
+  t = -os / ds;
+  const float u = (a.x * ox + a.y * oy + a.z * oz - c.y) +
+                  t * (a.x * dx + a.y * dy + a.z * dz);
+  const float v = (a.w * ox + b.x * oy + b.y * oz - c.z) +
+                  t * (a.w * dx + b.x * dy + b.y * dz);
+  return (u >= 0.f) & (v >= 0.f) & (u + v <= 1.f) & (t > 1e-8f) &
+         (t >= t_min);
+}
 
-  const int i = blockIdx.x * kRaysPerBlock + threadIdx.x;
-  const bool active = i < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (active) {
-    ox = o[3 * i];
-    oy = o[3 * i + 1];
-    oz = o[3 * i + 2];
-    dx = d[3 * i];
-    dy = d[3 * i + 1];
-    dz = d[3 * i + 2];
+__device__ __forceinline__ unsigned long long hit_key(float t, int id) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(id);
+}
+
+// The pack's rows in kWarps parts, one a warp; the warps share 64 rays.
+template <int N_OUT>
+__global__ void __launch_bounds__(kThreads)
+closest_kernel(const float4* __restrict__ tri, const float* __restrict__ attr,
+               int tpad, const float* __restrict__ o,
+               const float* __restrict__ d, int n, float t_min,
+               float* __restrict__ t_out, int* __restrict__ id_out,
+               float* __restrict__ attr_out) {
+  __shared__ unsigned long long keys[kWarps][kBlockRays];
+  __shared__ int winner[kBlockRays];
+
+  const int lane = threadIdx.x & 31;
+  const int part = threadIdx.x >> 5;
+  const int first = blockIdx.x * kBlockRays;
+  const int i0 = first + lane, i1 = first + 32 + lane;
+  float o0x = 0.f, o0y = 0.f, o0z = 0.f, d0x = 0.f, d0y = 0.f, d0z = 0.f;
+  float o1x = 0.f, o1y = 0.f, o1z = 0.f, d1x = 0.f, d1y = 0.f, d1z = 0.f;
+  if (i0 < n) {
+    o0x = o[3 * i0], o0y = o[3 * i0 + 1], o0z = o[3 * i0 + 2];
+    d0x = d[3 * i0], d0y = d[3 * i0 + 1], d0z = d[3 * i0 + 2];
+  }
+  if (i1 < n) {
+    o1x = o[3 * i1], o1y = o[3 * i1 + 1], o1z = o[3 * i1 + 2];
+    d1x = d[3 * i1], d1y = d[3 * i1 + 1], d1z = d[3 * i1 + 2];
   }
 
-  float best_t = __int_as_float(0x7f800000);  // +inf
-  int best_id = -1;
-  unsigned long long best_key = kMissKey;     // CULLED: (t bits, original id)
-  const float4* tri4 = reinterpret_cast<const float4*>(tri);
-  const int* tile_mask =
-      CULLED ? mask + static_cast<size_t>(blockIdx.x * kRaysPerBlock / kTile) *
-                          cpad
-             : nullptr;
-
-  for (int base = 0; base < tpad; base += kChunk) {
-    if (CULLED && tile_mask[base / kChunk] == 0) continue;  // uniform
-    const int count = min(kChunk, tpad - base);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int k = threadIdx.x; k < count * kVec; k += kRaysPerBlock) {
-      const int r = k / kVec;
-      rows[k] = tri4[(base + r) * (kTriCols / 4) + (k - r * kVec)];
+  // this warp's rows [lo, hi), tested in ascending order: a strict '<'
+  // keeps the lowest row of equal t
+  const int lo = static_cast<int>(static_cast<long long>(tpad) * part / kWarps);
+  const int hi =
+      static_cast<int>(static_cast<long long>(tpad) * (part + 1) / kWarps);
+  const float inf = __int_as_float(0x7f800000);
+  float bt0 = inf, bt1 = inf;
+  int bi0 = -1, bi1 = -1;
+#pragma unroll 4
+  for (int r = lo; r < hi; ++r) {
+    const float4* row = tri + static_cast<size_t>(r) * (kTriCols / 4);
+    const float4 a = __ldg(row);      // c0 c1 c2 c3
+    const float4 b = __ldg(row + 1);  // c4 c5 c6 c7
+    const float4 c = __ldg(row + 2);  // c8 c9 c10 c11
+    float t0, t1;
+    const bool ok0 = pair_test(a, b, c, o0x, o0y, o0z, d0x, d0y, d0z, t_min,
+                               t0);
+    const bool ok1 = pair_test(a, b, c, o1x, o1y, o1z, d1x, d1y, d1z, t_min,
+                               t1);
+    if (ok0 && t0 < bt0) {
+      bt0 = t0;
+      bi0 = r;
     }
-    __syncthreads();
-    if (active) {
-      for (int r = 0; r < count; ++r) {
-        const float4 a = rows[r * kVec];      // c0 c1 c2 c3
-        const float4 b = rows[r * kVec + 1];  // c4 c5 c6 c7
-        const float4 c = rows[r * kVec + 2];  // c8 c9 c10 c11
-        const float os = b.z * ox + b.w * oy + c.x * oz - c.w;
-        const float ds = b.z * dx + b.w * dy + c.x * dz;
-        const float t = -os / ds;
-        const float u = (a.x * ox + a.y * oy + a.z * oz - c.y) +
-                        t * (a.x * dx + a.y * dy + a.z * dz);
-        const float v = (a.w * ox + b.x * oy + b.y * oz - c.z) +
-                        t * (a.w * dx + b.x * dy + b.y * dz);
-        const bool ok = (u >= 0.f) & (v >= 0.f) & (u + v <= 1.f) &
-                        (t > 1e-8f) & (t >= t_min);
-        if (CULLED) {
-          if (ok) {
-            const unsigned long long key =
-                (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
-                static_cast<unsigned>(__float_as_int(rows[r * kVec + 3].y));
-            if (key < best_key) best_key = key;
-          }
-        } else if (ok && t < best_t) {
-          best_t = t;
-          best_id = base + r;
-        }
-      }
+    if (ok1 && t1 < bt1) {
+      bt1 = t1;
+      bi1 = r;
     }
   }
+  keys[part][lane] = bi0 < 0 ? kMissKey : hit_key(bt0, bi0);
+  keys[part][32 + lane] = bi1 < 0 ? kMissKey : hit_key(bt1, bi1);
+  __syncthreads();
 
-  if (!active) return;
-  if (CULLED) {
-    const float t = __uint_as_float(static_cast<unsigned>(best_key >> 32));
-    t_out[i] = t;
-    id_out[i] = isinf(t) ? 0 : static_cast<int>(best_key & 0x7fffffffu);
-    return;
-  }
-  t_out[i] = best_t;
-  id_out[i] = best_id < 0 ? 0 : best_id;
+  // the merge, one thread a ray: t, the id and the winner for the
+  // attribute rows
+  if (threadIdx.x < kBlockRays) {
+    const int q = threadIdx.x;
+    unsigned long long key = keys[0][q];
 #pragma unroll
-  for (int k = 0; k < N_OUT; ++k) {
+    for (int p = 1; p < kWarps; ++p) key = min(key, keys[p][q]);
+    const float t = __uint_as_float(static_cast<unsigned>(key >> 32));
+    const bool hit = !isinf(t);
+    winner[q] = hit ? static_cast<int>(key & 0x7fffffffu) : -1;
+    if (first + q < n) {
+      t_out[first + q] = t;
+      id_out[first + q] = hit ? winner[q] : 0;
+    }
+  }
+  if (N_OUT == 0) return;
+  __syncthreads();
+  // attribute row k of ray q, consecutive threads on consecutive rays
+  for (int e = threadIdx.x; e < kBlockRays * N_OUT; e += kThreads) {
+    const int q = e % kBlockRays;
+    const int k = e / kBlockRays;
+    if (first + q >= n) continue;
+    const int id = winner[q];
     const int row = k < kAttrs ? k : k + (kAttrCols - kAttrs);
-    attr_out[k * n + i] = best_id < 0 ? 0.f : attr[row * tpad + best_id];
+    attr_out[static_cast<size_t>(k) * n + first + q] =
+        id < 0 ? 0.f : attr[static_cast<size_t>(row) * tpad + id];
   }
 }
 
-template <int N_OUT, bool CULLED = false>
+// K9: one thread per ray, the tile's mask skipping whole clusters.
+__global__ void __launch_bounds__(kChunk)
+culled_kernel(const float* __restrict__ tri, int tpad,
+              const float* __restrict__ o, const float* __restrict__ d,
+              int n, float t_min, const int* __restrict__ mask, int cpad,
+              float* __restrict__ t_out, int* __restrict__ id_out) {
+  __shared__ float4 rows[kChunk * kRowVec];
+
+  const int i = blockIdx.x * kChunk + threadIdx.x;
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  unsigned long long best_key = kMissKey;
+  const float4* tri4 = reinterpret_cast<const float4*>(tri);
+  const int* tile_mask =
+      mask + static_cast<size_t>(blockIdx.x * kChunk / kTile) * cpad;
+
+  for (int base = 0; base < tpad; base += kChunk) {
+    if (tile_mask[base / kChunk] == 0) continue;  // uniform
+    __syncthreads();  // the previous chunk is no longer read
+    for (int k = threadIdx.x; k < kChunk * kRowVec; k += kChunk) {
+      const int r = k / kRowVec;
+      rows[k] = tri4[(base + r) * (kTriCols / 4) + (k - r * kRowVec)];
+    }
+    __syncthreads();
+    for (int r = 0; r < kChunk; ++r) {
+      float t;
+      if (pair_test(rows[r * kRowVec], rows[r * kRowVec + 1],
+                    rows[r * kRowVec + 2], ox, oy, oz, dx, dy, dz, t_min,
+                    t)) {
+        const unsigned long long key =
+            hit_key(t, __float_as_int(rows[r * kRowVec + 3].y));
+        if (key < best_key) best_key = key;
+      }
+    }
+  }
+  const float t = __uint_as_float(static_cast<unsigned>(best_key >> 32));
+  t_out[i] = t;
+  id_out[i] = isinf(t) ? 0 : static_cast<int>(best_key & 0x7fffffffu);
+}
+
+template <int N_OUT>
 int launch(const float* tri, const float* attr, int tpad, const float* o,
            const float* d, int n, float t_min, float* t_out, int* id_out,
-           float* attr_out, void* stream, const int* mask = nullptr,
-           int cpad = 0) {
-  const int blocks = (n + kRaysPerBlock - 1) / kRaysPerBlock;
-  closest_hit_kernel<N_OUT, CULLED>
-      <<<blocks, kRaysPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-          tri, attr, tpad, o, d, n, t_min, mask, cpad, t_out, id_out,
-          attr_out);
+           float* attr_out, void* stream) {
+  closest_kernel<N_OUT><<<(n + kBlockRays - 1) / kBlockRays, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(tri), attr, tpad, o, d, n, t_min, t_out,
+      id_out, attr_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -192,6 +278,25 @@ int tpt_closest_record(const float* tri, const float* attr, int tpad,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The K1/K2 launch shape for n_out (0, 11 or 27) and n rays: out[0..3] =
+// blocks, threads a block, static shared bytes a block and registers a
+// thread. Returns a CUDA error code.
+int tpt_closest_shape(int n_out, int n, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (n_out == 0) err = cudaFuncGetAttributes(&a, closest_kernel<0>);
+  if (n_out == kAttrs) err = cudaFuncGetAttributes(&a, closest_kernel<kAttrs>);
+  if (n_out == kAttrs + kAttrCols) {
+    err = cudaFuncGetAttributes(&a, closest_kernel<kAttrs + kAttrCols>);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = (n + kBlockRays - 1) / kBlockRays;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.numRegs;
+  return 0;
+}
+
 // Closest (t, original triangle id) per ray over an ordered pack of
 // 128-row clusters (row 13 the original id), skipping each cluster whose
 // mask word for the ray's 1024-ray tile is 0 (the K9 instance): mask
@@ -203,8 +308,9 @@ int tpt_closest_culled(const float* tri, int tpad, const int* mask, int cpad,
   if (n % kTile || tpad != cpad * kChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<0, true>(tri, nullptr, tpad, o, d, n, t_min, t_out, id_out,
-                         nullptr, stream, mask, cpad);
+  culled_kernel<<<n / kChunk, kChunk, 0, static_cast<cudaStream_t>(stream)>>>(
+      tri, tpad, o, d, n, t_min, mask, cpad, t_out, id_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* tpt_error_string(int code) {

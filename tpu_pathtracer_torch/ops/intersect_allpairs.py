@@ -228,6 +228,8 @@ def _library(source: str) -> ctypes.CDLL:
         lib.tpt_closest_record.restype = i
         lib.tpt_closest_culled.argtypes = [p, i, p, i, p, p, i, f, p, p, p]
         lib.tpt_closest_culled.restype = i
+        lib.tpt_closest_shape.argtypes = [i, i, p]
+        lib.tpt_closest_shape.restype = i
     else:
         lib.tpt_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
         lib.tpt_any_hit.restype = i

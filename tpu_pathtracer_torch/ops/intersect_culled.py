@@ -231,7 +231,9 @@ def _library(source: str) -> ctypes.CDLL:
         lib.tpt_prepass_probe.restype = i
     elif source == "row_closest.cu":
         fn = lib.tpt_row_closest
-        fn.argtypes = [p, p, p, p, i, p, p, p, i, f, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, p, p, p, i, f, p, p, p, p, p, p]
+        lib.tpt_row_closest_shape.argtypes = [i, p]
+        lib.tpt_row_closest_shape.restype = i
     elif source == "grouped_closest.cu":
         fn = lib.tpt_grouped_closest
         fn.argtypes = [p, p, p, i, p, p, p, i, i, f, p, p]

@@ -400,13 +400,14 @@ def closest_rows(tri_pack, count, keys, lostep, o, d, texit, t_min=1e-4,
     visited = torch.zeros((tiles,), dtype=torch.int32, device=dev)
     row_tests = torch.zeros((tiles,), dtype=torch.int32, device=dev)
     if tiles:
+        sched = torch.empty_like(keys)       # the sorted schedule, scratch
         lib = _library("row_closest.cu")
         with torch.cuda.device(dev):
             err = lib.tpt_row_closest(
                 tri_pack.data_ptr(), o.data_ptr(), d.data_ptr(),
                 texit.data_ptr(), b, count.data_ptr(), keys.data_ptr(),
                 lostep.data_ptr(), cpad, t_min, t.data_ptr(), idx.data_ptr(),
-                visited.data_ptr(), row_tests.data_ptr(),
+                visited.data_ptr(), row_tests.data_ptr(), sched.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(err, lib, "row closest-hit")
     closest_rows.launches += 1
