@@ -20,8 +20,13 @@ Phases, one line each (any failure raises and exits non-zero):
                2,048 triangles), K2 on the 32-row guide pack (27 output
                rows) on the same rays, K3 on form-factor-shaped segments
                of the subdivided boxes (surface-point pairs with their
-               exclusions, about half the lanes at maxd = 0) and on
-               random segments; K1, K2 and K2-guide on adversarial_allpairs
+               exclusions, about half the lanes at maxd = 0), on random
+               segments and on adversarial_anyhit batches of the box and
+               the subdivision-3 box (windows with no open segment, one
+               open lane a warp, blocked by the first and by the last
+               row, every hit excluded, padding lanes and rows, a batch no
+               multiple of the window); K1, K2 and K2-guide on
+               adversarial_allpairs
                batches (exact ties across the kernel's 4 row parts, rays
                along the axes with ds = 0, padding rows and rays) at 32,
                1,024 and 2,048 rows. Timed
@@ -30,11 +35,18 @@ Phases, one line each (any failure raises and exits non-zero):
                CUDA graph of the calls, as the wrapper calls' event time
                there is mostly the host's), K2 and K2-guide at 65,536 x
                2,048 (K2-guide's device time too), K3 at the solve's batch
-               x 2,048.
+               x 2,048 (also its device time, the open share of the
+               segments and, from the plain arithmetic, the mean first
+               blocking row).
                The culled kernels, bitwise against their plain versions
                and timed against them: K4 and K6 on 65,536 camera rays (the
                256x256 frame in tile-swizzled order) and 65,536 bounce rays
-               of scenes/stress100k.pbrt (101,704 triangles); K4 in segment
+               of scenes/stress100k.pbrt (101,704 triangles; K6's set
+               bits per (tile, word, cluster) visit and device time); K6
+               on adversarial_grouped's batch of the subdivision-3 box
+               (exact ties 1-3 row lanes apart and across clusters, words
+               with all 32 bits and with one, padding rays, a count-0
+               tile); K4 in segment
                mode and K7 on form-factor segments of the boxes at
                subdivisions 3 and 5 and on random segments (on the sub-5
                segments K7's visits and set bits per visit, and K4's bound
@@ -111,7 +123,8 @@ Phases, one line each (any failure raises and exits non-zero):
                timed passes, K6 and K7 once per iteration; the unbalanced
                and the tile-synchronised passes bitwise the same; then one
                more pass keeps the inputs of a K4, a K6 and a K7 call and
-               times them per launch at the queues' 16,384 lanes). Then,
+               times them per launch at the queues' 16,384 lanes, K6 also
+               by device time, with its set bits and bound there). Then,
                with _SC_MIN_CLUSTERS lowered to 2048 and restored after, on
                the 1M-triangle scene: K12 against its plain version and K6
                on 65,536 camera and 65,536 bounce rays, K13 against its
@@ -132,11 +145,17 @@ launch at cbox1024_nee's 65,536 shadow rays (K3, with
 `nee_shape_device_ms`) or stress100k_nee's 16,384 lanes, and K4
 `solve_launches`, its launches in the sub-5 solve, and `segments_ms`,
 `segments_plain_ms`, `segments_bound_ms` and `segments_bound_by` on the
-sub-5 form-factor segments; K1, K2, K2-guide and K11 carry `device_ms`
-and their launch shape: `blocks`, `threads_per_block`,
+sub-5 form-factor segments; K1, K2, K2-guide, K3, K6 and K11 carry
+`device_ms` and their launch shape: `blocks`, `threads_per_block`,
 `shared_bytes_per_block`, `registers_per_thread`, K11 the same for its
 sort (`sort_*`) and its stats on the bounce rays,
-`visited`, `scheduled` and `row_tests`).
+`visited`, `scheduled` and `row_tests`; K6 its `slices`, `set_bits` and
+`bits_per_visit` on the bounce rays and at the 16,384 lanes
+(`nee_set_bits`, `nee_bits_per_visit`) with `nee_shape_device_ms`,
+`nee_bound_ms` and `nee_bound_by` there; K3 `open_share`,
+`blocked_share_of_open`, `mean_first_blocking_row` and
+`mean_rows_in_order` on the sub-3 segments, `nee_shape_open` the open
+segments of its timed NEE call).
 Each kernel's bound is the larger of its operations at the H100's f32
 peak and its bytes at its memory rate, from the timed call's inputs and
 outputs; the work that depends on the data (pair tests behind the masks,
@@ -475,6 +494,123 @@ def adversarial_allpairs(geom, tri_pack, attr_pack, n: int, seed: int):
             torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
 
 
+def adversarial_grouped(geom, order, tri_pack, prepass, seed: int):
+    """K6's hard cases on an ordered pack of at least two clusters, made
+    from numpy on the pack's device: returns (tri_pack, gmask, o, d) for 4
+    tiles of 1024 rays. In cluster 0, row 16 j + k (k = 1 + j % 3, j < 8)
+    becomes a copy of row 16 j's triangle (columns 0-11), an exact tie k
+    row lanes apart, and for odd j the copy takes the lower of the two
+    original ids (column 13); row 16 j of cluster 1 becomes a copy of row
+    16 j + 8 of cluster 0, a tie across clusters with another original id.
+    Tiles: (0) rays from inside the box at the centroids of the tied
+    triangles, every group bit of clusters 0 and 1 set (words with all 32
+    bits) over the prepass's mask; (1) the same kind of rays, the tile's
+    only set bit bit 5 of word 2, in clusters 0 and 1 (a word with one
+    bit); (2) bounce rays whose groups 0-7 are padding rays (NaN origins,
+    d = (1, 1, 1)), their bits set in every cluster of the tile's mask;
+    (3) no bit at all (count 0). prepass(o, d) gives the base mask."""
+    g = np.random.default_rng(seed)
+    dev = tri_pack.device
+    tp = tri_pack.cpu().numpy().copy()
+    ids = tp[:, 13].copy()
+    src, dst = [], []
+    for j in range(8):
+        b, k = 16 * j, 1 + j % 3
+        src.append(b)
+        dst.append(b + k)
+        tp[b + k, :12] = tp[b, :12]
+        if j % 2:
+            lo, hi = sorted((ids[b], ids[b + k]), key=lambda x: x.view(
+                np.int32))
+            tp[b, 13], tp[b + k, 13] = hi, lo
+        src.append(16 * j + 8)
+        dst.append(128 + 16 * j)
+        tp[128 + 16 * j, :12] = tp[16 * j + 8, :12]
+    order = np.asarray(order)
+    tri = order[np.asarray(src)]
+    v0 = geom.tri_v0.cpu().numpy()[tri]
+    ctr = v0 + (geom.tri_e1.cpu().numpy()[tri]
+                + geom.tri_e2.cpu().numpy()[tri]) / 3
+    n = 4096
+    lo = np.array([-2.7, 0.05, -5.45], np.float32)
+    hi = np.array([2.7, 5.45, -0.05], np.float32)
+    o = lo + (hi - lo) * g.random((n, 3), np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    aim = ctr[g.integers(0, len(src), 2048)] - o[:2048]
+    d[:2048] = aim
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[2048:2048 + 64], d[2048:2048 + 64] = np.nan, 1.0
+    o_t, d_t = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    gm = prepass(o_t, d_t).clone()
+    gm[0, :, :2] = -1
+    gm[1] = 0
+    gm[1, 2, :2] = 1 << 5
+    active = (gm[2] != 0).any(dim=0)
+    gm[2, 0] = torch.where(active, gm[2, 0] | 0xFF, gm[2, 0])
+    gm[3] = 0
+    return torch.from_numpy(tp).to(dev), gm, o_t, d_t
+
+
+def adversarial_anyhit(geom, n: int, seed: int):
+    """K3's hard cases, made from numpy on geom's device: returns
+    (tri_pack, prim_ids, o, d, maxd, ex_a, ex_b). The packs get 8 more
+    padding rows (zero, prim -2), so that the rows are no multiple of the
+    kernel's 32-row vote step. n segments (choose n no multiple of 256,
+    the kernel's window) in runs of 256 cycling six kinds: (0) none open
+    (maxd 0, -1 on every 8th lane, NaN on every 16th); (1) one open lane a
+    warp (lane 0, of kind 2 or 3 in turn; the rest maxd 0); (2) from
+    inside the box through the centroid of pack row 0's triangle, maxd
+    1.01 times the distance, no exclusion (the first row blocks); (3) the
+    same through the last triangle row; (4) across one primitive, from
+    1e-3 behind it to 1e-3 in front along its normal, that primitive
+    excluded (as ex_a on even lanes, ex_b on odd): every hit is on an
+    excluded primitive; (5) padding lanes, NaN origins, d = (1, 1, 1),
+    maxd 1 (open, never blocked)."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.render.radiosity import sample_on_corners
+
+    dev = geom.device
+    g = np.random.default_rng(seed)
+    tp, pp = ap.pack_triangles(geom), ap.pack_prim_ids(geom)
+    tp = torch.cat([tp, torch.zeros((8, 16), device=dev)]).contiguous()
+    pp = torch.cat([pp, torch.full((8,), -2, dtype=torch.int32,
+                                   device=dev)]).contiguous()
+    lane = np.arange(n)
+    kind = (lane // 256) % 6
+    w0 = lane % 32 == 0
+    through = np.where(kind == 1, 2 + (lane // 32) % 2, kind)
+    lo = np.array([-2.7, 0.05, -5.45], np.float32)
+    hi = np.array([2.7, 5.45, -0.05], np.float32)
+    start = lo + (hi - lo) * g.random((n, 3), np.float32)
+    v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1,
+                                            geom.tri_e2))
+    row = np.where(through == 2, 0, v0.shape[0] - 1)
+    ctr = v0[row] + (e1[row] + e2[row]) / 3
+    seg = ctr - start
+    dist = np.linalg.norm(seg, axis=1)
+    o = start.copy()
+    d = (seg / dist[:, None]).astype(np.float32)
+    maxd = (1.01 * dist).astype(np.float32)
+    prim = g.integers(0, geom.num_prims, n)
+    u = torch.from_numpy(g.random((2, n), np.float32)).to(dev)
+    pt = sample_on_corners(geom.corners[torch.from_numpy(prim).to(dev)],
+                           u[0], u[1]).cpu().numpy()
+    nrm = geom.normal.cpu().numpy()[prim]
+    k4 = kind == 4
+    o[k4], d[k4], maxd[k4] = pt[k4] - nrm[k4] * 1e-3, nrm[k4], 2e-3
+    maxd[(kind == 0) | ((kind == 1) & ~w0)] = 0.0
+    maxd[(kind == 0) & (lane % 8 == 0)] = -1.0
+    maxd[(kind == 0) & (lane % 16 == 0)] = np.nan
+    k5 = kind == 5
+    o[k5], d[k5], maxd[k5] = np.nan, 1.0, 1.0
+    excl = np.where(k4, prim, -1).astype(np.int32)
+    none = np.full(n, -1, np.int32)
+    ex_a = np.where(lane % 2 == 0, excl, none)
+    ex_b = np.where(lane % 2 == 0, none, excl)
+    return (tp, pp, *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in (o, d, maxd, ex_a, ex_b)))
+
+
 def adversarial_rows(cam, bounce):
     """K11's hard cases as four 1024-ray tiles (o, d) from camera rays and
     bounce rays (each at least 2048 rays): tile 0 camera rays (the
@@ -624,6 +760,47 @@ def k11_shape(n_rays: int) -> dict:
             **{f"sort_{k}": x for k, x in zip(keys, v[4:])}}
 
 
+def k6_shape(n_rays: int) -> dict:
+    """K6's launch facts at n_rays rays (grouped_closest.cu), with the
+    slices the wrapper picks on this card."""
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
+    slices = ic._closest_slices(torch.device("cuda", 0), n_rays // 1024)
+    v = launch_shape(ic._library("grouped_closest.cu"),
+                     "tpt_grouped_closest_shape", n_rays, slices, n=4)
+    return {**dict(zip(("blocks", "threads_per_block",
+                        "shared_bytes_per_block", "registers_per_thread"),
+                       v)), "slices": slices}
+
+
+def k3_shape(n: int) -> dict:
+    """K3's launch facts at n segments (any_hit.cu)."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+
+    v = launch_shape(ap._library("any_hit.cu"), "tpt_any_hit_shape", n, n=4)
+    return dict(zip(("blocks", "threads_per_block", "shared_bytes_per_block",
+                     "registers_per_thread"), v))
+
+
+def first_blocking_rows(tri_pack, prim_ids, o, d, maxd, ex_a, ex_b):
+    """(n,) int64: the first pack row that blocks each segment (K3's
+    test, rows in order), -1 where none does; the plain arithmetic."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+
+    first = torch.full((o.shape[0],), -1, dtype=torch.int64,
+                       device=o.device)
+    md, ea, eb = maxd[:, None], ex_a[:, None], ex_b[:, None]
+    for base in range(0, tri_pack.shape[0], 128):
+        c = tri_pack[base:base + 128].T[:, None, :]
+        pr = prim_ids[None, base:base + 128]
+        t, u, v = ap._tuv(c, o, d)
+        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
+              & (t < md) & (pr != ea) & (pr != eb))
+        new = (first < 0) & ok.any(dim=1)
+        first = torch.where(new, base + ok.int().argmax(dim=1), first)
+    return first
+
+
 def solutions_equal(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
         "form_factors", "radiosity", "unshot", "grid_counts", "rad_grid",
@@ -726,7 +903,8 @@ def generate_1m(dev_dir: str) -> str:
     return gen.generate(dev_dir, tag="1m", n=709)
 
 
-def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
+def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
+                   facts):
     """Phase 3, culled part: K4-K7 against their plain versions (bitwise)
     and timed against them at the main paths' shapes; the culled queries
     against K2 and K3 on the sub-3 box. Returns the 1M scene's path, its
@@ -765,13 +943,20 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
             lambda: ic.closest_grouped_plain(tri, k4[0], o, d, 1e-4),
             lambda: ic.closest_grouped(tri, k4[0], o, d, 1e-4), reps=3)
         active = (k4[0] != 0).any(dim=1).sum(dim=1).float().mean()
+        visits, bits = int((k4[0] != 0).sum()), set_bits(k4[0])
+        k6_dev = device_ms(lambda: ic.closest_grouped(tri, k4[0], o, d, 1e-4))
         phase("kernels", f"stress100k ({geom.num_tris} tris, "
               f"{cmin.shape[0]} clusters) {rname}: K4 and K6 bitwise equal "
               f"to plain {ok} (max |d| {e4}, {e6}); {float(active):.1f} "
-              f"active clusters per tile, {set_bits(k4[0])} (group, cluster) "
-              f"bits, {int(torch.isfinite(k6[0]).sum())}/{N_RAYS} hit; K4 "
+              f"active clusters per tile, {bits} (group, cluster) bits in "
+              f"{visits} (tile, word, cluster) visits, "
+              f"{bits / max(visits, 1):.3f} per visit, "
+              f"{int(torch.isfinite(k6[0]).sum())}/{N_RAYS} hit; K4 "
               f"{t4[1]:.6f} ms vs plain {t4[0]:.6f} ms, K6 {t6[1]:.6f} ms vs "
-              f"plain {t6[0]:.6f} ms per call")
+              f"plain {t6[0]:.6f} ms per call, K6 device time {k6_dev:.6f} "
+              f"ms")
+        facts["K6"] = {"device_ms": k6_dev, **k6_shape(N_RAYS),  # bounce's
+                       "set_bits": bits, "bits_per_visit": bits / visits}
         if not ok:
             raise AssertionError(f"K4 or K6 differs from its plain version on"
                                  f" stress100k {rname} (tolerance: bitwise)")
@@ -882,6 +1067,24 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds):
           f"K13 to K7 and K7 to K3 {ok}")
     if not ok:
         raise AssertionError("K7 or K13 differs on the adversarial segments "
+                             "(tolerance: bitwise)")
+
+    # K6 on its hard cases: exact ties across row lanes and clusters, words
+    # with all 32 bits or one, padding rays, a tile with count 0
+    tpa, gma, oa, da = adversarial_grouped(
+        g3, cs3.order, p3.tri_pack,
+        lambda o, d: ic.prepass_dense(p3.cluster_min, p3.cluster_max, o, d,
+                                      1e-4)[0], 9)
+    k6 = ic.closest_grouped(tpa, gma, oa, da)
+    p6 = ic.closest_grouped_plain(tpa, gma, oa, da)
+    torch.cuda.synchronize()
+    ok = prepass_equal(k6, p6)
+    phase("kernels", f"adversarial grouped batch (cbox_sub3, 4096 rays: ties "
+          f"1-3 row lanes apart and across clusters, full and one-bit words,"
+          f" padding rays, a count-0 tile): {int(torch.isfinite(k6[0]).sum())}"
+          f" hit, {set_bits(gma)} bits; K6 bitwise equal to plain {ok}")
+    if not ok:
+        raise AssertionError("K6 differs on the adversarial grouped batch "
                              "(tolerance: bitwise)")
 
     # K5 against K4 and the plain prepass on the 1M-triangle scene
@@ -1412,10 +1615,11 @@ def nee_phase(dev, start, end, headline, large):
         r.step, [(ap, "occluded", lambda a: "K3")]).values()
     k3_ms = time_call(lambda: ap.occluded(*k3_args), reps=20)
     k3_dev = device_ms(lambda: ap.occluded(*k3_args), reps=20)
+    k3_open = int((k3_args[4] > 0).sum())
     phase("nee", f"cbox1024_nee K3 per launch at {k3_args[2].shape[0]} "
-          f"shadow rays x {k3_args[0].shape[0]} rows (third call of a pass):"
-          f" {k3_ms:.6f} ms per wrapper call (CUDA events), {k3_dev:.6f} ms "
-          "of device time (a CUDA graph of 20 calls)")
+          f"shadow rays x {k3_args[0].shape[0]} rows (third call of a pass, "
+          f"{k3_open} open): {k3_ms:.6f} ms per wrapper call (CUDA events), "
+          f"{k3_dev:.6f} ms of device time (a CUDA graph of 20 calls)")
 
     # stress100k: the balanced NEE-off pass (phase large's film) and time
     first_large, large_ms = large
@@ -1486,12 +1690,26 @@ def nee_phase(dev, start, end, headline, large):
     per_launch = {k: time_call(lambda a=a, f=fns[k]: f(*a), reps=20)
                   for k, a in kept.items()}
     lanes = kept["K7"][2].shape[0]
+    # K6 there: its device time, and its bound from the bits it tests
+    k6_args = kept["K6"]
+    k6_out = ic.closest_grouped(*k6_args)
+    gm6 = k6_args[1]
+    bits, visits = set_bits(gm6), int((gm6 != 0).sum())
+    k6_nee = {"nee_shape_device_ms": device_ms(
+        lambda: ic.closest_grouped(*k6_args)),
+        "nee_set_bits": bits, "nee_bits_per_visit": bits / max(visits, 1)}
+    k6_nee["nee_bound_ms"], k6_nee["nee_bound_by"] = bound(
+        bits * 8 * 128 * PAIR_FLOPS, k6_args[0], gm6, k6_args[2],
+        k6_args[3], *k6_out)
     phase("nee", f"stress100k_nee per launch at {lanes} lanes (third call of "
           "a pass): " + ", ".join(f"{k} {v:.6f} ms"
-                                  for k, v in per_launch.items()))
-    return {"K2": k2, "K3": k3, "K6": k6, "K7": k7, "K4": k4, "K4 ms": per_launch["K4 segments"],
+                                  for k, v in per_launch.items())
+          + f"; K6 {k6_nee}")
+    return {"K2": k2, "K3": k3, "K6": k6, "K7": k7, "K4": k4,
+            "K4 ms": per_launch["K4 segments"],
             "K6 ms": per_launch["K6"], "K7 ms": per_launch["K7"],
-            "K3 ms": k3_ms, "K3 device ms": k3_dev}
+            "K3 ms": k3_ms, "K3 device ms": k3_dev, "K3 open": k3_open,
+            "K6 nee": k6_nee}
 
 
 def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
@@ -1746,6 +1964,22 @@ def main() -> int:
         if diff:
             raise AssertionError(f"K3 differs from occluded_plain on {cname}"
                                  " (tolerance: bitwise)")
+    # K3 on its hard cases: windows with no open segment, one open lane a
+    # warp, blocked by the first and by the last row, every hit excluded,
+    # padding lanes and rows, a batch that is no multiple of the window
+    for sname in ("cbox", "cbox_sub3"):
+        seg = adversarial_anyhit(scenes[sname], 4000, 31)
+        b_k = ap.occluded(*seg)
+        b_p = ap.occluded_plain(*seg)
+        torch.cuda.synchronize()
+        diff = int((b_k != b_p).sum())
+        phase("kernels", f"adversarial any-hit batch {sname} (4000 segments "
+              f"x {seg[0].shape[0]} rows): {int((seg[4] > 0).sum())} open, "
+              f"{int(b_p.sum())} blocked; K3 lanes differing from plain "
+              f"{diff}")
+        if diff:
+            raise AssertionError(f"K3 differs on the adversarial batch {sname}"
+                                 " (tolerance: bitwise)")
 
     geom = scenes["cbox"]
     tp, atp = ap.pack_triangles(geom), ap.pack_attributes(geom)
@@ -1802,14 +2036,27 @@ def main() -> int:
     facts["K2-guide"] = {"device_ms": device_ms(
         lambda: ap.closest_record(tp3, gtp3, o, d)),
         **k2_shape(27, N_RAYS)}
+    # K3 at the solve's shape: device time, launch, and what its segments
+    # need (the open share; rows in order up to the first blocking one)
+    first = first_blocking_rows(tp3, pp3, *seg3)
+    opened = seg3[2] > 0
+    blocked = first >= 0
+    facts["K3"] = {
+        "device_ms": device_ms(lambda: ap.occluded(tp3, pp3, *seg3), reps=5),
+        **k3_shape(seg3[0].shape[0]),
+        "open_share": float(opened.float().mean()),
+        "blocked_share_of_open": float(blocked.sum() / opened.sum()),
+        "mean_first_blocking_row": float(first[blocked].float().mean()),
+        "mean_rows_in_order": float(torch.where(
+            blocked, first + 1, tp3.shape[0])[opened].float().mean())}
     for k, (pm, km) in more.items():
         shape = (f"{k3_cases[1][2][0].shape[0]} ff segments" if k == "K3"
                  else f"{N_RAYS} bounce rays")
-        extra = f"; {facts[k]}" if k == "K2-guide" else ""
+        extra = f"; {facts[k]}" if k in ("K2-guide", "K3") else ""
         phase("kernels", f"{k} at {shape} x {g3.num_tris} tris: kernel "
               f"{km:.6f} ms, plain torch {pm:.6f} ms per call{extra}")
     path1m, part1m, cam1m, g1m, cs1m = culled_kernels(
-        dev, cam, scenes, k3_cases, err, times, bounds)
+        dev, cam, scenes, k3_cases, err, times, bounds, facts)
 
     # 4. goldens on the card -----------------------------------------------
     for name, kw in GOLDEN_CONFIGS.items():
@@ -2035,9 +2282,10 @@ def main() -> int:
                  "K2-guide", "closest_hit.cu", 240, guide_launches),
          **facts["K2-guide"]},
         {**entry("K3 occluded (_kernel_anyhit)", "K3", "any_hit.cu", 765,
-                 k3_launches), "nee_launches": nee["K3"],
+                 k3_launches), **facts["K3"], "nee_launches": nee["K3"],
          "nee_shape_ms": nee["K3 ms"],
-         "nee_shape_device_ms": nee["K3 device ms"]},
+         "nee_shape_device_ms": nee["K3 device ms"],
+         "nee_shape_open": nee["K3 open"]},
         {**entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
                  "cluster_prepass.cu", 1023, large["K4"]),
          "solve_launches": k4_solve, "nee_launches": nee["K4"],
@@ -2049,8 +2297,9 @@ def main() -> int:
         entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
               "cluster_prepass.cu", 1149, large["K5"]),
         {**entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
-                 "grouped_closest.cu", 1723, large["K6"]),
-         "nee_launches": nee["K6"], "nee_shape_ms": nee["K6 ms"]},
+                 "grouped_closest.cu", 1723, large["K6"]), **facts["K6"],
+         "nee_launches": nee["K6"], "nee_shape_ms": nee["K6 ms"],
+         **nee["K6 nee"]},
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
          "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"]},

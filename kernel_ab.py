@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Old-against-new timing of the port's redesigned kernels on one NVIDIA
 GPU: this checkout's csrc/cluster_prepass.cu (K4, K5, K8, K10),
-csrc/grouped_anyhit.cu (K7, K13), csrc/row_closest.cu (K11) and
-csrc/closest_hit.cu (K1, K2, K9) against the same files of another
-checkout, through this checkout's wrappers.
+csrc/grouped_anyhit.cu (K7, K13), csrc/row_closest.cu (K11),
+csrc/closest_hit.cu (K1, K2, K9), csrc/grouped_closest.cu (K6, K12) and
+csrc/any_hit.cu (K3) against the same files of another checkout, through
+this checkout's wrappers.
 
     python3 kernel_ab.py --baseline DIR [--out FILE] [--cases LIST]
 
@@ -32,9 +33,20 @@ in the turns baseline, this, this, baseline:
   - the sub-5 gather solve (2 MC samples, 8 iterations) end to end, and one
     solve of each under torch.profiler: device time by kernel, the K4 and
     K7 shares of it, and the device-busy share (kernel time over the
-    unprofiled solve's time).
+    unprofiled solve's time);
+  - K6 on stress100k's 65,536 camera and bounce rays and on the 16,384
+    four-pixel lanes of a stress100k_nee pass (balance_lanes=4, the third
+    K6 call of its second pass), with device time, then the first pass of
+    stress100k on the grouped culled backend (K4, K6; films bitwise equal);
+  - K3 on the sub-3 form-factor segments (1,048,576 x 2,048) and on NEE's
+    shadow rays, 65,536 x 32: the third K3 call of the first pass of
+    cbox1024_nee (the batch chip_smoke times: its lanes are the frame's
+    top rows, whose shadow rays are nearly all closed) and of the same
+    pass at 256x256 (every pixel, most shadow rays open), with device
+    time, then the sub-3 gather solve (64 MC samples, 10 iterations) end
+    to end, solutions bitwise equal.
 The sections, in this order (--cases picks some): segments (the sub-5
-segments), stress100k, 1m, k2, renders, solve. Prints a line per case and,
+segments), stress100k, 1m, k2, renders, solve, k6, k3. Prints a line per case and,
 last, one JSON object with every number (also written to FILE, default
 chiprun_out/kernel_ab.json, after every section). Imports nothing of jax.
 """
@@ -57,9 +69,10 @@ import chip_smoke as cs
 
 HERE = Path(__file__).resolve().parent
 SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
-           "closest_hit.cu")
+           "closest_hit.cu", "grouped_closest.cu", "any_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
-CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve")
+CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve", "k6",
+         "k3")
 
 
 class _Tolerant:
@@ -108,7 +121,7 @@ def baseline_libraries(root: Path) -> dict:
             ctypes.CDLL(str(cuda_build.build(src).path)))
         libs = {}
         for src in SOURCES:
-            mod = ap if src == "closest_hit.cu" else ic
+            mod = ap if src in ap.KERNEL_SOURCES else ic
             libs[src] = mod._library.__wrapped__(src)
             if src == "row_closest.cu" and isinstance(
                     libs[src].tpt_row_closest_shape, argparse.Namespace):
@@ -300,6 +313,41 @@ def solve_profile(libs: dict, out: dict) -> None:
                     "profile": prof_out}
 
 
+def solve3_ab(libs: dict, out: dict) -> None:
+    """The sub-3 gather solve (64 MC samples, 10 iterations; K3 its
+    visibility) under both builds in turns, CUDA events; the four
+    solutions bitwise equal."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.utils.config import Config
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    App(Config(spp=32, **cs.GUIDED), device="cuda").run_solver()   # warm-up
+    sols, ms = [], {"baseline": [], "this": []}
+    for s in SIDES:
+        app = App(Config(spp=32, **cs.GUIDED), device="cuda")
+        app.load_scene()
+        ap.occluded.launches = 0
+        with side(s, libs):
+            torch.cuda.synchronize()
+            start.record()
+            sols.append(app.run_solver())
+            end.record()
+            end.synchronize()
+        ms[s].append(start.elapsed_time(end))
+    same = all(cs.solutions_equal(x, sols[0]) for x in sols)
+    rec = {"turns": ms, "k3_launches": ap.occluded.launches,
+           **{f"{s}_ms": sum(v) / 2 for s, v in ms.items()}}
+    cs.phase("ab", f"sub-3 solve: baseline {rec['baseline_ms']:.3f} ms, this "
+             f"{rec['this_ms']:.3f} ms ({rec['this_ms'] / rec['baseline_ms']:.3f}"
+             f"x; turns {ms}); K3 launches a solve {rec['k3_launches']}; "
+             f"solutions bitwise equal {same}")
+    if not same:
+        raise AssertionError("the sub-3 solve differs between the builds")
+    out["sub-3 solve"] = rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, type=Path)
@@ -467,6 +515,63 @@ def main() -> int:
 
     if "solve" in cases:
         solve_profile(libs, out)
+        save()
+
+    if "k6" in cases:             # K6 at stress100k's and stress100k_nee's
+        p = ic.CulledScene(geom_large).parts[0]            # shapes
+        cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
+        rays = [("camera", *cs.swizzled_camera_rays(
+                    cs.scene_camera(scene_app.config, dev), 256, 1, dev)),
+                ("bounce", *cs.box_rays((-2.0, -1.05, -2.0),
+                                        (2.0, 2.5, 2.0), cs.N_RAYS, 2, dev))]
+        k6_args = {n: (tri, ic.prepass_dense(cmin, cmax, o, d, 1e-4)[0], o,
+                       d, 1e-4) for n, o, d in rays}
+        nee = App(Config(spp=16, nee=True, balance_lanes=4, **cs.LARGE),
+                  device=dev).renderer()
+        nee.step()                # the probe pass (65,536 lanes) and a pass
+        k6_args["16,384 lanes"] = cs.keep_third_calls(nee.step, [
+            (ic, "closest_grouped", lambda a: "K6")])["K6"]
+        for name, a6 in k6_args.items():
+            gm = a6[1]
+            bits, visits = cs.set_bits(gm), int((gm != 0).sum())
+            ab(f"K6 stress100k {name}", lambda a=a6: ic.closest_grouped(*a),
+               lambda a=a6: ic.closest_grouped_plain(*a), libs, 10, out,
+               graph=True)
+            out[f"K6 stress100k {name}"].update(
+                rays=a6[2].shape[0], set_bits=bits,
+                bits_per_visit=bits / max(visits, 1))
+        settings = {k: cs.LARGE[k] for k in ("width", "height", "max_depth",
+                                             "spp_per_pass", "ray_chunk")}
+        grouped = ic.CulledScene(geom_large)
+        cam_l = scene_app.camera_ctrl.build(dev)
+        render_ab("stress100k grouped pass", lambda: ProgressiveRenderer(
+            geom_large, cam_l, RenderSettings(**settings), device=dev,
+            seed=scene_app.config.seed, culled=grouped), libs, out)
+        rec = out["stress100k grouped pass"]
+        rec.update({f"{s}_mrays_per_s": rec["rays"] / rec[f"{s}_ms"] / 1e3
+                    for s in ("baseline", "this")})
+        save()
+
+    if "k3" in cases:             # K3 at the sub-3 solve's and NEE's shapes
+        g3 = subdivide(cornell_box("quads"), 3).build(dev)
+        tp3, pp3 = ap_mod.pack_triangles(g3), ap_mod.pack_prim_ids(g3)
+        seg3 = cs.ff_segments(g3, 1)
+        k3_args = {"sub-3 ff segments": (tp3, pp3, *seg3)}
+        for name, size in (("cbox1024_nee 65,536 x 32", 1024),
+                           ("cbox256_nee 65,536 x 32", 256)):
+            nee = App(Config(spp=16, nee=True, backend="pallas", **{
+                **cs.HEADLINE, "width": size, "height": size}),
+                device=dev).renderer()
+            k3_args[name] = cs.keep_third_calls(nee.step, [
+                (ap_mod, "occluded", lambda a: "K3")])["K3"]
+        for name, a3 in k3_args.items():
+            ab(f"K3 {name}", lambda a=a3: ap_mod.occluded(*a),
+               lambda a=a3: ap_mod.occluded_plain(*a), libs,
+               5 if a3[2].shape[0] > 100_000 else 20, out, graph=True)
+            out[f"K3 {name}"].update(segments=a3[2].shape[0],
+                                     rows=a3[0].shape[0],
+                                     open=int((a3[4] > 0).sum()))
+        solve3_ab(libs, out)
         save()
     print(json.dumps(out), flush=True)
     return 0

@@ -374,6 +374,89 @@ def test_exact_tie_goes_to_lowest_original_id():
         assert set(orig.tolist()) <= {0, n}
 
 
+def _items_closest(tri_pack, gmask, o, d, t_min=1e-4):
+    """K6's design in plain torch: every set (group, cluster) bit is an
+    item of 8 rays x 4 row lanes; lane (ray, q) keeps the least key over
+    rows q, q + 4, ... of the cluster, the 4 lanes of a ray merge by min,
+    and the items of a ray (its clusters) merge by min. Returns (t, id)."""
+    tiles, words, cpad = gmask.shape
+    tile, word, cl = (x.flatten() for x in torch.nonzero(gmask != 0).T)
+    shift = torch.arange(32, dtype=torch.int32)
+    bit = ((gmask[tile, word, cl][:, None] >> shift) & 1) != 0
+    item, b = torch.nonzero(bit).T
+    group = word[item] * 32 + b
+    rays = (tile[item] * ic.RAYS_PER_TILE + group * 8)[:, None] + \
+        torch.arange(8)                                  # (items, 8)
+    rows = tri_pack.view(-1, ic.TRI_CHUNK, 16)[cl[item]]  # (items, 128, 16)
+    on = torch.ones(rays.shape, dtype=torch.bool)
+    lanes = torch.stack([ic.closest_keys(rows[:, q::4], o[rays], d[rays],
+                                         t_min, on) for q in range(4)])
+    best = torch.full((o.shape[0],), ic._MISS_KEY, dtype=torch.int64)
+    best.scatter_reduce_(0, rays.flatten(), lanes.amin(dim=0).flatten(),
+                         "amin")
+    return ic.key_hits(best)
+
+
+@pytest.mark.parametrize("batch", ["rays", "adversarial"])
+def test_grouped_items_merge_to_plain(sub2, batch):
+    """K6's design on the CPU: the items' row lanes merged by the least
+    key equal closest_grouped_plain bitwise; on the sub-2 box's rays they
+    match the JAX package's K6 (interpret mode) as
+    test_culled_closest_hit_vs_jax holds the plain walk: t within the
+    module's rounding bound and ids modulo near ties (XLA contracts FMAs
+    on the CPU). The adversarial batch is chip_smoke's for K6 (the card
+    holds K6 on it): exact ties 1, 2 and 3 row lanes apart in one
+    cluster and across two clusters, where the lower original id must
+    win, words with all 32 bits, a word with one bit, NaN padding rays
+    with their bits set and a tile with no bit."""
+    jg, tg = sub2
+    cs = ic.CulledScene(tg)
+    p = cs.parts[0]
+
+    def prepass(o, d):
+        return ic.prepass_plain(p.cluster_min, p.cluster_max, o, d,
+                                1e-4)[0]
+
+    if batch == "rays":
+        o_np, d_np = _query_rays()
+        o, d = torch.from_numpy(o_np), torch.from_numpy(d_np)
+        tp, gm = p.tri_pack, prepass(o, d)
+    else:
+        tp, gm, o, d = chip_smoke.adversarial_grouped(tg, cs.order,
+                                                      p.tri_pack, prepass, 9)
+    t, idx = _items_closest(tp, gm, o, d)
+    want = ic.closest_grouped_plain(tp, gm, o, d)
+    assert torch.equal(t, want[0]) and torch.equal(idx, want[1])
+    if batch == "rays":
+        jcs = ip.CulledScene(jg)
+        t_w, r_w = (np.asarray(x) for x in ip.pallas_closest_tuv_dma_grouped(
+            jcs.tri_pack, jcs.cluster_min, jcs.cluster_max,
+            jnp.asarray(o_np), jnp.asarray(d_np), 1e-4))
+        fin = np.isfinite(t_w)
+        i_w = np.where(fin, jcs.order[np.where(fin, r_w, 0)], 0)
+        tol = _t_tol(tg, o_np, d_np, i_w, t_w)
+        np.testing.assert_array_equal(np.isfinite(t.numpy()), fin)
+        assert (np.abs(t.numpy()[fin].astype(np.float64) - t_w[fin])
+                <= tol[fin]).all()
+        assert ((idx.numpy() == i_w) | _near_tie(tg, o_np, d_np, tol)).all()
+        return
+    # the ties: rows 16 j and 16 j + k of cluster 0 (k row lanes apart), and
+    # row 16 j + 8 of cluster 0 with row 16 j of cluster 1
+    ids = tp[:, 13].contiguous().view(torch.int32)
+    won = 0
+    for j in range(8):
+        for a, b in ((16 * j, 16 * j + 1 + j % 3), (16 * j + 8, 128 + 16 * j)):
+            both = (idx == ids[a]) | (idx == ids[b])
+            assert not (idx[both] == max(ids[a], ids[b])).any()
+            won += int(both.sum())
+    assert won > 500
+    assert not torch.isfinite(t[2048:2048 + 64]).any()     # padding rays
+    assert not torch.isfinite(t[3072:]).any()              # no bit
+    assert torch.isfinite(t[1024 + 69 * 8:1024 + 70 * 8]).any()
+    assert not torch.isfinite(torch.cat([t[1024:1024 + 69 * 8],
+                                         t[1024 + 70 * 8:2048]])).any()
+
+
 # --- (d) any hit -------------------------------------------------------------
 
 

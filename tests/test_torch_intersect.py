@@ -425,6 +425,87 @@ def test_occluded_plain_vs_pallas(ff_case):
     assert not got[maxd.numpy() == 0].any()
 
 
+def _items_any_hit(tp, pp, o, d, maxd, ea, eb):
+    """K3's design in plain torch: the open segments (maxd > 0) of each
+    256-segment window, listed in window order, in items of 8 segments x 4
+    row lanes; lane (s, q) tests segment s against rows q, q + 4, ... up
+    to its first blocking row, and a segment is blocked where one of its
+    lanes is (an OR over the lanes); a closed segment is not. Returns
+    (blocked, each segment's first blocking row, -1 where none)."""
+    n, tpad = o.shape[0], tp.shape[0]
+    blocked = torch.zeros((n,), dtype=torch.bool)
+    first = torch.full((n,), -1, dtype=torch.int64)
+    for w in range(0, n, 256):
+        listed = w + torch.nonzero(maxd[w:w + 256] > 0).flatten()
+        for item in listed.split(8):
+            lane_first = []
+            for q in range(4):
+                rows = torch.arange(q, tpad, 4)
+                c = tp[rows].T[:, None, :]
+                t, u, v = ap._tuv(c, o[item], d[item])
+                ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
+                      & (t < maxd[item, None]) & (pp[None, rows] != ea[
+                          item, None]) & (pp[None, rows] != eb[item, None]))
+                at = torch.where(ok.any(dim=1), rows[ok.int().argmax(dim=1)],
+                                 tpad)
+                lane_first.append(at)
+            at = torch.stack(lane_first).amin(dim=0)
+            blocked[item] = at < tpad
+            first[item] = torch.where(at < tpad, at, -1)
+    return blocked, first
+
+
+def _jax_packs_padded(jg, extra):
+    """The JAX package's packs of jg with `extra` more padding rows."""
+    tp = np.asarray(ip.pack_triangles(jg))
+    pp = np.asarray(ip.pack_prim_ids(jg))
+    tp = np.concatenate([tp, np.zeros((extra, 16), np.float32)])
+    pp = np.concatenate([pp, np.full((extra, 16), -2.0, np.float32)])
+    return jnp.asarray(tp), jnp.asarray(pp)
+
+
+@pytest.mark.parametrize("batch", ["ff", "adversarial"])
+def test_occluded_items_equal_plain_and_pallas(ff_case, batch):
+    """K3's design on the CPU: the compacted items' OR equals
+    occluded_plain and pallas_occluded (interpret mode) bitwise, on the
+    sub-1 box's form-factor segments and on chip_smoke's adversarial
+    batch for K3 (the card holds K3 on it): windows with no open segment,
+    one open lane a warp, segments blocked by the first and by the last
+    triangle row, segments whose every hit is an excluded primitive's,
+    NaN-origin padding lanes, 8 padding rows beyond the pack's and a batch
+    that is no multiple of the window."""
+    jg, tg, seg = ff_case
+    if batch == "ff":
+        tp, pp = ap.pack_triangles(tg), ap.pack_prim_ids(tg)
+        jtp, jpp = ip.pack_triangles(jg), ip.pack_prim_ids(jg)
+    else:
+        jg = jbuiltin.cornell_box("quads").build()
+        tg = tmesh.geometry_from_arrays(
+            {f.name: np.asarray(getattr(jg, f.name))
+             for f in dataclasses.fields(jg)}, "cpu")
+        tp, pp, *seg = chip_smoke.adversarial_anyhit(tg, 3000, 31)
+        jtp, jpp = _jax_packs_padded(jg, 8)
+    got, first = _items_any_hit(tp, pp, *seg)
+    assert torch.equal(got, ap.occluded_plain(tp, pp, *seg))
+    want = np.asarray(ip.pallas_occluded(
+        jtp, jpp, *(jnp.asarray(x.numpy()) for x in seg)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    maxd = seg[2]
+    assert got.any() and not got[~(maxd > 0)].any()
+    if batch == "adversarial":
+        assert tp.shape[0] % 32 and seg[0].shape[0] % 256
+        kind = (torch.arange(3000) // 256) % 6
+        lane0 = torch.arange(3000) % 32 == 0
+        assert int((maxd[kind == 1] > 0).sum()) == int((lane0 & (kind == 1)
+                                                        ).sum())
+        assert (first[kind == 2] == 0).all()             # row 0 blocks
+        last = int((pp >= 0).sum()) - 1                 # and the last row
+        alone = ap.occluded_plain(tp[last:last + 1], pp[last:last + 1], *seg)
+        assert alone[kind == 3].all() and got[kind == 3].all()
+        assert not got[(kind == 0) | (kind == 4) | (kind == 5)].any()
+        assert got[(kind == 1) & lane0].all()
+
+
 def test_brute_occluded_vs_jax(ff_case):
     jg, tg, seg = ff_case
     o, d, maxd, ea, eb = seg

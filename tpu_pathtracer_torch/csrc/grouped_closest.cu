@@ -25,18 +25,39 @@
 // the pairs, so the kernel equals the plain version bitwise (the Pallas
 // kernel instead breaks exact ties across clusters in schedule order).
 //
-// What bounds it. Per pair about 40 flops, one of them an IEEE division;
-// per cluster visit 8 KB of triangle constants. Work is proportional to the
-// set (group, cluster) bits, which the prepass keeps small. One block is
-// one tile's 32-group mask word (256 rays, one thread each) and one of
-// `slices` interleaved shares of the tile's schedule, so even a 64-tile
-// batch spreads over every SM; slices combine with a 64-bit atomicMin per
-// ray, exact and order-free. The block stages each schedule chunk (cluster
-// ids and its mask word) in shared memory, skips clusters whose word is 0
-// without touching memory, and stages a visited cluster's 128 rows in
-// shared memory, where every thread of a group reads the same row
-// (broadcast). The TPU kernel's DMA ring, SMEM schedule ring and lane-
-// broadcast ray expansion are TPU workarounds and have no counterpart.
+// What bounds it. Per pair about 40 flops around an IEEE division; built
+// with -fmad=false every flop is its own instruction and the division
+// about ten, ~63 instructions a pair (closest_hit.cu's SASS), so the floor
+// is instruction issue: at 1,980 MHz an H100 issues ~3.3e13 thread-
+// instructions a second. Work is proportional to the set (group, cluster)
+// bits, which the prepass keeps small: a bit is 8 rays x 128 rows.
+//
+// The design makes the set bit the unit of work, as K7's does
+// (grouped_anyhit.cu). A block is one tile's 32-group mask word (256 rays)
+// times `slices` interleaved shares of the tile's schedule, so even a
+// 16-tile batch spreads over every SM. It holds its rays in shared memory
+// and takes its share of the schedule in chunks of 256 clusters: it counts
+// the chunk's set bits with a block prefix sum and lists them as work items
+// (cluster, group). Each warp takes one item at a time, with no block
+// barrier between items: lane l tests ray l & 7 of the group against rows
+// l >> 3, (l >> 3) + 4, ... of the cluster, read through L1 (a load
+// instruction covers 4 consecutive rows; the items of one cluster run on
+// neighbouring warps at once, so one fetch from L2 serves them), and keeps
+// its least key. The 4 lanes of a ray merge by a 64-bit min over two
+// shuffles; the ray's key goes into the block's shared key with a 64-bit
+// atomicMin, and one global atomicMin a ray at the end combines the
+// slices. A min is order-free, so every split is exact; a closest hit
+// tests every scheduled pair, so there is no early exit. The wrapper asks
+// for about 32 blocks an SM (intersect_culled._closest_slices, at most 32
+// slices): a block's share of set bits varies, and on the H100 more blocks
+// than fit at once beat the walk's usual 6 an SM at 16 and 64 tiles, while
+// items of 8 rays x 2 lanes (two a warp) or x 1 lane did no better than
+// 8 x 4. (The port's first design visited each cluster block-wide: a
+// barrier, all 256 threads staging the cluster, a barrier, and then only
+// the threads of set groups testing, 8k of 256 lanes busy for k set bits
+// in the word.) The TPU
+// kernel's DMA ring, SMEM schedule ring and lane-broadcast ray expansion
+// are TPU workarounds and have no counterpart.
 //
 // K12, the supercluster walk. A schedule entry is 8 consecutive clusters,
 // whose 1024 pack rows are one contiguous span (packs are padded to whole
@@ -45,8 +66,8 @@
 // pay one DMA and one schedule read per 8 clusters instead of per cluster;
 // here a block stages an entry's whole span (64 KiB, dynamic shared memory,
 // above the 48 KiB static limit) once, then pops the members whose mask word
-// for this block is non-zero and runs K6's pair test on each member's
-// 128-row slice. The words are read from the (tiles, 4, cpad) mask by
+// for this block is non-zero and runs the pair test (accept, K6's) on
+// each member's 128-row slice, one thread a ray. The words are read from the (tiles, 4, cpad) mask by
 // cluster id. Same keys and atomicMin as K6, so K12 equals K6 bitwise. What
 // bounds it is what bounds K6; the span costs 8 clusters' bytes per visit
 // even when one member is live, which is the trade the TPU measured.
@@ -56,41 +77,61 @@
 namespace {
 
 constexpr int kThreads = 256;   // rays per block: one mask word of a tile
+constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 1024;     // rays per tile
 constexpr int kWords = 4;       // mask words per (tile, cluster)
 constexpr int kChunk = 128;     // triangles per cluster
 constexpr int kRowVec = 4;      // float4s per pack row
+constexpr int kGroup = 8;       // rays per group (one mask bit)
+constexpr int kRowLanes = 4;    // lanes of a K6 work item per ray
 constexpr int kSC = 8;          // clusters per supercluster entry
 constexpr int kSpanVec = kSC * kChunk * kRowVec;   // float4s of a span
 constexpr int kSpanBytes = kSpanVec * 16;          // 65,536
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kMiss = ~0ull;
 
-// Fold the accepted pairs of one ray and one staged cluster (rows: its 128
-// pack rows) into the ray's least key (t bits << 32 | original id).
+// Is the pair of a ray and the pack row (a, b, c) (c0-c3, c4-c7, c8-c11)
+// accepted, and at which t? The Pallas op order; every op rounds
+// (-fmad=false).
+__device__ __forceinline__ bool accept(float4 a, float4 b, float4 c,
+                                       float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       float t_min, float& t) {
+  const float os = b.z * ox + b.w * oy + c.x * oz - c.w;
+  const float ds = b.z * dx + b.w * dy + c.x * dz;
+  t = -os / ds;
+  const float u = (a.x * ox + a.y * oy + a.z * oz - c.y) +
+                  t * (a.x * dx + a.y * dy + a.z * dz);
+  const float v = (a.w * ox + b.x * oy + b.y * oz - c.z) +
+                  t * (a.w * dx + b.x * dy + b.y * dz);
+  return (u >= 0.f) & (v >= 0.f) & (u + v <= 1.f) & (t > 1e-8f) &
+         (t >= t_min);
+}
+
+// The key of an accepted pair: t bits << 32 | original id (the int32 bits
+// of pack column 13).
+__device__ __forceinline__ unsigned long long key_of(float t, float id) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(__float_as_int(id));
+}
+
+// K12: fold the accepted pairs of one ray and one staged cluster (rows: its
+// 128 pack rows) into the ray's least key.
 __device__ __forceinline__ void closest_rows(
     const float4* rows, float ox, float oy, float oz, float dx, float dy,
     float dz, float t_min, unsigned long long& key) {
   for (int r = 0; r < kChunk; ++r) {
-    const float4 a = rows[r * kRowVec];      // c0 c1 c2 c3
-    const float4 b = rows[r * kRowVec + 1];  // c4 c5 c6 c7
-    const float4 c = rows[r * kRowVec + 2];  // c8 c9 c10 c11
-    const float os = b.z * ox + b.w * oy + c.x * oz - c.w;
-    const float ds = b.z * dx + b.w * dy + c.x * dz;
-    const float t = -os / ds;
-    const float u = (a.x * ox + a.y * oy + a.z * oz - c.y) +
-                    t * (a.x * dx + a.y * dy + a.z * dz);
-    const float v = (a.w * ox + b.x * oy + b.y * oz - c.z) +
-                    t * (a.w * dx + b.x * dy + b.y * dz);
-    const bool ok = (u >= 0.f) & (v >= 0.f) & (u + v <= 1.f) &
-                    (t > 1e-8f) & (t >= t_min);
-    if (ok) {
-      const unsigned long long k2 =
-          (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
-          static_cast<unsigned>(__float_as_int(rows[r * kRowVec + 3].y));
+    const float4* row = rows + r * kRowVec;
+    float t;
+    if (accept(row[0], row[1], row[2], ox, oy, oz, dx, dy, dz, t_min, t)) {
+      const unsigned long long k2 = key_of(t, row[3].y);
       if (k2 < key) key = k2;
     }
   }
 }
 
+// K6: one block per (tile, mask word, slice); work items are the set
+// (group, cluster) bits of the block's share of the schedule.
 __global__ void __launch_bounds__(kThreads)
 grouped_closest_kernel(const float4* __restrict__ tri,
                        const float* __restrict__ o,
@@ -99,9 +140,13 @@ grouped_closest_kernel(const float4* __restrict__ tri,
                        const int* __restrict__ clusters,
                        const int* __restrict__ masks, int cpad, int slices,
                        float t_min, unsigned long long* __restrict__ best) {
-  __shared__ float4 rows[kChunk * kRowVec];
-  __shared__ int s_cid[kThreads];
-  __shared__ unsigned s_mask[kThreads];
+  __shared__ float s_o[3 * kThreads];   // the block's rays, as in o and d
+  __shared__ float s_d[3 * kThreads];
+  __shared__ unsigned long long s_key[kThreads];   // their least keys
+  __shared__ int s_cid[kThreads];       // a chunk's clusters
+  __shared__ unsigned s_mask[kThreads]; // and their group bits
+  __shared__ int s_end[kThreads];       // inclusive prefix sum of the bits
+  __shared__ int s_wsum[kWarps];
 
   const int per_tile = kWords * slices;
   const int tile = blockIdx.x / per_tile;
@@ -109,37 +154,88 @@ grouped_closest_kernel(const float4* __restrict__ tri,
   const int w = rem / slices;
   const int s = rem - w * slices;
   const int tid = threadIdx.x;
-  const int ray = tile * kTile + w * kThreads + tid;
-  const unsigned bit = 1u << (tid >> 3);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ray0 = tile * kTile + w * kThreads;
+  const int q = lane / kGroup;          // the lane's row lane in an item
 
-  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  unsigned long long key = ~0ull;
+  for (int k = tid; k < 3 * kThreads; k += kThreads) {
+    s_o[k] = o[3 * ray0 + k];
+    s_d[k] = d[3 * ray0 + k];
+  }
+  s_key[tid] = kMiss;
 
   const int n_active = count[tile];
+  const int n_mine = n_active > s ? (n_active - s + slices - 1) / slices : 0;
   const int* cl_list = clusters + static_cast<size_t>(tile) * cpad;
   const int* m_list =
       masks + (static_cast<size_t>(tile) * kWords + w) * cpad;
-  for (int base = 0; base < n_active; base += kThreads) {
-    __syncthreads();   // the previous chunk is no longer read
-    if (base + tid < n_active) {
-      s_cid[tid] = cl_list[base + tid];
-      s_mask[tid] = static_cast<unsigned>(m_list[base + tid]);
-    }
+  for (int base = 0; base < n_mine; base += kThreads) {
+    // barrier: the rays published, the previous chunk no longer read
     __syncthreads();
-    const int n = min(kThreads, n_active - base);
-    for (int e = s; e < n; e += slices) {
-      const unsigned m = s_mask[e];
-      if (m == 0u) continue;             // uniform over the block
-      const float4* src =
-          tri + static_cast<size_t>(s_cid[e]) * kChunk * kRowVec;
-      __syncthreads();                   // the previous cluster is not read
-      for (int k = tid; k < kChunk * kRowVec; k += kThreads) rows[k] = src[k];
-      __syncthreads();
-      if (m & bit) closest_rows(rows, ox, oy, oz, dx, dy, dz, t_min, key);
+    const int j = base + tid;
+    unsigned m = 0u;
+    int cid = 0;
+    if (j < n_mine) {
+      const int e = s + j * slices;
+      m = static_cast<unsigned>(m_list[e]);
+      cid = cl_list[e];
+    }
+    s_cid[tid] = cid;
+    s_mask[tid] = m;
+    int x = __popc(m);                   // inclusive scan over the block
+    for (int k = 1; k < 32; k <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, k);
+      if (lane >= k) x += y;
+    }
+    if (lane == 31) s_wsum[warp] = x;
+    __syncthreads();
+    int total = 0;
+    for (int k = 0; k < kWarps; ++k) {
+      const int v = s_wsum[k];
+      if (k < warp) x += v;
+      total += v;
+    }
+    s_end[tid] = x;
+    __syncthreads();
+
+    for (int i = warp; i < total; i += kWarps) {
+      // item i: the e-th chunk entry with s_end[e - 1] <= i < s_end[e],
+      // and the k-th set bit of its mask
+      int lo = 0, hi = kThreads - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_end[mid] > i) hi = mid; else lo = mid + 1;
+      }
+      unsigned mm = s_mask[lo];
+      for (int k = i - (lo ? s_end[lo - 1] : 0); k > 0; --k) mm &= mm - 1u;
+      const int ray = (__ffs(mm) - 1) * kGroup + (lane & (kGroup - 1));
+      const float ox = s_o[3 * ray], oy = s_o[3 * ray + 1],
+                  oz = s_o[3 * ray + 2], dx = s_d[3 * ray],
+                  dy = s_d[3 * ray + 1], dz = s_d[3 * ray + 2];
+      const float4* rows =
+          tri + static_cast<size_t>(s_cid[lo]) * kChunk * kRowVec;
+      unsigned long long key = kMiss;
+#pragma unroll 4
+      for (int r = q; r < kChunk; r += kRowLanes) {
+        const float4* row = rows + r * kRowVec;
+        float t;
+        if (accept(__ldg(row), __ldg(row + 1), __ldg(row + 2), ox, oy, oz,
+                   dx, dy, dz, t_min, t)) {
+          const unsigned long long k2 = key_of(t, __ldg(&row[3].y));
+          if (k2 < key) key = k2;
+        }
+      }
+      for (int k = kGroup; k < 32; k <<= 1) {   // the ray's 4 lanes
+        const unsigned long long y = __shfl_xor_sync(kFull, key, k);
+        if (y < key) key = y;
+      }
+      if (q == 0 && key != kMiss) atomicMin(&s_key[ray], key);
     }
   }
-  if (key != ~0ull) atomicMin(best + ray, key);
+  __syncthreads();
+  const unsigned long long key = s_key[tid];
+  if (key != kMiss) atomicMin(best + ray0 + tid, key);
 }
 
 // K12: blocks as K6's; the schedule lists entries (ids, member bitmaps) and
@@ -231,6 +327,20 @@ int tpt_grouped_closest(const float* tri, const float* o, const float* d,
       reinterpret_cast<const float4*>(tri), o, d, count, clusters, masks,
       cpad, slices, t_min, reinterpret_cast<unsigned long long*>(best));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The K6 launch shape for n_rays rays and `slices` shares of a schedule:
+// out[0..3] = blocks, threads a block, static shared bytes a block and
+// registers a thread. Returns a CUDA error code.
+int tpt_grouped_closest_shape(int n_rays, int slices, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, grouped_closest_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = n_rays / kTile * kWords * slices;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.numRegs;
+  return 0;
 }
 
 // Closest hit per ray over the supercluster schedule (the K12 kernel):

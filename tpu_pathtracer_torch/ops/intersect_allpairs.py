@@ -233,6 +233,8 @@ def _library(source: str) -> ctypes.CDLL:
     else:
         lib.tpt_any_hit.argtypes = [p, p, i, p, p, p, p, p, i, p, p]
         lib.tpt_any_hit.restype = i
+        lib.tpt_any_hit_shape.argtypes = [i, p]
+        lib.tpt_any_hit_shape.restype = i
     lib.tpt_error_string.argtypes = [i]
     lib.tpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -237,6 +237,8 @@ def _library(source: str) -> ctypes.CDLL:
     elif source == "grouped_closest.cu":
         fn = lib.tpt_grouped_closest
         fn.argtypes = [p, p, p, i, p, p, p, i, i, f, p, p]
+        lib.tpt_grouped_closest_shape.argtypes = [i, i, p]
+        lib.tpt_grouped_closest_shape.restype = i
         lib.tpt_grouped_closest_sc.argtypes = [p, p, p, i, p, p, p, p, i, i,
                                                f, p, p]
         lib.tpt_grouped_closest_sc.restype = i
@@ -481,11 +483,18 @@ def occluded_grouped_plain(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
     return blocked
 
 
-def _walk_slices(dev, tiles: int) -> int:
-    """Blocks per (tile, mask word) for the walk: enough blocks of 256
-    threads to give every SM a few."""
+def _walk_slices(dev, tiles: int, per_sm: int = 6, most: int = 16) -> int:
+    """Blocks per (tile, mask word) for the walk: about per_sm blocks of
+    256 threads for every SM, at most `most`. K6 takes 32 and 32: its
+    blocks end at different times (a share of a tile's set bits each),
+    and on the H100 more of them than fit at once balance the SMs."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(16, -(-6 * sms // (WORDS * tiles))))
+    return max(1, min(most, -(-per_sm * sms // (WORDS * tiles))))
+
+
+def _closest_slices(dev, tiles: int) -> int:
+    """K6's shares of a tile's schedule (_walk_slices)."""
+    return _walk_slices(dev, tiles, per_sm=32, most=32)
 
 
 def _check_tiled_walk(tri_pack, o, d):
@@ -528,8 +537,8 @@ def closest_grouped(tri_pack, gmask, o, d, t_min=1e-4):
         err = lib.tpt_grouped_closest(
             tri_pack.data_ptr(), o.data_ptr(), d.data_ptr(), b,
             count.data_ptr(), clusters.data_ptr(), masks.data_ptr(),
-            gmask.shape[2], _walk_slices(dev, b // RAYS_PER_TILE), t_min,
-            best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            gmask.shape[2], _closest_slices(dev, b // RAYS_PER_TILE),
+            t_min, best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "grouped closest-hit")
     closest_grouped.launches += 1
