@@ -51,8 +51,11 @@ Phases, one line each (any failure raises and exits non-zero):
                subdivisions 3 and 5 and on random segments (on the sub-5
                segments K7's visits and set bits per visit, and K4's bound
                from the segments that can enter a box); K4, K5, K8 and K10
-               on adversarial_prepass's boxes and rays, K7 and K13 on
-               adversarial_segments of the subdivision-3 box (K5 also
+               on adversarial_prepass's boxes and rays and on
+               adversarial_tiles' (795 clusters, equal boxes whose
+               c_best ties, a warp partly inside a quarter's union box, a
+               warp the warp cull skips, one-bit gate words), K7 and K13
+               on adversarial_segments of the subdivision-3 box (K5 also
                against K4, K13 against K7); K5 against K4
                and the plain prepass on a 1,003,948-triangle scene
                generated by scenes/generate_stress.py into build/; on the
@@ -87,7 +90,9 @@ Phases, one line each (any failure raises and exits non-zero):
                once per wavefront iteration, the film be finite and
                non-zero, and the same pass at ray_chunk 2**20 and 2**14
                give the same film bitwise; one pass of the 1M-triangle
-               scene (K5 must launch); cbox 256x256, 4 spp, backends
+               scene (K5 must launch once per iteration and K4 never:
+               K5's warp cull does the quarter gate's work); cbox
+               256x256, 4 spp, backends
                "pallas" and "culled": the same film bitwise;
   9. solve     the box at subdivision 5 (16,384 primitives, 32,768
                triangles), the App's gather solve with 2 MC samples and 8
@@ -145,9 +150,12 @@ launch at cbox1024_nee's 65,536 shadow rays (K3, with
 `nee_shape_device_ms`) or stress100k_nee's 16,384 lanes, and K4
 `solve_launches`, its launches in the sub-5 solve, and `segments_ms`,
 `segments_plain_ms`, `segments_bound_ms` and `segments_bound_by` on the
-sub-5 form-factor segments; K1, K2, K2-guide, K3, K6 and K11 carry
-`device_ms` and their launch shape: `blocks`, `threads_per_block`,
-`shared_bytes_per_block`, `registers_per_thread`, K11 the same for its
+sub-5 form-factor segments; K1, K2, K2-guide, K3, K4, K5, K6, K8, K10
+and K11 carry `device_ms` and their launch shape: `blocks`,
+`threads_per_block`, `shared_bytes_per_block`, `registers_per_thread`
+(K4, K5, K8 and K10 also `quarters_per_block`; K5 its `gated_pairs`
+and `tested_pairs` past the warp cull on the 1M bounce rays, K10 its
+`tested_pairs` on stress100k's), K11 the same for its
 sort (`sort_*`) and its stats on the bounce rays,
 `visited`, `scheduled` and `row_tests`; K6 its `slices`, `set_bits` and
 `bits_per_visit` on the bounce rays and at the 16,384 lanes
@@ -384,6 +392,62 @@ def adversarial_prepass(n_rays: int, seed: int):
         else:
             d[i, k % 3] = np.inf if k % 2 == 0 else -np.inf
     maxd[quiet] = 0.0
+    return cmin, cmax, o, d, maxd
+
+
+def adversarial_tiles(seed: int):
+    """The register-tile prepass's (K5, K10) hard cases, as numpy (cmin,
+    cmax, o, d, maxd): 795 boxes along a line (a ragged end: neither 32 nor
+    128 divides it), four of them equal (clusters 40, 41, 100 and 700: in
+    one quarter, in another quarter of the block, in another block), and 4
+    tiles of 1024 rays, fewer than the card's SMs. Tile 0: random rays
+    along the line, but in warp 1 (groups 32-63) the first half starts
+    inside the equal boxes (every one is entered at t_min: c_best must
+    keep the lowest id, 40) and the second half far away pointing away
+    (a warp only partly inside a quarter's union box). Tile 1: rays from
+    near the line's first boxes, warp 3 pointing away (its ON quarters are
+    culled). Tile 2: random rays with one group of NaN origins, a group of
+    direction components 1e-9, -0.0 and 1e-8, four rays with an infinite
+    direction component and one with an infinite origin, and maxd cycling
+    0, -1, NaN, 30 and inf ray by ray. Tile 3: maxd 0 except warp 2 (30),
+    warp 3 NaN origins (padding rays). Elsewhere maxd is 500."""
+    g = np.random.default_rng(seed)
+    c = 795
+    ctr = np.stack([np.linspace(0, 400, c), g.uniform(-5, 5, c),
+                    g.uniform(-5, 5, c)], -1).astype(np.float32)
+    half = g.uniform(0.1, 1.5, (c, 3)).astype(np.float32)
+    cmin, cmax = ctr - half, ctr + half
+    for k in (41, 100, 700):
+        cmin[k], cmax[k] = cmin[40], cmax[40]
+    n = 4096
+    o = np.stack([g.uniform(-10, 410, n), g.uniform(-8, 8, n),
+                  g.uniform(-8, 8, n)], -1).astype(np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    maxd = np.full(n, 500.0, np.float32)
+    inside = np.arange(256, 384)                   # tile 0, warp 1, half 1
+    o[inside] = (cmin[40] + cmax[40]) / 2
+    away = np.arange(384, 512)                     # half 2
+    o[away] = (1000.0, 1000.0, 1000.0)
+    d[away] = np.abs(d[away])
+    t1 = np.arange(1024, 2048)
+    o[t1, 0] = g.uniform(-5, 20, 1024).astype(np.float32)
+    w3 = np.arange(1024 + 768, 2048)
+    o[w3] = (-50.0, 0.0, 0.0)
+    d[w3, 0] = -np.abs(d[w3, 0]) - 0.5
+    t2 = 2048
+    o[t2:t2 + 8] = np.nan
+    d[t2 + 8:t2 + 16] = np.array([1e-9, -0.0, 1e-8], np.float32)
+    d[t2 + 8 + np.arange(8), np.arange(8) % 3] = 1.0
+    for k in range(4):
+        d[t2 + 16 + k, k % 3] = np.inf if k % 2 == 0 else -np.inf
+    o[t2 + 20, 0] = -np.inf
+    maxd[t2:t2 + 1024] = np.array([0.0, -1.0, np.nan, 30.0, np.inf],
+                                  np.float32)[np.arange(1024) % 5]
+    t3 = 3072
+    maxd[t3:t3 + 1024] = 0.0
+    maxd[t3 + 512:t3 + 768] = 30.0
+    o[t3 + 768:], d[t3 + 768:] = np.nan, 1.0
     return cmin, cmax, o, d, maxd
 
 
@@ -782,6 +846,40 @@ def k3_shape(n: int) -> dict:
                      "registers_per_thread"), v))
 
 
+def prepass_shape(kernel: int, n_rays: int, cpad: int) -> dict:
+    """A prepass kernel's launch facts (cluster_prepass.cu; kernel 0 K4,
+    1 K5 on rays, 2 K5 on segments, 3 K8, 4 K10) at n_rays rays and cpad
+    padded clusters."""
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
+    v = launch_shape(ic._library("cluster_prepass.cu"), "tpt_prepass_shape",
+                     kernel, n_rays, cpad, n=5)
+    return dict(zip(("blocks", "threads_per_block", "shared_bytes_per_block",
+                     "registers_per_thread", "quarters_per_block"), v))
+
+
+def culled_pairs(cmin, cmax, o, d, t_min, maxd=None, gate=None) -> int:
+    """(ray, cluster) pairs K5 and K10 test: 32 clusters x 128 rays for
+    every (128-ray warp, 32-cluster quarter) whose gate bit is on and some
+    of whose rays hit the quarter's union box (the warp cull); the plain
+    arithmetic."""
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
+    qmin, qmax = ic._union_boxes(cmin, cmax, ic.QGRAN)
+    tn, _, hit = ic._slab(qmin, qmax, o, ic._inv_dir(d), t_min)
+    if maxd is not None:
+        hit &= tn <= maxd[:, None]
+    nq = qmin.shape[0]
+    real = torch.isfinite(qmin[:, 0]) & (
+        torch.arange(nq, device=o.device) * ic.QGRAN < cmin.shape[0])
+    on = hit.view(-1, 128, nq).any(dim=1) & real[None, :]
+    if gate is not None:
+        bits = (gate[..., None] >> torch.arange(
+            ic.QPB, device=o.device, dtype=torch.int32)) & 1
+        on &= bits.view(gate.shape[0], nq).repeat_interleave(8, dim=0) != 0
+    return int(on.sum()) * ic.QGRAN * 128
+
+
 def first_blocking_rows(tri_pack, prim_ids, o, d, maxd, ex_a, ex_b):
     """(n,) int64: the first pack row that blocks each segment (K3's
     test, rows in order), -1 where none does; the plain arithmetic."""
@@ -957,6 +1055,9 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
               f"ms")
         facts["K6"] = {"device_ms": k6_dev, **k6_shape(N_RAYS),  # bounce's
                        "set_bits": bits, "bits_per_visit": bits / visits}
+        facts["K4"] = {"device_ms": device_ms(
+            lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4)),
+            **prepass_shape(0, N_RAYS, cmin.shape[0])}
         if not ok:
             raise AssertionError(f"K4 or K6 differs from its plain version on"
                                  f" stress100k {rname} (tolerance: bitwise)")
@@ -1048,6 +1149,46 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
         if not ok:
             raise AssertionError(f"a prepass kernel differs on the adversarial"
                                  f" {mode} batch (tolerance: bitwise)")
+    # K5 and K10's register tiles on their hard cases: 795 clusters, equal
+    # boxes across quarters and blocks, a warp partly inside a union box, a
+    # warp the cull skips, 4 tiles, one-bit gate words
+    cmin, cmax, o, d, maxd = (torch.from_numpy(x).to(dev)
+                              for x in adversarial_tiles(13))
+    for mode, md in (("rays", None), ("segments", maxd)):
+        k4 = ic.prepass_dense(cmin, cmax, o, d, 1e-4, md)
+        gate = ic.quarter_gate(cmin, cmax, o, d, 1e-4, md)
+        one = gate & -gate
+        k5 = ic.prepass_gated(cmin, cmax, gate, o, d, 1e-4, md)
+        k5one = ic.prepass_gated(cmin, cmax, one, o, d, 1e-4, md)
+        ok = (prepass_equal(k5, k4) and prepass_equal(k4, ic.prepass_plain(
+                  cmin, cmax, o, d, 1e-4, md))
+              and prepass_equal(k5, ic.prepass_plain(cmin, cmax, o, d, 1e-4,
+                                                     md, gate=gate))
+              and prepass_equal(k5one, ic.prepass_plain(cmin, cmax, o, d,
+                                                        1e-4, md, gate=one)))
+        msg = ""
+        if md is None:
+            k10 = lg.prepass_rows(cmin, cmax, o, d, 1e-4)
+            ok &= (prepass_equal(k10, lg.prepass_rows_plain(cmin, cmax, o, d,
+                                                            1e-4))
+                   and torch.equal(lg.prepass_probe(cmin, cmax, o, d, 1e-4),
+                                   lg.prepass_probe_plain(cmin, cmax, o, d,
+                                                          1e-4))
+                   and bool((k10[3][256:384] == 40).all()))
+            msg = (f", K10 c_best of the rays inside the 4 equal boxes "
+                   f"{sorted(set(k10[3][256:384].tolist()))}")
+        torch.cuda.synchronize()
+        tested = culled_pairs(cmin, cmax, o, d, 1e-4, md, gate)
+        more = ", K8, K10" if md is None else ""
+        phase("kernels", f"adversarial tiles batch ({mode}, 4096 rays x "
+              f"{cmin.shape[0]} boxes, {int((gate != 0).sum())} ON (tile, "
+              f"block)s, {set_bits(gate)} ON quarters, {tested} pairs past "
+              f"the warp cull of {set_bits(gate) * 32 * 1024}): K4, K5 "
+              f"(quarter gate and one-bit words){more} bitwise equal to "
+              f"plain and K5 to K4 {ok}{msg}")
+        if not ok:
+            raise AssertionError(f"a prepass kernel differs on the adversarial"
+                                 f" tiles batch ({mode}; tolerance: bitwise)")
     g3 = scenes["cbox_sub3"]
     p3 = cs3.parts[0]
     seg = adversarial_segments(g3, cs3.order, 4096, 12)
@@ -1116,13 +1257,19 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
         tg = time_pair(
             lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4),
             lambda: ic.prepass_groups(cmin, cmax, o, d, 1e-4), reps=5)
+        facts["K5"] = {   # the bounce rays' stay
+            "device_ms": device_ms(
+                lambda: ic.prepass_gated(cmin, cmax, gate, o, d, 1e-4)),
+            "gated_pairs": quarters * 32 * 1024,
+            "tested_pairs": culled_pairs(cmin, cmax, o, d, 1e-4, gate=gate),
+            **prepass_shape(1, o.shape[0], cmin.shape[0])}
         phase("kernels", f"1M scene ({g1m.num_tris} tris, {cmin.shape[0]} "
               f"clusters, {nblk} blocks) {rname}: K5 bitwise equal to K4 and "
               f"to plain {ok}; gate on {float((gate != 0).float().mean()):.4f}"
               f" of (tile, block)s, {quarters / (4 * gate.numel()):.4f} of "
               f"quarters; K5 {t5[1]:.6f} ms vs plain {t5[0]:.6f} ms; the "
-              f"gated prepass (quarter gate + K5) {tg[1]:.6f} ms vs K4 dense "
-              f"{tg[0]:.6f} ms per call")
+              f"culled queries' prepass (K5, every quarter ON) {tg[1]:.6f} "
+              f"ms vs K4 dense {tg[0]:.6f} ms per call; K5 {facts['K5']}")
         if not ok:
             raise AssertionError(f"K5 differs from K4 or its plain version on"
                                  f" the 1M scene {rname} (tolerance: bitwise)")
@@ -1212,9 +1359,11 @@ def large_phase(dev, path1m, start, end):
           f"one pass x 8 spp (first, not warmed): {r1.total_rays} rays in "
           f"{ms:.3f} ms = {r1.total_rays / (ms / 1e3) / 1e6:.3f} Mrays/s; "
           f"{r1.iterations} intersect calls, K5 launches {launches['K5']}, "
-          f"K4 (quarter gate) {ic.prepass_dense.launches}, K6 "
-          f"{ic.closest_grouped.launches}; mean {mean:.6f}")
-    if not (launches["K5"] > 0 and mean > 0
+          f"K4 {ic.prepass_dense.launches} (K5's warp cull does the "
+          f"quarter gate's work), K6 {ic.closest_grouped.launches}; mean "
+          f"{mean:.6f}")
+    if not (launches["K5"] == r1.iterations and mean > 0
+            and ic.prepass_dense.launches == 0
             and bool(torch.isfinite(r1.film.accum).all())):
         raise AssertionError("1M-triangle render failed its checks")
 
@@ -1375,6 +1524,13 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
             int(k11[4].sum()) * 128 * 128 * PAIR_FLOPS, tri, *sched, o, d,
             k10[2], *k11[:3])
         times["K8"], times["K10"], times["K11"] = t8, t10, t11
+        facts["K8"] = {"device_ms": device_ms(   # the bounce rays' stay
+            lambda: lg.prepass_probe(cmin, cmax, o, d, 1e-4)),
+            **prepass_shape(3, N_RAYS, cmin.shape[0])}
+        facts["K10"] = {"device_ms": device_ms(
+            lambda: lg.prepass_rows(cmin, cmax, o, d, 1e-4)),
+            "tested_pairs": culled_pairs(cmin, cmax, o, d, 1e-4),
+            **prepass_shape(4, N_RAYS, cmin.shape[0])}
         facts["K11"] = {   # the bounce rays' stay
             "visited": int(k11[2].sum()), "scheduled": int(k11[3].sum()),
             "row_tests": int(k11[4].sum()), "device_ms": device_ms(
@@ -1398,7 +1554,7 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
               f"{t10[1]:.6f} vs plain {t10[0]:.6f} ms, K11 {t11[1]:.6f} vs "
               f"plain {t11[0]:.6f} ms{msg}; bounds K8 {bounds['K8'][0]:.6f}, "
               f"K10 {bounds['K10'][0]:.6f}, K11 {bounds['K11'][0]:.6f} ms; "
-              f"K11 {facts['K11']}")
+              f"K8 {facts['K8']}, K10 {facts['K10']}, K11 {facts['K11']}")
         if not ok:
             raise AssertionError(f"a row kernel differs from its plain version"
                                  f" on stress100k {rname} (tolerance: bitwise)"
@@ -2287,15 +2443,15 @@ def main() -> int:
          "nee_shape_device_ms": nee["K3 device ms"],
          "nee_shape_open": nee["K3 open"]},
         {**entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
-                 "cluster_prepass.cu", 1023, large["K4"]),
+                 "cluster_prepass.cu", 1023, large["K4"]), **facts["K4"],
          "solve_launches": k4_solve, "nee_launches": nee["K4"],
          "segments_ms": times["K4 segments"][1],
          "segments_plain_ms": times["K4 segments"][0],
          "segments_bound_ms": bounds["K4 segments"][0],
          "segments_bound_by": bounds["K4 segments"][1],
          "nee_shape_ms": nee["K4 ms"]},
-        entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
-              "cluster_prepass.cu", 1149, large["K5"]),
+        {**entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
+                 "cluster_prepass.cu", 1149, large["K5"]), **facts["K5"]},
         {**entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
                  "grouped_closest.cu", 1723, large["K6"]), **facts["K6"],
          "nee_launches": nee["K6"], "nee_shape_ms": nee["K6 ms"],
@@ -2303,12 +2459,14 @@ def main() -> int:
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
          "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"]},
-        entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
-              "cluster_prepass.cu", 45, rows["K8"], legacy),
+        {**entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
+                 "cluster_prepass.cu", 45, rows["K8"], legacy),
+         **facts["K8"]},
         entry("K9 closest_culled (_kernel_culled)", "K9", "closest_hit.cu",
               196, rows["K9"], legacy),
-        entry("K10 prepass_rows (_kernel_prepass)", "K10",
-              "cluster_prepass.cu", 306, rows["K10"], legacy),
+        {**entry("K10 prepass_rows (_kernel_prepass)", "K10",
+                 "cluster_prepass.cu", 306, rows["K10"], legacy),
+         **facts["K10"]},
         {**entry("K11 closest_rows (_kernel_culled_dma)", "K11",
                  "row_closest.cu", 572, rows["K11"], legacy),
          **facts["K11"]},

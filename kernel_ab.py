@@ -44,9 +44,25 @@ in the turns baseline, this, this, baseline:
     top rows, whose shadow rays are nearly all closed) and of the same
     pass at 256x256 (every pixel, most shadow rays open), with device
     time, then the sub-3 gather solve (64 MC samples, 10 iterations) end
-    to end, solutions bitwise equal.
+    to end, solutions bitwise equal;
+  - the prepasses by device time beside event time: K4, K8 and K10 on
+    stress100k's camera and bounce rays; on the 1M-triangle scene's camera
+    and bounce rays K5 behind a quarter gate computed once outside the
+    timed call (with the gate's ON share of quarters) and behind a gate
+    with every quarter ON, the quarter gate and K5 together, each build's
+    prepass_groups (a baseline without tpt_prepass_shape runs the quarter
+    gate before K5, as it did; this checkout passes every quarter ON),
+    dense K4, and K10 and K8; then the
+    first pass of stress100k through CulledScene(sort_rays=True) and one
+    pass of the 1M scene on the grouped culled backend, films bitwise
+    equal, in two rounds of turns, then one pass of each under
+    torch.profiler per build (device time, busy share, the prepass
+    kernels' time). The SASS of this checkout's cluster_prepass.cu goes to
+    chiprun_out/cluster_prepass.sass, with its instruction count per
+    kernel.
 The sections, in this order (--cases picks some): segments (the sub-5
-segments), stress100k, 1m, k2, renders, solve, k6, k3. Prints a line per case and,
+segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass. Prints a
+line per case and,
 last, one JSON object with every number (also written to FILE, default
 chiprun_out/kernel_ab.json, after every section). Imports nothing of jax.
 """
@@ -72,7 +88,7 @@ SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
            "closest_hit.cu", "grouped_closest.cu", "any_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
 CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve", "k6",
-         "k3")
+         "k3", "prepass")
 
 
 class _Tolerant:
@@ -142,7 +158,7 @@ def side(name: str, libs: dict):
     if name != "baseline":
         yield
         return
-    own, own_ap = ic._library, ap._library
+    own, own_ap, own_groups = ic._library, ap._library, ic.prepass_groups
 
     def pick(src):
         return libs[src] if src in libs else own(src)
@@ -153,10 +169,27 @@ def side(name: str, libs: dict):
     try:
         ic._library = lg._library = pick
         ap._library = lg._allpairs_library = pick_ap
+        if isinstance(pick("cluster_prepass.cu").tpt_prepass_shape,
+                      argparse.Namespace):
+            ic.prepass_groups = quarter_gated_groups
         yield
     finally:
         ic._library = lg._library = own
         ap._library = lg._allpairs_library = own_ap
+        ic.prepass_groups = own_groups
+
+
+def quarter_gated_groups(cluster_min, cluster_max, o, d, t_min, maxd=None):
+    """prepass_groups as checkouts before the register-tile K5 (no
+    tpt_prepass_shape) ran it: the quarter gate, then K5 behind it."""
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
+    nblk = ic.padded_clusters(cluster_min.shape[0]) // ic.BLOCK_CLUSTERS
+    if nblk < ic._GATE_MIN_BLOCKS:
+        return ic.prepass_dense(cluster_min, cluster_max, o, d, t_min, maxd)
+    gate = ic.quarter_gate(cluster_min, cluster_max, o, d, t_min, maxd)
+    return ic.prepass_gated(cluster_min, cluster_max, gate, o, d, t_min,
+                            maxd)
 
 
 def equal(a, b) -> bool:
@@ -226,6 +259,42 @@ def render_ab(name: str, make, libs: dict, out: dict) -> None:
     out[name] = rec
 
 
+def kernel_times(prof) -> dict:
+    """{kernel name: (device us, launches)} of a torch.profiler run."""
+    kern = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = kern.get(e.name, (0.0, 0))
+            kern[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return kern
+
+
+def pass_profile(name: str, make, libs: dict, out: dict) -> None:
+    """One first pass of a fresh renderer from make() under each build,
+    under torch.profiler: its device time, its share of the pass's time
+    in out[name] (the device-busy share), and the prepass kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = {}
+    for s in ("baseline", "this"):
+        r = make()
+        with side(s, libs), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r.step()
+            torch.cuda.synchronize()
+        kern = kernel_times(prof)
+        total = sum(us for us, _ in kern.values()) / 1e3
+        pre = {k[:72]: (us / 1e3, n) for k, (us, n) in kern.items()
+               if "prepass_kernel" in k or "tile_kernel" in k}
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+        rec[s] = {"device_ms": total, "kernels": sum(
+            n for _, n in kern.values()),
+            "busy_share": total / out[name][f"{s}_ms"], "prepass": pre,
+            "top": [(k[:60], us / 1e3, n) for k, (us, n) in top]}
+        cs.phase("ab", f"{name} profiled ({s}): {rec[s]}")
+    out[name]["profile"] = rec
+
+
 def k11_ab(name: str, part, o, d, libs: dict, out: dict) -> None:
     """K11 with its stats on rays o, d of a CulledPart, through the K10
     prepass and cluster_list of this checkout, under both builds."""
@@ -284,11 +353,7 @@ def solve_profile(libs: dict, out: dict) -> None:
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             app.run_solver()
             torch.cuda.synchronize()
-        kern = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us, n = kern.get(e.name, (0.0, 0))
-                kern[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        kern = kernel_times(prof)
         total = sum(us for us, _ in kern.values())
 
         def share(tag):
@@ -346,6 +411,28 @@ def solve3_ab(libs: dict, out: dict) -> None:
     if not same:
         raise AssertionError("the sub-3 solve differs between the builds")
     out["sub-3 solve"] = rec
+
+
+def sass_counts(source: str, path: Path) -> dict:
+    """cuobjdump's SASS of this checkout's build of csrc/<source>, written
+    to path; returns {kernel symbol: instructions}."""
+    from tpu_pathtracer_torch.utils.cuda_build import build, nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(build(source).path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    counts, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and ln.strip().startswith("/*") and "*/" in ln and any(
+                c.isalpha() for c in ln.split("*/", 1)[1].split(";")[0]):
+            counts[name] += 1
+    return counts
 
 
 def main() -> int:
@@ -572,6 +659,97 @@ def main() -> int:
                                      rows=a3[0].shape[0],
                                      open=int((a3[4] > 0).sum()))
         solve3_ab(libs, out)
+        save()
+
+    if "prepass" in cases:        # K4, K5, K8 and K10 at the main paths'
+        counts = sass_counts("cluster_prepass.cu",          # shapes
+                             Path(args.out).parent / "cluster_prepass.sass")
+        cs.phase("ab", f"cluster_prepass.cu SASS instructions per kernel: "
+                 f"{counts}")
+        out["prepass_sass"] = counts
+        p = ic.CulledScene(geom_large).parts[0]
+        cmin, cmax = p.cluster_min, p.cluster_max
+        rays = [("camera", *cs.swizzled_camera_rays(
+                    cs.scene_camera(scene_app.config, dev), 256, 1, dev)),
+                ("bounce", *cs.box_rays((-2.0, -1.05, -2.0),
+                                        (2.0, 2.5, 2.0), cs.N_RAYS, 2, dev))]
+        for rname, o, d in rays:
+            for kname, fn, plain in (
+                    ("K4", ic.prepass_dense, ic.prepass_plain),
+                    ("K8", lg.prepass_probe, lg.prepass_probe_plain),
+                    ("K10", lg.prepass_rows, lg.prepass_rows_plain)):
+                ab(f"{kname} stress100k {rname} (prepass)",
+                   lambda f=fn: f(cmin, cmax, o, d, 1e-4),
+                   lambda f=plain: f(cmin, cmax, o, d, 1e-4), libs, 20, out,
+                   graph=True)
+            out[f"K10 stress100k {rname} (prepass)"]["tested_pairs"] = \
+                cs.culled_pairs(cmin, cmax, o, d, 1e-4)
+        path1m = cs.generate_1m(os.path.join(HERE, "build", "stress1m"))
+        cfg1m = Config(**{**cs.LARGE, "scene": path1m})
+        g1m = load_prims(cfg1m).build(dev)
+        cs1m = ic.CulledScene(g1m)
+        p = cs1m.parts[0]
+        cmin, cmax = p.cluster_min, p.cluster_max
+        rays = [("camera", *cs.swizzled_camera_rays(
+                    cs.scene_camera(cfg1m, dev), 256, 3, dev)),
+                ("bounce", *cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                        cs.N_RAYS, 4, dev))]
+        for rname, o, d in rays:
+            gate = ic.quarter_gate(cmin, cmax, o, d, 1e-4)
+            on = int(((gate[..., None] >> torch.arange(
+                4, device=dev, dtype=torch.int32)) & 1).sum())
+            ab(f"K5 1M {rname}",
+               lambda g=gate: ic.prepass_gated(cmin, cmax, g, o, d, 1e-4),
+               lambda g=gate: ic.prepass_plain(cmin, cmax, o, d, 1e-4,
+                                               gate=g), libs, 20, out,
+               graph=True)
+            out[f"K5 1M {rname}"].update(
+                quarters_on=on, quarters=4 * gate.numel(),
+                gated_pairs=on * 32 * 1024,
+                tested_pairs=cs.culled_pairs(cmin, cmax, o, d, 1e-4,
+                                             gate=gate))
+            full = torch.full_like(gate, 0xF)   # K5 with every quarter ON
+            ab(f"K5 1M {rname}, every quarter ON",
+               lambda: ic.prepass_gated(cmin, cmax, full, o, d, 1e-4),
+               lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-4), libs, 10,
+               out, graph=True)
+            ab(f"quarter gate + K5 1M {rname}",
+               lambda: ic.prepass_gated(cmin, cmax, ic.quarter_gate(
+                   cmin, cmax, o, d, 1e-4), o, d, 1e-4),
+               lambda: ic.prepass_plain(cmin, cmax, o, d, 1e-4), libs, 10,
+               out, graph=True)
+            for kname, fn, plain in (
+                    ("prepass_groups (each build's path)",
+                     lambda *a: ic.prepass_groups(*a), ic.prepass_plain),
+                    ("K4 dense", ic.prepass_dense, ic.prepass_plain),
+                    ("K10", lg.prepass_rows, lg.prepass_rows_plain),
+                    ("K8", lg.prepass_probe, lg.prepass_probe_plain)):
+                ab(f"{kname} 1M {rname}",
+                   lambda f=fn: f(cmin, cmax, o, d, 1e-4),
+                   lambda f=plain: f(cmin, cmax, o, d, 1e-4), libs, 10, out,
+                   graph=True)
+            out[f"K10 1M {rname}"]["tested_pairs"] = cs.culled_pairs(
+                cmin, cmax, o, d, 1e-4)
+        settings = {k: cs.LARGE[k] for k in ("width", "height", "max_depth",
+                                             "spp_per_pass", "ray_chunk")}
+        sorted_scene = ic.CulledScene(geom_large, sort_rays=True)
+        cam_l = scene_app.camera_ctrl.build(dev)
+        cam_1m = cs.scene_camera(cfg1m, dev)
+        passes = {
+            "stress100k CulledScene(sort_rays=True) (prepass)":
+                lambda: ProgressiveRenderer(
+                    geom_large, cam_l, RenderSettings(sort_rays=True,
+                                                      **settings),
+                    device=dev, seed=scene_app.config.seed,
+                    culled=sorted_scene),
+            "1M grouped pass": lambda: ProgressiveRenderer(
+                g1m, cam_1m, RenderSettings(**settings), device=dev,
+                seed=cfg1m.seed, culled=cs1m)}
+        for rnd in ("", " (again)"):      # two rounds of turns: the spread
+            for name, make in passes.items():
+                render_ab(name + rnd, make, libs, out)
+        for name, make in passes.items():
+            pass_profile(name, make, libs, out)
         save()
     print(json.dumps(out), flush=True)
     return 0

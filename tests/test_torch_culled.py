@@ -1,7 +1,8 @@
 """The port's cluster-culled backend against the JAX package's on the CPU.
 
 The host layout (`ops/cluster_layout.py`), the plain prepass (K4, and K5
-behind the quarter gate), the plain culled closest hit (K6) and any hit
+behind the quarter gate or every quarter ON; K5's and K10's register-tile
+design step by step), the plain culled closest hit (K6) and any hit
 (K7) of `ops/intersect_culled.py`, the renderer's tile swizzle and the
 App on the "culled" backend. JAX's Pallas kernels run in interpret mode
 (the package's `_pallas_call` interprets on the CPU), on one ray batch
@@ -184,7 +185,7 @@ def test_dense_prepass_plain_vs_jax(line_clusters, with_maxd):
 def test_gated_prepass_vs_dense_and_jax(line_clusters, monkeypatch,
                                         with_maxd):
     """With the gate threshold at one block in both packages, the gated
-    prepass (quarter gate + K5's plain version) equals the dense one and
+    prepass (K5's plain version, every quarter ON) equals the dense one and
     JAX's fused gated kernel, and the gates equal JAX's."""
     cmin, cmax, o, d = line_clusters
     maxd = _maxd(with_maxd)
@@ -226,7 +227,7 @@ def test_adversarial_prepass_vs_jax(monkeypatch, mode):
     tile, negative, NaN and infinite maxd, NaN padding origins, direction
     components under 1e-8, infinite direction and origin components, and
     boxes so far away that their slabs overflow to +-inf. The plain prepass
-    (dense, and gated behind the quarter gate) equals the JAX package's
+    (dense, and K5's with every quarter ON) equals the JAX package's
     bitwise."""
     cmin, cmax, o, d, maxd = chip_smoke.adversarial_prepass(N_PREPASS, 11)
     if mode == "rays":
@@ -248,6 +249,169 @@ def test_adversarial_prepass_vs_jax(monkeypatch, mode):
     np.testing.assert_array_equal(gate, np.asarray(ip._quarter_gate(
         jnp.asarray(cmin), jnp.asarray(cmax), comps, 1e-4, N_PREPASS,
         cmin.shape[0], 384, maxd=md)))
+
+
+TILE_RAYS = 4              # rays a thread holds in K5's and K10's kernel
+WARP_RAYS = 32 * TILE_RAYS  # one warp: a 128-ray row
+
+
+def _pack_pairs(bal):
+    """The kernel's pack_pairs on int64 ballots: bit j = bit 2j | 2j+1."""
+    x = (bal | (bal >> 1)) & 0x55555555
+    x = (x | (x >> 1)) & 0x33333333
+    x = (x | (x >> 2)) & 0x0F0F0F0F
+    x = (x | (x >> 4)) & 0x00FF00FF
+    return (x | (x >> 8)) & 0x0000FFFF
+
+
+def _as_i32(x):
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def tile_prepass(cmin, cmax, o, d, t_min, maxd=None, gate=None, rows=False,
+                 quarters=1):
+    """K5's (rows False) and K10's (rows True) register-tile design in
+    plain torch, step by step as the kernel takes it: spans of `quarters`
+    32-cluster quarters; boxes past c or with a NaN bound flagged; each
+    quarter's union box; the warp cull (a 128-ray warp whose rays all miss
+    an ON quarter's union skips it); per thread (4 rays) the OR of its hit
+    bits and the min of its entries; per warp one ballot and one min of
+    the entry bits; per block the 8 warps' min, row bits (K10) or pairs of
+    ballot bits packed into group words (K5); per ray the greatest exit
+    and (K10) the least (entry bits, id) walked in id order with a strict
+    <, both merged across spans by max / min as the atomics do. Returns
+    (prepass_plain's or prepass_rows_plain's outputs, the number of (warp,
+    ON quarter) pairs the cull skipped)."""
+    b = o.shape[0]
+    tiles = b // cl.RAYS_PER_TILE
+    c = cmin.shape[0]
+    cpad = cl.padded_clusters(c)
+    nqt = cpad // ic.QGRAN
+    span = quarters * ic.QGRAN
+    inv = ic._inv_dir(d)
+    decided = torch.isnan(o).any(dim=1) | (t_min != t_min)
+    md = None
+    if maxd is not None:                   # a decided segment's maxd: NaN
+        decided |= ~(maxd >= t_min)
+        md = torch.where(decided, torch.nan, maxd)
+    pad = torch.full((cpad - c, 3), torch.nan)
+    bmin, bmax = torch.cat([cmin, pad]), torch.cat([cmax, pad])
+    real = ~(torch.isnan(bmin).any(dim=1) | torch.isnan(bmax).any(dim=1))
+    qlo = torch.where(real[:, None], bmin, torch.inf).view(nqt, -1, 3).amin(1)
+    qhi = torch.where(real[:, None], bmax, -torch.inf).view(nqt, -1, 3).amax(1)
+    qreal = real.view(nqt, -1).any(dim=1)
+
+    def hits(lo, hi):   # torch's NaN-propagating min / max: the kernel's
+        tn, tf, h = ic._slab(lo, hi, o, inv, t_min)   # NaN-safe arithmetic
+        if md is not None:
+            h &= tn <= md[:, None]
+        return tn, tf, h
+
+    on = qreal[None, :].expand(tiles, nqt)
+    if gate is not None:
+        on = on & ((gate[..., None] >> torch.arange(ic.QPB, dtype=torch.int32))
+                   & 1).view(tiles, nqt).bool()
+    on = on.repeat_interleave(cl.RAYS_PER_TILE // WARP_RAYS, dim=0)
+    warp_on = on & hits(qlo, qhi)[2].view(-1, WARP_RAYS, nqt).any(dim=1)
+    culled = int((on & ~warp_on).sum())
+    tn, tf, h = hits(bmin, bmax)
+    h &= real[None, :] & warp_on.repeat_interleave(WARP_RAYS, dim=0) \
+        .repeat_interleave(ic.QGRAN, dim=1)
+    # per thread, then per warp (ballot, min of bits), then per block
+    ht = h.view(tiles, 8, 32, TILE_RAYS, cpad)
+    ent = torch.where(h, tn, torch.inf).view(torch.int32).view(ht.shape)
+    lane = torch.arange(32, dtype=torch.int64)[None, None, :, None]
+    bal = (ht.any(dim=3).to(torch.int64) << lane).sum(dim=2)  # (t, w, c)
+    tn_out = ent.amin(dim=3).amin(dim=2).amin(dim=1).view(torch.float32)
+    if rows:
+        bits = ((bal != 0).to(torch.int32)
+                << torch.arange(8, dtype=torch.int32)[None, :, None]).sum(
+                    dim=1, dtype=torch.int32)
+    else:
+        half = _pack_pairs(bal)
+        bits = _as_i32(half[:, 0::2] | (half[:, 1::2] << 16))
+    # per ray over a span, then across spans (the atomics)
+    texit = torch.full((b,), t_min, dtype=torch.float32).view(torch.int32)
+    best = torch.full((b,), (1 << 63) - 1, dtype=torch.int64)
+    for s0 in range(0, cpad, span):
+        sl = slice(s0, s0 + span)
+        ex = torch.where(h[:, sl], tf[:, sl], -torch.inf).amax(dim=1)
+        texit = torch.where(ex > 0, torch.maximum(texit, ex.view(torch.int32)),
+                            texit)
+        if rows:
+            bb = torch.full((b,), 2**32 - 1, dtype=torch.int64)
+            bid = torch.zeros(b, dtype=torch.int64)
+            for k in range(s0, min(s0 + span, cpad)):
+                e = tn[:, k].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+                upd = h[:, k] & (e < bb)
+                bb, bid = torch.where(upd, e, bb), torch.where(upd, k, bid)
+            key = torch.where(bb < 2**32 - 1, (bb << 32) | bid, (1 << 63) - 1)
+            best = torch.minimum(best, key)
+    texit = texit.view(torch.float32)
+    if rows:
+        return (bits, tn_out, texit,
+                (best & ic._INT_MAX).to(torch.int32)), culled
+    return (bits, tn_out, texit), culled
+
+
+def _tile_batch(batch, line_clusters):
+    """(cmin, cmax, o, d, maxd) as numpy for a tile-prepass case."""
+    if batch == "line":
+        cmin, cmax, o, d = line_clusters
+        return cmin, cmax, o, d, _maxd(True)
+    if batch == "adversarial":
+        return chip_smoke.adversarial_prepass(N_PREPASS, 11)
+    return chip_smoke.adversarial_tiles(13)
+
+
+@pytest.mark.parametrize("mode", ["rays", "segments"])
+@pytest.mark.parametrize("batch", ["line", "adversarial", "tiles"])
+def test_tile_prepass_design_equals_plain_and_jax(line_clusters, monkeypatch,
+                                                  batch, mode):
+    """K5's register-tile design (tile_prepass: 4 rays a thread, the warp
+    merges, the 8-warp block merge, the warp-level quarter cull, spans of
+    1, 2 and 4 quarters) behind the quarter gate equals the gated plain
+    prepass and the dense one bitwise, and with one-bit gate words the
+    gated plain prepass; the gate and the words equal the JAX package's
+    (its fused gated kernel in interpret mode, the gate from 1 block up).
+    The batches: line_clusters' rays, chip_smoke's adversarial_prepass
+    (NaN, infinite and under-1e-8 components, overflowing slabs, decided
+    warps) and adversarial_tiles (795 clusters, equal boxes, a warp partly
+    inside a union box, a warp the cull skips, 4 tiles)."""
+    cmin, cmax, o, d, maxd = _tile_batch(batch, line_clusters)
+    if mode == "rays":
+        maxd = None
+    args = [torch.from_numpy(x) for x in (cmin, cmax, o, d)]
+    tmd = None if maxd is None else torch.from_numpy(maxd)
+    gate = ic.quarter_gate(*args, 1e-4, tmd)
+    dense = ic.prepass_plain(*args, 1e-4, tmd)
+    gated = ic.prepass_plain(*args, 1e-4, tmd, gate=gate)
+    one = gate & -gate                     # the lowest ON quarter only
+    one_bit = ic.prepass_plain(*args, 1e-4, tmd, gate=one)
+    skipped = 0
+    for quarters in (1, 2, 4):
+        got, culled = tile_prepass(*args, 1e-4, tmd, gate, quarters=quarters)
+        skipped = max(skipped, culled)
+        for name, a, p, q in zip(("gmask", "tn", "texit"), got, gated, dense):
+            assert torch.equal(a, p) and torch.equal(a, q), (name, quarters)
+        got, _ = tile_prepass(*args, 1e-4, tmd, one, quarters=quarters)
+        for name, a, p in zip(("gmask", "tn", "texit"), got, one_bit):
+            assert torch.equal(a, p), (name, "one-bit", quarters)
+    assert (dense[0] != 0).any() and ((one != 0) & (one != gate)).any()
+    if batch == "tiles":
+        assert skipped > 0                 # the cull fires
+    c = cmin.shape[0]
+    cpad = cl.padded_clusters(c)
+    nan = np.full((cpad - c, 3), np.nan, np.float32)
+    jmin, jmax = np.concatenate([cmin, nan]), np.concatenate([cmax, nan])
+    monkeypatch.setattr(ip, "_GATE_MIN_BLOCKS", 1)
+    words, tn, texit, comps, md = _jax_prepass(jmin, jmax, o, d, maxd)
+    np.testing.assert_array_equal(gated[0].numpy(), words)
+    np.testing.assert_array_equal(gated[1].numpy(), tn)
+    np.testing.assert_array_equal(gated[2].numpy(), texit)
+    np.testing.assert_array_equal(gate.numpy(), np.asarray(ip._quarter_gate(
+        jnp.asarray(jmin), jnp.asarray(jmax), comps, 1e-4, N_PREPASS, cpad,
+        cpad, maxd=md)))
 
 
 # --- (c) closest hit ---------------------------------------------------------

@@ -40,6 +40,7 @@ import pytest
 import torch
 
 import chip_smoke
+import test_torch_culled as tc
 import tpu_pathtracer.ops.intersect_pallas as ip
 import tpu_pathtracer.ops.intersect_pallas_legacy as ipl
 from tpu_pathtracer.ops import cluster_layout as jcl
@@ -229,6 +230,77 @@ def test_row_bits_are_the_or_of_group_bits(case):
         dim=1, dtype=torch.int32)
     assert torch.equal(rowbits, want)
     assert torch.equal(tn, tn4) and torch.equal(texit, texit4)
+
+
+def test_row_tile_design_equals_plain_and_jax(case):
+    """K10's register-tile design (test_torch_culled.tile_prepass with
+    rows: 4 rays a thread, a warp's vote is a row bit, the warp cull,
+    the least (entry, id) walked in id order, spans of 1, 2 and 4
+    quarters) equals prepass_rows_plain and the JAX package's _prepass
+    (interpret mode) bitwise on the scene's camera, bounce and parked
+    rays."""
+    want = lg.prepass_rows(*_boxes(case), 1e-4)
+    for quarters in (1, 2, 4):
+        got, _ = tc.tile_prepass(*_boxes(case), 1e-4, rows=True,
+                                 quarters=quarters)
+        for name, a, b in zip(("rowbits", "tn", "texit", "c_best"), got,
+                              want):
+            assert torch.equal(a, b), (name, quarters)
+    rowbits, tn, texit, c_best = (x.numpy() for x in got)
+    c = case.n_clusters
+    shifts = 1 << np.arange(cl.DMA_ROWS)
+    np.testing.assert_array_equal(
+        rowbits[:, :c], ((case.pre[:, :c, :cl.DMA_ROWS] > 0) * shifts).sum(-1))
+    np.testing.assert_array_equal(tn[:, :c], case.pre[:, :c, cl.DMA_ROWS])
+    np.testing.assert_array_equal(texit, case.texit)
+    hit = _touched(c_best)
+    np.testing.assert_array_equal(c_best[hit], case.cbest[hit])
+
+
+@pytest.mark.parametrize("batch", ["adversarial", "tiles"])
+def test_row_tile_design_adversarial(batch):
+    """K10's register-tile design on chip_smoke's adversarial batches
+    (adversarial_prepass: NaN, infinite and under-1e-8 components,
+    overflowing slabs, NaN padding warps; adversarial_tiles: 795 clusters,
+    four equal boxes in one quarter, two quarters and two blocks whose
+    entries tie for c_best, a warp partly inside a union box, a warp the
+    cull skips) equals prepass_rows_plain bitwise, and the JAX package's
+    _prepass on the rays that touch a cluster (rows, tn and texit
+    everywhere; c_best where it touches one: INT_MAX here, 0 in JAX)."""
+    cmin, cmax, o, d, _ = (chip_smoke.adversarial_prepass(N, 11)
+                           if batch == "adversarial"
+                           else chip_smoke.adversarial_tiles(13))
+    args = [torch.from_numpy(x) for x in (cmin, cmax, o, d)]
+    want = lg.prepass_rows_plain(*args, 1e-4)
+    skipped = 0
+    for quarters in (1, 2, 4):
+        got, culled = tc.tile_prepass(*args, 1e-4, rows=True,
+                                      quarters=quarters)
+        skipped = max(skipped, culled)
+        for name, a, b in zip(("rowbits", "tn", "texit", "c_best"), got,
+                              want):
+            assert torch.equal(a, b), (name, quarters)
+    rowbits, tn, texit, c_best = (x.numpy() for x in want)
+    if batch == "tiles":
+        assert skipped > 0
+        inside = c_best[256:384]           # entered 4 equal boxes at t_min
+        assert (inside == 40).all() and (tn[0, [40, 41, 100, 700]] == 1e-4
+                                         ).all()
+    c = cmin.shape[0]
+    cpad = cl.padded_clusters(c)
+    nan = np.full((cpad - c, 3), np.nan, np.float32)
+    pre, jtexit, jbest, _, _ = ipl._prepass(
+        jnp.asarray(np.concatenate([cmin, nan])),
+        jnp.asarray(np.concatenate([cmax, nan])), jnp.asarray(o),
+        jnp.asarray(d), 1e-4)
+    pre = np.asarray(pre)
+    shifts = 1 << np.arange(cl.DMA_ROWS)
+    np.testing.assert_array_equal(
+        rowbits, ((pre[:, :, :cl.DMA_ROWS] > 0) * shifts).sum(-1))
+    np.testing.assert_array_equal(tn, pre[:, :, cl.DMA_ROWS])
+    np.testing.assert_array_equal(texit, np.asarray(jtexit))
+    hit = _touched(c_best)
+    np.testing.assert_array_equal(c_best[hit], np.asarray(jbest)[hit])
 
 
 def test_cluster_list_vs_jax(case):

@@ -24,9 +24,12 @@ Each query has a plain torch version beside its kernel:
 
   prepass_dense(...)       K4: the prepass over every cluster;
   prepass_gated(...)       K5: the same over the gate-ON 32-cluster
-                           quarters only (gate words from K4 run on the
-                           quarters' union boxes, `quarter_gate`); bitwise
-                           equal to K4, since a box that misses implies its
+                           quarters only; the kernel also skips a quarter
+                           for each 128-ray warp whose rays all miss the
+                           quarter's union box. Bitwise equal to K4 behind
+                           a conservative gate (`quarter_gate`: K4 run on
+                           the quarters' union boxes) or one with every
+                           quarter ON, since a box that misses implies its
                            members miss;
   closest_grouped(...)     K6: closest (t, original triangle id);
   occluded_grouped(...)    K7: any hit in 1e-5 < t < maxd whose primitive
@@ -96,7 +99,7 @@ KERNEL_SOURCES = ("cluster_prepass.cu", "grouped_closest.cu",
 QGRAN = 32                   # clusters per gate bit
 QPB = BLOCK_CLUSTERS // QGRAN  # gate bits per 128-cluster block
 WORDS = RAYS_PER_TILE // GROUP // 32   # 4 group-mask words per cluster
-_GATE_MIN_BLOCKS = 16        # gate the prepass from 16 blocks (2048 clusters)
+_GATE_MIN_BLOCKS = 16        # K5 from 16 blocks (2048 clusters), K4 below
 _SC = 8                      # clusters per supercluster schedule entry
 _SC_MIN_CLUSTERS = 1 << 30   # supercluster walk from this many clusters
 _INT_MAX = 0x7FFFFFFF
@@ -229,6 +232,8 @@ def _library(source: str) -> ctypes.CDLL:
         lib.tpt_prepass_rows.restype = i
         lib.tpt_prepass_probe.argtypes = [p, p, i, i, p, p, i, f, p, p]
         lib.tpt_prepass_probe.restype = i
+        lib.tpt_prepass_shape.argtypes = [i, i, i, p]
+        lib.tpt_prepass_shape.restype = i
     elif source == "row_closest.cu":
         fn = lib.tpt_row_closest
         fn.argtypes = [p, p, p, p, i, p, p, p, i, f, p, p, p, p, p, p]
@@ -298,7 +303,7 @@ def prepass_gated(cluster_min, cluster_max, gate, o, d, t_min, maxd=None):
     """K5: K4 restricted to each tile's gate-ON blocks and, within them,
     its ON 32-cluster quarters (bit q of gate[i, j]); OFF clusters get
     zero words and tn = inf. Bitwise equal to K4 when the gate is
-    `quarter_gate`'s."""
+    `quarter_gate`'s or has every quarter ON."""
     _check_prepass(cluster_min, cluster_max, o, d, maxd, gate)
     if o.device.type == "cpu":
         return prepass_plain(cluster_min, cluster_max, o, d, t_min, maxd,
@@ -360,11 +365,15 @@ def block_gate(cluster_min, cluster_max, o, d, t_min, maxd=None):
 
 
 def prepass_groups(cluster_min, cluster_max, o, d, t_min, maxd=None):
-    """The prepass as the culled queries run it: K5 behind the quarter
-    gate from _GATE_MIN_BLOCKS blocks of 128 clusters up, K4 below."""
+    """The prepass as the culled queries run it: K5 from _GATE_MIN_BLOCKS
+    blocks of 128 clusters up, K4 below. The JAX package puts its quarter
+    gate before K5; here K5 takes every quarter ON and its warp-level cull
+    (128 rays against a quarter's union box) does the gate's work, finer,
+    without the gate's K4 launch and glue. The result is the same."""
     nblk = padded_clusters(cluster_min.shape[0]) // BLOCK_CLUSTERS
     if nblk >= _GATE_MIN_BLOCKS:
-        gate = quarter_gate(cluster_min, cluster_max, o, d, t_min, maxd)
+        gate = torch.full((o.shape[0] // RAYS_PER_TILE, nblk), (1 << QPB) - 1,
+                          dtype=torch.int32, device=o.device)
         return prepass_gated(cluster_min, cluster_max, gate, o, d, t_min,
                              maxd)
     return prepass_dense(cluster_min, cluster_max, o, d, t_min, maxd)
