@@ -107,9 +107,14 @@ Phases, one line each (any failure raises and exits non-zero):
                K11 on adversarial_rows' tiles (camera rays, rows of padding
                rays, a count-0 tile, bounce rows) with K10's texit and
                with adversarial_texit's (a row forced open, one closed),
-               K10 and K11 on the 1M-triangle scene, K11's (t, original
-               id) against K6's and K2's on the sub-3 box; timed against
-               the plain versions in turns. Then stress100k through
+               K10, K11 and (on the bounce rays) K8 on the 1M-triangle
+               scene, K11's (t, original id) against K6's and K2's on the
+               sub-3 box, K9 on adversarial_masked's batch of the sub-3 box
+               (exact ties across the kernel's list parts, an all-zero
+               tile, a tile with one ON cluster, padding clusters ON,
+               padding rays); timed against the plain versions in turns,
+               K8 and K9 also by device time with their tested pairs.
+               Then stress100k through
                CulledScene(sort_rays=True) with RenderSettings(sort_rays=
                True) (K8, K10 and K11 once per wavefront iteration): one
                warm-up and 3 timed passes, the first pass bitwise equal to
@@ -154,8 +159,10 @@ sub-5 form-factor segments; K1, K2, K2-guide, K3, K4, K5, K6, K8, K10
 and K11 carry `device_ms` and their launch shape: `blocks`,
 `threads_per_block`, `shared_bytes_per_block`, `registers_per_thread`
 (K4, K5, K8 and K10 also `quarters_per_block`; K5 its `gated_pairs`
-and `tested_pairs` past the warp cull on the 1M bounce rays, K10 its
-`tested_pairs` on stress100k's), K11 the same for its
+and `tested_pairs` past the warp cull on the 1M bounce rays, K8 and K10
+their `tested_pairs` on stress100k's), K9 the same on stress100k's
+bounce rays with its `shares` of a tile's list and `tested_pairs`
+behind the mask, K11 the same for its
 sort (`sort_*`) and its stats on the bounce rays,
 `visited`, `scheduled` and `row_tests`; K6 its `slices`, `set_bits` and
 `bits_per_visit` on the bounce rays and at the 16,384 lanes
@@ -558,6 +565,48 @@ def adversarial_allpairs(geom, tri_pack, attr_pack, n: int, seed: int):
             torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
 
 
+def adversarial_masked(geom, tri_pack, seed: int):
+    """K9's hard cases, made from numpy on the pack's device: returns
+    (tri_pack, mask, o, d), 4096 rays in 4 tiles. The pack is an ordered
+    pack whose c real clusters hold c * 128 triangles (no padding row
+    among them) and whose padding clusters hold zero rows (t is NaN).
+    Cluster c - 1's rows take cluster 0's geometry (columns 0-11; their
+    original ids stay), so a ray that hits a triangle of cluster 0 hits
+    its copy at the same t and the lower original id must win. Tile 0:
+    rays from inside the scene's box at the centroids of cluster 0's
+    triangles, every real cluster ON (mask word 7): clusters 0 and c - 1
+    fall in different shares of the kernel's cut of the tile's list (parts
+    0 and 3 of one block's four, or two blocks' shares). Tile 1:
+    every word 0. Tile 2: one ON cluster (c // 2). Tile 3: about half the
+    real clusters and three padding clusters ON, its last 256 rays
+    padding rays (NaN origins, d = (1, 1, 1)). Tiles 1-3 hold uniform
+    bounce rays from inside the box."""
+    g = np.random.default_rng(seed)
+    dev = tri_pack.device
+    tp = tri_pack.cpu().numpy().copy()
+    cpad = tp.shape[0] // 128
+    c = geom.num_tris // 128
+    tp[(c - 1) * 128:c * 128, :12] = tp[:128, :12]
+    v0 = geom.tri_v0.cpu().numpy()
+    e1, e2 = geom.tri_e1.cpu().numpy(), geom.tri_e2.cpu().numpy()
+    corners = np.concatenate([v0, v0 + e1, v0 + e2])
+    lo, hi = corners.min(axis=0), corners.max(axis=0)
+    lo, hi = lo + 0.02 * (hi - lo), hi - 0.02 * (hi - lo)
+    n = 4096
+    o = (lo + (hi - lo) * g.random((n, 3))).astype(np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    ctr = (v0 + (e1 + e2) / 3)[tp[:128, 13].view(np.int32)]
+    d[:1024] = ctr[g.integers(0, 128, 1024)] - o[:1024]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[-256:], d[-256:] = np.nan, 1.0
+    mask = np.zeros((4, cpad), np.int32)
+    mask[0, :c] = 7
+    mask[2, c // 2] = 1
+    mask[3, :c] = g.random(c) < 0.5
+    mask[3, [c, c + 1, cpad - 1]] = 1
+    return tuple(torch.from_numpy(x).to(dev) for x in (tp, mask, o, d))
+
+
 def adversarial_grouped(geom, order, tri_pack, prepass, seed: int):
     """K6's hard cases on an ordered pack of at least two clusters, made
     from numpy on the pack's device: returns (tri_pack, gmask, o, d) for 4
@@ -810,6 +859,17 @@ def k2_shape(n_out: int, n: int) -> dict:
                      n_out, n, n=4)
     return dict(zip(("blocks", "threads_per_block", "shared_bytes_per_block",
                      "registers_per_thread"), v))
+
+
+def k9_shape(n: int) -> dict:
+    """K9's launch facts at n rays (closest_hit.cu), with the shares of a
+    tile's list it takes on this card."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+
+    v = launch_shape(ap._library("closest_hit.cu"),
+                     "tpt_closest_culled_shape", n, n=5)
+    return dict(zip(("blocks", "threads_per_block", "shared_bytes_per_block",
+                     "registers_per_thread", "shares"), v))
 
 
 def k11_shape(n_rays: int) -> dict:
@@ -1524,12 +1584,14 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
             int(k11[4].sum()) * 128 * 128 * PAIR_FLOPS, tri, *sched, o, d,
             k10[2], *k11[:3])
         times["K8"], times["K10"], times["K11"] = t8, t10, t11
+        tested = culled_pairs(cmin, cmax, o, d, 1e-4)   # K8's and K10's
         facts["K8"] = {"device_ms": device_ms(   # the bounce rays' stay
             lambda: lg.prepass_probe(cmin, cmax, o, d, 1e-4)),
+            "tested_pairs": tested,
             **prepass_shape(3, N_RAYS, cmin.shape[0])}
         facts["K10"] = {"device_ms": device_ms(
             lambda: lg.prepass_rows(cmin, cmax, o, d, 1e-4)),
-            "tested_pairs": culled_pairs(cmin, cmax, o, d, 1e-4),
+            "tested_pairs": tested,
             **prepass_shape(4, N_RAYS, cmin.shape[0])}
         facts["K11"] = {   # the bounce rays' stay
             "visited": int(k11[2].sum()), "scheduled": int(k11[3].sum()),
@@ -1541,11 +1603,16 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
             times["K9"] = time_pair(
                 lambda: lg.closest_culled_plain(tri, mask, o, d, 1e-4),
                 lambda: lg.closest_culled(tri, mask, o, d, 1e-4), reps=1)
-            bounds["K9"] = bound(
-                int(mask.sum()) * 1024 * 128 * PAIR_FLOPS, tri, mask, o, d,
-                *out["K9"])
+            pairs = int((mask != 0).sum()) * 1024 * 128
+            bounds["K9"] = bound(pairs * PAIR_FLOPS, tri, mask, o, d,
+                                 *out["K9"])
+            facts["K9"] = {"device_ms": device_ms(
+                lambda: lg.closest_culled(tri, mask, o, d, 1e-4), reps=3),
+                "tested_pairs": pairs,
+                **k9_shape(N_RAYS)}
             msg = (f", K9 {times['K9'][1]:.6f} vs plain {times['K9'][0]:.6f}"
-                   f" ms ({int(mask.sum())} (tile, cluster) mask words)")
+                   f" ms ({int(mask.sum())} (tile, cluster) mask words; "
+                   f"{facts['K9']})")
         phase("rows", f"stress100k ({c_real} clusters) {rname}: K8, K10, K11 "
               f"and K9 bitwise equal to plain {ok} (max |d| {errs}); K11 "
               f"visited {int(k11[2].sum())} of {int(k11[3].sum())} scheduled "
@@ -1607,6 +1674,13 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
                               part1m.tri_pack)
         k10 = lg.prepass_rows(cmin1, cmax1, o, d, 1e-4)
         p10 = lg.prepass_rows_plain(cmin1, cmax1, o, d, 1e-4)
+        more = ""
+        if rname == "bounce":        # prepass_probe_plain is p10's c_best
+            k8 = lg.prepass_probe(cmin1, cmax1, o, d, 1e-4)
+            more = f", K8 {torch.equal(k8, p10[3])}"
+            if not torch.equal(k8, p10[3]):
+                raise AssertionError("K8 differs from its plain version on "
+                                     "the 1M scene's bounce rays")
         sched = lg.cluster_list(k10[0], k10[1])
         k11 = lg.closest_rows(tri1, *sched, o, d, k10[2], 1e-4,
                               return_stats=True)
@@ -1619,7 +1693,7 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
         ms11 = time_call(
             lambda: lg.closest_rows(tri1, *sched, o, d, k10[2], 1e-4), reps=3)
         phase("rows", f"1M scene ({n1m} clusters) {rname}: K10 and K11 "
-              f"bitwise equal to plain {ok}; K11 visited "
+              f"bitwise equal to plain {ok}{more}; K11 visited "
               f"{int(k11[2].sum())} of {int(k11[3].sum())} scheduled, "
               f"{int(k11[4].sum())} (row, cluster) tests; K10 {ms10:.6f} ms, "
               f"K11 {ms11:.6f} ms per call")
@@ -1642,6 +1716,23 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
               f"equal to K6's and K2's {same}")
         if not same:
             raise AssertionError("K11 differs from K6 or K2 on the sub-3 box")
+
+    # K9 on its hard cases: exact ties across its list parts, an all-zero
+    # tile, a tile with one ON cluster, padding clusters and rays
+    p3 = rows3.parts[0]
+    tp9, mask9, o9, d9 = adversarial_masked(g3, p3.tri_pack, 21)
+    k9 = lg.closest_culled(tp9, mask9, o9, d9)
+    p9 = lg.closest_culled_plain(tp9, mask9, o9, d9)
+    torch.cuda.synchronize()
+    same = prepass_equal(k9, p9)
+    err["K9"] = max(err["K9"], *(max_abs_diff(a, b) for a, b in zip(k9, p9)))
+    phase("rows", f"K9 adversarial_masked (sub-3 box, 4 tiles, mask words "
+          f"ON per tile {(mask9 != 0).sum(dim=1).tolist()}): "
+          f"{int(torch.isfinite(k9[0]).sum())} hits; bitwise equal to plain "
+          f"{same}")
+    if not same:
+        raise AssertionError("K9 differs from its plain version on the "
+                             "adversarial masked batch (tolerance: bitwise)")
 
     # K9 on its own entry point, counted alone
     o, d = box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0), N_RAYS, 2, dev)
@@ -2462,8 +2553,8 @@ def main() -> int:
         {**entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
                  "cluster_prepass.cu", 45, rows["K8"], legacy),
          **facts["K8"]},
-        entry("K9 closest_culled (_kernel_culled)", "K9", "closest_hit.cu",
-              196, rows["K9"], legacy),
+        {**entry("K9 closest_culled (_kernel_culled)", "K9", "closest_hit.cu",
+                 196, rows["K9"], legacy), **facts["K9"]},
         {**entry("K10 prepass_rows (_kernel_prepass)", "K10",
                  "cluster_prepass.cu", 306, rows["K10"], legacy),
          **facts["K10"]},

@@ -59,10 +59,22 @@ in the turns baseline, this, this, baseline:
     torch.profiler per build (device time, busy share, the prepass
     kernels' time). The SASS of this checkout's cluster_prepass.cu goes to
     chiprun_out/cluster_prepass.sass, with its instruction count per
-    kernel.
+    kernel;
+  - K9 on stress100k's 65,536 bounce and camera rays behind their
+    per-tile cluster masks, by device time (with the mask's ON words, the
+    tested pairs and the spread of ON words over the tiles); the SASS of
+    this checkout's closest_hit.cu goes to chiprun_out/closest_hit.sass,
+    with its instruction count per kernel. A baseline whose
+    tpt_closest_culled takes no key scratch is called without it;
+  - the sweep (this checkout alone, no baseline call): K8 with its span
+    forced to 1, 2, 4 and 8 quarters on stress100k's and the 1M scene's
+    camera and bounce rays, and K9 with its blocks a (64 rays, tile)
+    forced to 1, 2, 4, 8 and 16 on stress100k's bounce and camera rays,
+    by device time (variant sources built under build/kernel_ab_sweep/).
 The sections, in this order (--cases picks some): segments (the sub-5
-segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass. Prints a
-line per case and,
+segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass, k9,
+sweep.
+Prints a line per case and,
 last, one JSON object with every number (also written to FILE, default
 chiprun_out/kernel_ab.json, after every section). Imports nothing of jax.
 """
@@ -74,6 +86,7 @@ import contextlib
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -88,7 +101,18 @@ SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
            "closest_hit.cu", "grouped_closest.cu", "any_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
 CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve", "k6",
-         "k3", "prepass")
+         "k3", "prepass", "k9", "sweep")
+# the sweep's variants of this checkout's sources: the line that picks a
+# launch parameter, its replacement, and the values forced
+SWEEPS = {
+    "cluster_prepass.cu": (    # K8's quarters a block
+        "  return span_quarters(tiles, cpad, max_quarters(kProbe), "
+        "kProbeBlocks);", "  return {};", (1, 2, 4, 8)),
+    "closest_hit.cu": (        # K9's blocks a (64 rays, tile)
+        "  return fewest_parts(kMostShares, kCulledAim,\n"
+        "                      [=](int shares) { return blocks * shares; });",
+        "  return {};", (1, 2, 4, 8, 16)),
+}
 
 
 class _Tolerant:
@@ -123,9 +147,26 @@ class _RowsWithoutScratch:
         return getattr(self._lib, name)
 
 
-def baseline_libraries(root: Path) -> dict:
-    """The baseline checkout's kernel libraries, built and declared as
-    this checkout's are."""
+class _CulledWithoutKeys:
+    """A closest_hit.cu build whose tpt_closest_culled takes no key scratch
+    (the one-block-a-tile-slice K9): the call drops that argument."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tpt_closest_culled.argtypes = [p, i, p, i, p, p, i, f, p, p, p]
+        lib.tpt_closest_culled.restype = i
+
+    def tpt_closest_culled(self, *args):
+        return self._lib.tpt_closest_culled(*args[:8], *args[9:])
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def baseline_libraries(root: Path, sources=SOURCES) -> dict:
+    """The baseline checkout's kernel libraries (of `sources`), built and
+    declared as this checkout's are."""
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.utils import cuda_build
@@ -136,12 +177,15 @@ def baseline_libraries(root: Path) -> dict:
         cuda_build.load = lambda src: _Tolerant(
             ctypes.CDLL(str(cuda_build.build(src).path)))
         libs = {}
-        for src in SOURCES:
+        for src in sources:
             mod = ap if src in ap.KERNEL_SOURCES else ic
             libs[src] = mod._library.__wrapped__(src)
             if src == "row_closest.cu" and isinstance(
                     libs[src].tpt_row_closest_shape, argparse.Namespace):
                 libs[src] = _RowsWithoutScratch(libs[src]._lib)
+            if src == "closest_hit.cu" and isinstance(
+                    libs[src].tpt_closest_culled_shape, argparse.Namespace):
+                libs[src] = _CulledWithoutKeys(libs[src]._lib)
         return libs
     finally:
         cuda_build.CSRC_DIR, cuda_build.load = saved
@@ -190,6 +234,44 @@ def quarter_gated_groups(cluster_min, cluster_max, o, d, t_min, maxd=None):
     gate = ic.quarter_gate(cluster_min, cluster_max, o, d, t_min, maxd)
     return ic.prepass_gated(cluster_min, cluster_max, gate, o, d, t_min,
                             maxd)
+
+
+def variant_library(src: str, text: str, tag: str):
+    """csrc/<src> with the source `text`, built under build/ and declared
+    as this checkout's is."""
+    from tpu_pathtracer_torch.utils.cuda_build import CSRC_DIR
+
+    root = HERE / "build" / "kernel_ab_sweep" / tag
+    csrc = root / "tpu_pathtracer_torch" / "csrc"
+    csrc.mkdir(parents=True, exist_ok=True)
+    for header in CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, csrc / header.name)
+    (csrc / src).write_text(text)
+    return baseline_libraries(root, (src,))[src]
+
+
+def sweep(src: str, calls: dict, out: dict) -> None:
+    """The device time of each call of `calls` under every variant of
+    SWEEPS[src], in the turns v1 .. vn, vn .. v1; outputs bitwise equal."""
+    from tpu_pathtracer_torch.utils.cuda_build import CSRC_DIR
+
+    line, form, values = SWEEPS[src]
+    text = (CSRC_DIR / src).read_text()
+    if line not in text:
+        raise AssertionError(f"{src}: the sweep's line is gone")
+    libs = {v: variant_library(src, text.replace(line, form.format(v)),
+                               f"{Path(src).stem}-{v}") for v in values}
+    for name, fn in calls.items():
+        ref, times = fn(), {v: [] for v in values}
+        for v in (*values, *values[::-1]):
+            with side("baseline", {src: libs[v]}):
+                if not equal(fn(), ref):
+                    raise AssertionError(f"{name}: variant {v} differs")
+                times[v].append(cs.device_ms(fn, 3 if "K9" in name else 20))
+        rec = {str(v): sum(t) / 2 for v, t in times.items()}
+        cs.phase("ab", f"sweep {name} ({src}, device ms by forced value): "
+                 f"{rec}")
+        out[f"sweep {name}"] = rec
 
 
 def equal(a, b) -> bool:
@@ -750,6 +832,61 @@ def main() -> int:
                 render_ab(name + rnd, make, libs, out)
         for name, make in passes.items():
             pass_profile(name, make, libs, out)
+        save()
+
+    if "k9" in cases:             # K9 at its entry point's shape
+        counts = sass_counts("closest_hit.cu",
+                             Path(args.out).parent / "closest_hit.sass")
+        cs.phase("ab", f"closest_hit.cu SASS instructions per kernel: "
+                 f"{counts}")
+        out["closest_hit_sass"] = counts
+        p = ic.CulledScene(geom_large, grouped=False).parts[0]
+        cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
+        rays = [("bounce", *cs.box_rays((-2.0, -1.05, -2.0),
+                                        (2.0, 2.5, 2.0), cs.N_RAYS, 2, dev)),
+                ("camera", *cs.swizzled_camera_rays(
+                    cs.scene_camera(scene_app.config, dev), 256, 1, dev))]
+        for rname, o, d in rays:
+            mask = lg.cluster_mask(cmin, cmax, o, d, 1e-4)
+            ab(f"K9 stress100k {rname}",
+               lambda m=mask: lg.closest_culled(tri, m, o, d, 1e-4),
+               lambda m=mask: lg.closest_culled_plain(tri, m, o, d, 1e-4),
+               libs, 3, out, graph=True)
+            on = (mask != 0).sum(dim=1)
+            out[f"K9 stress100k {rname}"].update(
+                on_words=int(on.sum()), tested_pairs=int(on.sum()) * 1024
+                * 128, tile_on_min=int(on.min()), tile_on_max=int(on.max()),
+                tile_on_mean=float(on.float().mean()))
+        save()
+
+    if "sweep" in cases:          # K8's span and K9's shares, forced
+        p = ic.CulledScene(geom_large, grouped=False).parts[0]
+        path1m = cs.generate_1m(os.path.join(HERE, "build", "stress1m"))
+        cfg1m = Config(**{**cs.LARGE, "scene": path1m})
+        p1 = ic.CulledScene(load_prims(cfg1m).build(dev),
+                            grouped=False).parts[0]
+        s100 = {"camera": cs.swizzled_camera_rays(
+                    cs.scene_camera(scene_app.config, dev), 256, 1, dev),
+                "bounce": cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                      cs.N_RAYS, 2, dev)}
+        r1m = {"camera": cs.swizzled_camera_rays(
+                   cs.scene_camera(cfg1m, dev), 256, 3, dev),
+               "bounce": cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                     cs.N_RAYS, 4, dev)}
+        k8 = {}
+        for sname, part, rays in (("stress100k", p, s100), ("1M", p1, r1m)):
+            for rname, (o, d) in rays.items():
+                k8[f"K8 {sname} {rname}"] = (
+                    lambda q=part, o=o, d=d: lg.prepass_probe(
+                        q.cluster_min, q.cluster_max, o, d, 1e-4))
+        sweep("cluster_prepass.cu", k8, out)
+        k9 = {}
+        for rname, (o, d) in s100.items():
+            mask = lg.cluster_mask(p.cluster_min, p.cluster_max, o, d, 1e-4)
+            k9[f"K9 stress100k {rname}"] = (
+                lambda m=mask, o=o, d=d: lg.closest_culled(p.tri_pack, m, o,
+                                                           d, 1e-4))
+        sweep("closest_hit.cu", k9, out)
         save()
     print(json.dumps(out), flush=True)
     return 0

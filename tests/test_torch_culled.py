@@ -269,19 +269,22 @@ def _as_i32(x):
 
 
 def tile_prepass(cmin, cmax, o, d, t_min, maxd=None, gate=None, rows=False,
-                 quarters=1):
-    """K5's (rows False) and K10's (rows True) register-tile design in
-    plain torch, step by step as the kernel takes it: spans of `quarters`
-    32-cluster quarters; boxes past c or with a NaN bound flagged; each
+                 quarters=1, probe=False):
+    """K5's (rows False), K10's (rows True) and K8's (probe True)
+    register-tile design in plain torch, step by step as the kernel takes
+    it: spans of `quarters` 32-cluster quarters (up to 8 for K8, 4
+    otherwise); boxes past c or with a NaN bound flagged; each
     quarter's union box; the warp cull (a 128-ray warp whose rays all miss
     an ON quarter's union skips it); per thread (4 rays) the OR of its hit
     bits and the min of its entries; per warp one ballot and one min of
     the entry bits; per block the 8 warps' min, row bits (K10) or pairs of
     ballot bits packed into group words (K5); per ray the greatest exit
     and (K10) the least (entry bits, id) walked in id order with a strict
-    <, both merged across spans by max / min as the atomics do. Returns
-    (prepass_plain's or prepass_rows_plain's outputs, the number of (warp,
-    ON quarter) pairs the cull skipped)."""
+    <, both merged across spans by max / min as the atomics do. K8 keeps
+    only the last: no ballot, no block merge, no texit. Returns
+    (prepass_plain's, prepass_rows_plain's or (prepass_probe_plain's,)
+    outputs, the number of (warp, ON quarter) pairs the cull skipped)."""
+    rows = rows or probe
     b = o.shape[0]
     tiles = b // cl.RAYS_PER_TILE
     c = cmin.shape[0]
@@ -347,6 +350,8 @@ def tile_prepass(cmin, cmax, o, d, t_min, maxd=None, gate=None, rows=False,
                 bb, bid = torch.where(upd, e, bb), torch.where(upd, k, bid)
             key = torch.where(bb < 2**32 - 1, (bb << 32) | bid, (1 << 63) - 1)
             best = torch.minimum(best, key)
+    if probe:
+        return ((best & ic._INT_MAX).to(torch.int32),), culled
     texit = texit.view(torch.float32)
     if rows:
         return (bits, tn_out, texit,

@@ -303,6 +303,59 @@ def test_row_tile_design_adversarial(batch):
     np.testing.assert_array_equal(c_best[hit], np.asarray(jbest)[hit])
 
 
+PROBE_SPANS = (1, 2, 4, 8)        # quarters a K8 block may take
+
+
+def test_probe_tile_design_equals_plain_and_jax(case):
+    """K8's register-tile design (test_torch_culled.tile_prepass with
+    probe: 4 rays a thread, the warp cull, each ray's least (entry, id)
+    walked in id order with a strict <, spans merged by min as the atomic
+    does) at spans of 1, 2, 4 and 8 quarters equals prepass_probe_plain
+    bitwise on the scene's camera, bounce and parked rays, and the JAX
+    package's _prepass_probe (interpret mode) where a ray touches a
+    cluster (INT_MAX here, 0 in JAX where it touches none)."""
+    want = lg.prepass_probe_plain(*_boxes(case), 1e-4)
+    for quarters in PROBE_SPANS:
+        (got,), _ = tc.tile_prepass(*_boxes(case), 1e-4, quarters=quarters,
+                                    probe=True)
+        assert torch.equal(got, want), quarters
+    got = got.numpy()
+    hit = _touched(got)
+    assert hit.any() and not hit.all()
+    np.testing.assert_array_equal(got[hit], case.probe[hit].astype(np.int64))
+
+
+@pytest.mark.parametrize("batch", ["adversarial", "tiles"])
+def test_probe_tile_design_adversarial(batch):
+    """K8's register-tile design on chip_smoke's adversarial batches at
+    spans of 1, 2, 4 and 8 quarters equals prepass_probe_plain bitwise,
+    and the JAX package's _prepass_probe where a ray touches a cluster.
+    In adversarial_tiles 128 rays start inside four equal boxes (clusters
+    40, 41, 100 and 700: one quarter, two quarters, two 128-cluster
+    blocks, and two spans at every width), entered at t_min: c_best must
+    be the lowest id, 40; and the cull skips a warp."""
+    cmin, cmax, o, d, _ = (chip_smoke.adversarial_prepass(N, 11)
+                           if batch == "adversarial"
+                           else chip_smoke.adversarial_tiles(13))
+    args = [torch.from_numpy(x) for x in (cmin, cmax, o, d)]
+    want = lg.prepass_probe_plain(*args, 1e-4)
+    skipped = 0
+    for quarters in PROBE_SPANS:
+        (got,), culled = tc.tile_prepass(*args, 1e-4, quarters=quarters,
+                                         probe=True)
+        skipped = max(skipped, culled)
+        assert torch.equal(got, want), quarters
+    if batch == "tiles":
+        assert skipped > 0 and (want[256:384] == 40).all()
+    jbest = np.asarray(ipl._prepass_probe(
+        jnp.asarray(cmin), jnp.asarray(cmax), jnp.asarray(o), jnp.asarray(d),
+        1e-4))
+    want = want.numpy()
+    hit = _touched(want)
+    assert hit.any() and not hit.all()
+    np.testing.assert_array_equal(want[hit], jbest[hit].astype(np.int64))
+
+
 def test_cluster_list_vs_jax(case):
     rowbits, tn, _, _ = lg.prepass_rows(*_boxes(case), 1e-4)
     count, keys, lostep = (x.numpy() for x in lg.cluster_list(rowbits, tn))
@@ -375,6 +428,146 @@ def test_masked_closest_plain_vs_jax(case):
     p = case.part
     t, orig = lg.closest_tuv_culled(p.tri_pack, *_boxes(case))
     _assert_matches_jax(case, t, orig, *case.culled)
+
+
+K9_WARPS = 4           # K9's warps a block, one share of the list each
+K9_BLOCK_RAYS = 64     # rays a K9 block: two a thread
+K9_WINDOW = 1024       # mask words K9 lists a round
+K9_SHARES = (1, 8, 32)  # blocks a (64 rays): 8 at 65,536 rays, 32 at 4,096
+
+
+def culled_design(tri_pack, mask, o, d, t_min=1e-4, window=K9_WINDOW,
+                  blocks=1):
+    """K9's design in plain torch, step by step as the kernel takes it.
+    `blocks` blocks (blockIdx.y) hold the same 64 rays of one tile (two a
+    thread: a ray's result does not depend on its lane). Per round of
+    `window` mask words, each block's 4 warps ballot their quarter of the
+    window and write their ON words after the earlier warps', so the
+    tile's list is in cluster order; the list is cut into blocks x 4
+    contiguous shares, share s taking entries [n s / S, n (s + 1) / S),
+    warp w of block y the share 4 y + w. Each share keeps a ray's least
+    (t, original id): over a cluster's 128 rows (closest_keys, a min in
+    any row order), then a strict < on the 64-bit key from cluster to
+    cluster. A block merges its warps' keys by min, the blocks merge by
+    min (the atomicMin), and the keys become (t, id). Returns ((t, id),
+    the clusters of each tile's shares)."""
+    assert cl.RAYS_PER_TILE % K9_BLOCK_RAYS == 0      # a block, one tile
+    tiles, cpad = mask.shape
+    n_shares = blocks * K9_WARPS
+    best = torch.full((o.shape[0],), ic._MISS_KEY, dtype=torch.int64)
+    every = torch.ones(cl.RAYS_PER_TILE, dtype=torch.bool)
+    tile_shares = []
+    for tile in range(tiles):
+        rays = slice(tile * cl.RAYS_PER_TILE, (tile + 1) * cl.RAYS_PER_TILE)
+        keys = torch.full((n_shares, cl.RAYS_PER_TILE), ic._MISS_KEY,
+                          dtype=torch.int64)
+        shares = [[] for _ in range(n_shares)]
+        for w0 in range(0, cpad, window):
+            quarter = window // K9_WARPS
+            listed = []
+            for warp in range(K9_WARPS):
+                words = mask[tile, w0 + warp * quarter:
+                             w0 + (warp + 1) * quarter]
+                listed += (w0 + warp * quarter
+                           + torch.nonzero(words != 0).flatten()).tolist()
+            n = len(listed)
+            for sh in range(n_shares):
+                for c in listed[n * sh // n_shares:n * (sh + 1) // n_shares]:
+                    k = ic.closest_keys(
+                        tri_pack[c * cl.TRI_CHUNK:(c + 1) * cl.TRI_CHUNK],
+                        o[rays], d[rays], t_min, every)
+                    keys[sh] = torch.where(k < keys[sh], k, keys[sh])
+                    shares[sh].append(c)
+        per_block = keys.view(blocks, K9_WARPS, -1).amin(dim=1)
+        best[rays] = per_block.amin(dim=0)
+        tile_shares.append(shares)
+    return ic.key_hits(best), tile_shares
+
+
+def test_masked_closest_design_vs_plain_and_jax(case):
+    """K9's design (culled_design) on the scene's per-tile cluster mask
+    equals closest_culled_plain bitwise, and the JAX package's
+    pallas_closest_tuv_culled (interpret mode) with the bars of the module
+    docstring."""
+    mask = lg.cluster_mask(*_boxes(case), 1e-4)
+    want = lg.closest_culled_plain(case.part.tri_pack, mask, case.o, case.d)
+    for blocks in K9_SHARES:
+        (t, orig), shares = culled_design(case.part.tri_pack, mask, case.o,
+                                          case.d, blocks=blocks)
+        assert torch.equal(t, want[0]) and torch.equal(orig, want[1])
+        assert all(sum(map(len, sh)) == int((mask[i] != 0).sum())
+                   for i, sh in enumerate(shares))
+    _assert_matches_jax(case, t, orig, *case.culled)
+
+
+def test_masked_closest_design_adversarial(monkeypatch):
+    """K9's design on chip_smoke's adversarial_masked batch (the sub-3
+    box; cluster 15 a copy of cluster 0's geometry, so tile 0's rays tie
+    exactly across the list's shares: parts 0 and 3 of one block, or two
+    blocks; an all-zero tile; a tile with one ON cluster; padding clusters
+    ON and NaN-origin padding rays) equals closest_culled_plain bitwise
+    with 1, 8 and 32 blocks a (64 rays), with the kernel's window and with
+    windows of 32 words (four rounds); and JAX's pallas_closest_tuv_culled
+    in interpret mode, given the same pack and mask, agrees with the bars
+    of the module docstring, ids compared as near ties where they differ
+    (JAX keeps the lower pack row, the port the lower original id)."""
+    jg, tg, _, _ = _scene("cbox_sub3")
+    part = ic.CulledScene(tg, grouped=False).parts[0]
+    tp, mask, o, d = chip_smoke.adversarial_masked(tg, part.tri_pack, 21)
+    want = lg.closest_culled_plain(tp, mask, o, d)
+    for window in (32, K9_WINDOW):
+        for blocks in K9_SHARES:
+            (t, orig), shares = culled_design(tp, mask, o, d, window=window,
+                                              blocks=blocks)
+            assert torch.equal(t, want[0]) and torch.equal(orig, want[1])
+    (t, orig), shares = culled_design(tp, mask, o, d)   # one block: 4 parts
+    c = tg.num_tris // cl.TRI_CHUNK
+    assert shares[0][0][0] == 0 and shares[0][-1][-1] == c - 1
+    assert not torch.isfinite(t[1024:2048]).any()       # tile 1: none ON
+    assert sum(shares[2], []) == [c // 2]
+    assert not torch.isfinite(t[-256:]).any() and (orig[-256:] == 0).all()
+    tpn = tp.numpy()
+    ids = tpn[:, 13].view(np.int32)
+    row_of = np.empty(tg.num_tris, np.int64)
+    row_of[ids[:tg.num_tris]] = np.arange(tg.num_tris)
+    hit0 = torch.isfinite(t[:1024]).numpy()
+    win_cluster = row_of[orig[:1024].numpy()[hit0]] // cl.TRI_CHUNK
+    # the tie goes each way: to cluster 0's id and to its copy's
+    assert (win_cluster == 0).any() and (win_cluster == c - 1).any()
+
+    jcs = ip.CulledScene(jg)
+    jtp = np.asarray(jcs.tri_pack).copy()
+    jtp[:12, (c - 1) * cl.TRI_CHUNK:c * cl.TRI_CHUNK] = jtp[:12,
+                                                            :cl.TRI_CHUNK]
+    monkeypatch.setattr(ipl, "_cluster_mask",
+                        lambda *a: jnp.asarray(mask.numpy())[:, None, :])
+    t_j, r_j = (np.asarray(x) for x in
+                ipl.pallas_closest_tuv_culled.__wrapped__(
+                    jnp.asarray(jtp), jcs.cluster_min, jcs.cluster_max,
+                    jnp.asarray(o.numpy()), jnp.asarray(d.numpy())))
+    t, orig = t.numpy(), orig.numpy()
+    fin = np.isfinite(t_j)
+    np.testing.assert_array_equal(np.isfinite(t), fin)
+    rows = tpn[np.where(fin, r_j, 0)].astype(np.float64)
+    o64, d64 = o.numpy().astype(np.float64), d.numpy().astype(np.float64)
+    mag = np.abs(rows[:, 6:9] * o64).sum(axis=1) + np.abs(rows[:, 11])
+    ds = np.abs((rows[:, 6:9] * d64).sum(axis=1))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tol = (ULP * np.spacing(np.abs(t_j))
+               + ULP * np.finfo(np.float32).eps * mag / ds)
+    assert (np.abs(t[fin].astype(np.float64) - t_j[fin]) <= tol[fin]).all()
+    i_jax = np.where(fin, ids[np.where(fin, r_j, 0)], 0)
+    differ = np.nonzero(orig != i_jax)[0]
+    assert differ.size > 0                    # the exact ties
+    # where the ids differ, JAX's row is a hit for the port too, at a t
+    # within the bar of the port's
+    at = torch.from_numpy(differ)
+    alt = ic.key_hits(ic.closest_keys(
+        torch.from_numpy(tpn[r_j[differ]])[:, None, :], o[at][:, None, :],
+        d[at][:, None, :], 1e-4,
+        torch.ones((differ.size, 1), dtype=torch.bool)))[0][:, 0].numpy()
+    assert (np.abs(alt.astype(np.float64) - t[differ])
+            <= 2 * tol[differ]).all()
 
 
 def test_row_walk_plain_vs_jax(case):

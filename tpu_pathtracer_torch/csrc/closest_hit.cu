@@ -14,11 +14,10 @@
 //                  intersect_pallas_legacy.py:196 (K9, via
 //                  pallas_closest_tuv_culled): closest (t, original id)
 //                  over an ordered pack of 128-row clusters, skipping each
-//                  cluster that the ray's 1024-ray tile masks off (the
-//                  mask is uniform over a block, so whole chunks are
-//                  skipped without a load); the least key (t bits << 32 |
-//                  original id, pack row 13), so on equal t the lowest
-//                  original id wins, as in K2 and K6.
+//                  cluster whose mask word for the ray's 1024-ray tile is
+//                  0; the least key (t bits << 32 | original id, pack
+//                  column 13), so on equal t the lowest original id wins,
+//                  as in K2 and K6.
 // The Python side is tpu_pathtracer_torch/ops/intersect_allpairs.py, whose
 // closest_tuv_plain / closest_record_plain are the plain torch versions of
 // the same function (ops/intersect_culled_legacy.py closest_culled_plain
@@ -65,8 +64,36 @@
 // 7.7 us: the merge and the attribute writes outweigh 16 pair tests a
 // thread).
 //
-// The design (K9) is the port's first one: one thread per ray, 128-row
-// chunks staged in shared memory between two barriers.
+// The design (K9) is K2's, over the tile's ON clusters. The mask is
+// uniform over a 1024-ray tile, so a block (4 warps, 64 rays of one tile,
+// two a thread) first lists its tile's ON clusters in shared memory: each
+// warp ballots its share of a window of 1,024 mask words, one barrier
+// publishes the warps' counts, each warp writes its entries after the
+// earlier warps', and a second barrier closes the list (one window at
+// stress100k's 896 padded clusters; larger packs take more rounds). The
+// list is cut into S x 4 contiguous shares of equal length, one a warp of
+// the S blocks (blockIdx.y) that hold the same 64 rays, so no warp spins
+// over OFF words and the shares differ by at most one cluster. A warp
+// walks its clusters' 128 rows with K2's loop (rows read through L1,
+// every lane at the same address, no barrier), keeping each ray's least
+// (t, original id): the id (pack column 13) is read only when an accepted
+// t is no greater than the ray's best, and on equal t the lower id wins.
+// The block's warps merge by the min of 64-bit keys in shared memory, the
+// S blocks by a 64-bit atomicMin into the wrapper's key buffer, and a
+// second small kernel writes t and id: every merge is a min, so the result
+// does not depend on the cut. S is the fewest power of two that gives the
+// grid 32 blocks an SM (culled_shares; at most 32): 8 at 65,536 rays,
+// 8,192 blocks. On the H100 at stress100k's 65,536 rays (kernel_ab.py
+// --cases sweep, device time, ms; S = 1, 2, 4, 8, 16) bounce 9.81, 9.00,
+// 8.31, 7.99, 7.85 and camera 1.09, 0.75, 0.63, 0.59, 0.63: one block a
+// (64 rays, tile) left the wave's end to the SMs that drew the fullest
+// tiles (ON words per tile 423-525 on the bounce rays, 0-96 on the camera
+// rays); the sweep forces S by replacing culled_shares' return line as
+// text (kernel_ab.py's SWEEPS holds it exactly). The pair test runs ~58 instructions on the loop's usual path
+// (116 a row of two rays, no id read), so the floor at ~4.0e9 masked pairs
+// is ~7.0 ms. The design replaces the port's first one: one thread a ray,
+// 128-thread blocks, 128-row chunks staged in shared memory between two
+// barriers, every mask word read by every thread.
 //
 // Semantics kept exactly from the Pallas kernels: the affine arithmetic in
 // their op order (os = c6*ox + c7*oy + c8*oz - c11, t = -os/ds, ...); the
@@ -76,6 +103,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;            // warps per block (K1, K2): row parts
@@ -84,9 +113,11 @@ constexpr int kBlockRays = 64;       // two rays a thread
 constexpr int kTriCols = 16;         // floats per triangle row
 constexpr int kAttrs = 11;           // shading attribute rows of a record
 constexpr int kAttrCols = 16;        // rows of the plain attribute pack
-constexpr int kChunk = 128;          // triangle rows staged per step (K9)
-constexpr int kRowVec = 4;           // float4s staged per row (K9)
+constexpr int kChunk = 128;          // rows per cluster (K9)
 constexpr int kTile = 1024;          // rays per cull-mask tile (K9)
+constexpr int kWindow = 1024;        // mask words listed per round (K9)
+constexpr int kCulledAim = 32;       // K9 blocks an SM to aim at
+constexpr int kMostShares = 32;      // K9's most shares of a list
 constexpr unsigned long long kMissKey = 0x7f8000007fffffffull;  // inf, max id
 
 // One ray-triangle pair in the Pallas op order: writes t, returns accepted.
@@ -197,44 +228,126 @@ closest_kernel(const float4* __restrict__ tri, const float* __restrict__ attr,
   }
 }
 
-// K9: one thread per ray, the tile's mask skipping whole clusters.
-__global__ void __launch_bounds__(kChunk)
-culled_kernel(const float* __restrict__ tri, int tpad,
-              const float* __restrict__ o, const float* __restrict__ d,
-              int n, float t_min, const int* __restrict__ mask, int cpad,
-              float* __restrict__ t_out, int* __restrict__ id_out) {
-  __shared__ float4 rows[kChunk * kRowVec];
+// K9: a block is 4 warps sharing 64 rays of one tile, two a thread; the
+// tile's ON clusters are listed in shared memory, kWindow mask words a
+// round, and each round's list is cut into gridDim.y * kWarps contiguous
+// shares, one a warp (blockIdx.y picks the block's kWarps). The block's
+// least key of a ray goes into best with a 64-bit atomicMin.
+__global__ void __launch_bounds__(kThreads)
+culled_kernel(const float4* __restrict__ tri, const int* __restrict__ mask,
+              int cpad, const float* __restrict__ o,
+              const float* __restrict__ d, float t_min,
+              unsigned long long* __restrict__ best) {
+  __shared__ unsigned long long keys[kWarps][kBlockRays];
+  __shared__ int list[kWindow];
+  __shared__ int counts[kWarps];
 
-  const int i = blockIdx.x * kChunk + threadIdx.x;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  unsigned long long best_key = kMissKey;
-  const float4* tri4 = reinterpret_cast<const float4*>(tri);
-  const int* tile_mask =
-      mask + static_cast<size_t>(blockIdx.x * kChunk / kTile) * cpad;
+  const int lane = threadIdx.x & 31;
+  const int part = threadIdx.x >> 5;
+  const int share = blockIdx.y * kWarps + part;
+  const int shares = gridDim.y * kWarps;
+  const int first = blockIdx.x * kBlockRays;   // the block lies in one tile
+  const int i0 = first + lane, i1 = first + 32 + lane;   // n % 1024 == 0
+  const float o0x = o[3 * i0], o0y = o[3 * i0 + 1], o0z = o[3 * i0 + 2];
+  const float d0x = d[3 * i0], d0y = d[3 * i0 + 1], d0z = d[3 * i0 + 2];
+  const float o1x = o[3 * i1], o1y = o[3 * i1 + 1], o1z = o[3 * i1 + 2];
+  const float d1x = d[3 * i1], d1y = d[3 * i1 + 1], d1z = d[3 * i1 + 2];
+  const int* tile_mask = mask + static_cast<size_t>(first / kTile) * cpad;
+  const unsigned below = (1u << lane) - 1u;
 
-  for (int base = 0; base < tpad; base += kChunk) {
-    if (tile_mask[base / kChunk] == 0) continue;  // uniform
-    __syncthreads();  // the previous chunk is no longer read
-    for (int k = threadIdx.x; k < kChunk * kRowVec; k += kChunk) {
-      const int r = k / kRowVec;
-      rows[k] = tri4[(base + r) * (kTriCols / 4) + (k - r * kRowVec)];
+  // each ray's least (t, original id): t first, the id (pack column 13)
+  // read only for a t no greater than the best
+  const float inf = __int_as_float(0x7f800000);
+  float bt0 = inf, bt1 = inf;
+  int bi0 = 0x7fffffff, bi1 = 0x7fffffff;
+  for (int w0 = 0; w0 < cpad; w0 += kWindow) {
+    // list the window's ON words in order: warp p ballots words w0 + p *
+    // kWindow / kWarps .. and writes its entries after the earlier warps'
+    constexpr int kScan = kWindow / kWarps / 32;   // ballots a warp
+    unsigned bal[kScan];
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < kScan; ++k) {
+      const int w = w0 + (part * kScan + k) * 32 + lane;
+      bal[k] = __ballot_sync(0xffffffffu, w < cpad && tile_mask[w] != 0);
+      mine += __popc(bal[k]);
     }
-    __syncthreads();
-    for (int r = 0; r < kChunk; ++r) {
-      float t;
-      if (pair_test(rows[r * kRowVec], rows[r * kRowVec + 1],
-                    rows[r * kRowVec + 2], ox, oy, oz, dx, dy, dz, t_min,
-                    t)) {
-        const unsigned long long key =
-            hit_key(t, __float_as_int(rows[r * kRowVec + 3].y));
-        if (key < best_key) best_key = key;
+    if (lane == 0) counts[part] = mine;
+    __syncthreads();                  // counts set; the last list is read
+    int at = 0, total = 0;
+#pragma unroll
+    for (int p = 0; p < kWarps; ++p) {
+      at += p < part ? counts[p] : 0;
+      total += counts[p];
+    }
+#pragma unroll
+    for (int k = 0; k < kScan; ++k) {
+      const int w = w0 + (part * kScan + k) * 32 + lane;
+      if ((bal[k] >> lane) & 1u) list[at + __popc(bal[k] & below)] = w;
+      at += __popc(bal[k]);
+    }
+    __syncthreads();                  // the list is complete
+    // this warp's share of the list; rows of a cluster in ascending order
+    const int lo = total * share / shares;
+    const int hi = total * (share + 1) / shares;
+    for (int e = lo; e < hi; ++e) {
+      const float4* rows = tri + static_cast<size_t>(list[e]) * kChunk *
+                                     (kTriCols / 4);
+#pragma unroll 4
+      for (int r = 0; r < kChunk; ++r) {
+        const float4* row = rows + r * (kTriCols / 4);
+        const float4 a = __ldg(row);      // c0 c1 c2 c3
+        const float4 b = __ldg(row + 1);  // c4 c5 c6 c7
+        const float4 c = __ldg(row + 2);  // c8 c9 c10 c11
+        float t0, t1;
+        const bool ok0 = pair_test(a, b, c, o0x, o0y, o0z, d0x, d0y, d0z,
+                                   t_min, t0);
+        const bool ok1 = pair_test(a, b, c, o1x, o1y, o1z, d1x, d1y, d1z,
+                                   t_min, t1);
+        if ((ok0 && t0 <= bt0) || (ok1 && t1 <= bt1)) {
+          const int id = __ldg(reinterpret_cast<const int*>(row) + 13);
+          if (ok0 && (t0 < bt0 || (t0 == bt0 && id < bi0))) {
+            bt0 = t0;
+            bi0 = id;
+          }
+          if (ok1 && (t1 < bt1 || (t1 == bt1 && id < bi1))) {
+            bt1 = t1;
+            bi1 = id;
+          }
+        }
       }
     }
   }
-  const float t = __uint_as_float(static_cast<unsigned>(best_key >> 32));
+  keys[part][lane] = isinf(bt0) ? kMissKey : hit_key(bt0, bi0);
+  keys[part][32 + lane] = isinf(bt1) ? kMissKey : hit_key(bt1, bi1);
+  __syncthreads();
+  if (threadIdx.x < kBlockRays) {
+    const int q = threadIdx.x;
+    unsigned long long key = keys[0][q];
+#pragma unroll
+    for (int p = 1; p < kWarps; ++p) key = min(key, keys[p][q]);
+    if (key != kMissKey) atomicMin(&best[first + q], key);
+  }
+}
+
+// K9's last step: t and id (0 on a miss) of each ray's least key.
+__global__ void hits_kernel(const unsigned long long* __restrict__ best,
+                            int n, float* __restrict__ t_out,
+                            int* __restrict__ id_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long key = best[i];
+  const float t = __uint_as_float(static_cast<unsigned>(key >> 32));
   t_out[i] = t;
-  id_out[i] = isinf(t) ? 0 : static_cast<int>(best_key & 0x7fffffffu);
+  id_out[i] = isinf(t) ? 0 : static_cast<int>(key & 0x7fffffffu);
+}
+
+// K9's shares of a tile's list: the fewest (1, 2, 4, .. kMostShares) that
+// give the grid kCulledAim blocks an SM.
+int culled_shares(int n) {
+  const long long blocks = n / kBlockRays;
+  return fewest_parts(kMostShares, kCulledAim,
+                      [=](int shares) { return blocks * shares; });
 }
 
 template <int N_OUT>
@@ -298,19 +411,43 @@ int tpt_closest_shape(int n_out, int n, int* out) {
 }
 
 // Closest (t, original triangle id) per ray over an ordered pack of
-// 128-row clusters (row 13 the original id), skipping each cluster whose
+// 128-row clusters (column 13 the original id), skipping each cluster whose
 // mask word for the ray's 1024-ray tile is 0 (the K9 instance): mask
-// (n / 1024, cpad) i32, tpad = 128 * cpad, n a multiple of 1024. On equal t
+// (n / 1024, cpad) i32, tpad = 128 * cpad, n a multiple of 1024; best (n,)
+// u64 scratch holding the miss key 0x7f8000007fffffff on entry. On equal t
 // the lowest original id wins; on a miss t = inf, id = 0.
 int tpt_closest_culled(const float* tri, int tpad, const int* mask, int cpad,
                        const float* o, const float* d, int n, float t_min,
-                       float* t_out, int* id_out, void* stream) {
+                       long long* best, float* t_out, int* id_out,
+                       void* stream) {
   if (n % kTile || tpad != cpad * kChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  culled_kernel<<<n / kChunk, kChunk, 0, static_cast<cudaStream_t>(stream)>>>(
-      tri, tpad, o, d, n, t_min, mask, cpad, t_out, id_out);
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(best);
+  culled_kernel<<<dim3(n / kBlockRays, culled_shares(n)), kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(tri), mask, cpad, o, d, t_min, keys);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hits_kernel<<<(n + 255) / 256, 256, 0, s>>>(keys, n, t_out, id_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The K9 launch shape at n rays (a multiple of 1024): out[0..4] = blocks,
+// threads a block, static shared bytes a block, registers a thread and
+// the shares of a tile's list (blockIdx.y). Returns a CUDA error code.
+int tpt_closest_culled_shape(int n, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, culled_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int shares = culled_shares(n);
+  out[0] = n / kBlockRays * shares;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.numRegs;
+  out[4] = shares;
+  return 0;
 }
 
 const char* tpt_error_string(int code) {

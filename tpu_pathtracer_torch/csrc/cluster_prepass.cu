@@ -6,17 +6,17 @@
 //                      _kernel_prepass_groups_seg (K4, the dense grid form,
 //                      reached through _prepass_groups below 16 blocks of
 //                      128 clusters, and inside _quarter_gate at any size);
-//   tile_kernel<false, *>  -> _kernel_prepass_groups_fused (+ _plain /
+//   tile_kernel<kGroupWords, *> -> _kernel_prepass_groups_fused (+ _plain /
 //                      _seg) (K5, the gated form): only a tile's gate-ON
 //                      32-cluster quarters are tested; everything else
 //                      keeps the empty result (no group bit, tn = inf, no
 //                      texit). The culled queries pass every quarter ON:
 //                      the kernel's warp cull does _quarter_gate's work;
 // and of tpu_pathtracer/ops/intersect_pallas_legacy.py:
-//   tile_kernel<true, false> -> _kernel_prepass (K10, via _prepass, feeding
-//             _cluster_list): 8 row bits instead of 128 group bits, and
-//             c_best;
-//   prepass_kernel<kProbe> -> _kernel_prepass_probe (K8, via
+//   tile_kernel<kRowBits, false> -> _kernel_prepass (K10, via _prepass,
+//             feeding _cluster_list): 8 row bits instead of 128 group bits,
+//             and c_best;
+//   tile_kernel<kProbe, false> -> _kernel_prepass_probe (K8, via
 //             _prepass_probe): c_best only.
 // The Python side is tpu_pathtracer_torch/ops/intersect_culled.py, whose
 // prepass_plain is the plain torch version of K4 and K5, and
@@ -50,7 +50,7 @@
 // Under -fmad=false a pair is ~28-35 instructions, so the floor is the pair
 // count over ~3.3e13 instructions a second.
 //
-// K4 and K8 (prepass_kernel): one block is one (tile, 128-cluster block),
+// K4 (prepass_kernel): one block is one (tile, 128-cluster block),
 // 1024 threads, one per ray, the block's 128 boxes in shared memory. A
 // warp's four 8-ray groups fold into a 4-bit nibble with one __ballot_sync
 // per pair, its least entry with one __reduce_min_sync on the entry's bits
@@ -62,7 +62,8 @@
 // are all decided (NaN origin; in segment mode maxd < t_min or NaN) skips
 // the loop.
 //
-// K5 and K10 (tile_kernel): register tiles instead of per-pair warp work.
+// K5, K10 and K8 (tile_kernel): register tiles instead of per-pair warp
+// work.
 //   * A thread holds 4 rays (half an 8-ray group: 4 origins and inverse
 //     directions in registers) and walks the span's boxes from shared
 //     memory; its hit bit and least entry for a cluster are an OR and a
@@ -93,12 +94,30 @@
 //   * Decided rays: in segment mode maxd is replaced by NaN (the entry test
 //     fails); in ray mode (NaN origins) a warp holding one runs the
 //     NaN-propagating arithmetic, and a warp of decided rays skips.
-//   * K10 keeps each ray's least (entry bits, cluster id) in registers:
-//     clusters are walked in id order, so a strictly smaller entry wins and
-//     equal entries keep the lower id; one 64-bit atomicMin per ray and
-//     span with a hit.
+//   * K10 and K8 keep each ray's least (entry bits, cluster id) in
+//     registers: clusters are walked in id order, so a strictly smaller
+//     entry wins and equal entries keep the lower id; one 64-bit atomicMin
+//     per ray and span with a hit.
+//   * K8 (kProbe) has no per-cluster output: no ballot, no warp min, no
+//     block merge and no shared merge arrays; a pair is the slab, the hit
+//     test and the key compare (122 SASS instructions a cluster of 4
+//     rays, ~30.5 a pair, against K10's 147). Without the merge a span may
+//     take up to 8 quarters (one union box a warp); the span is the most
+//     quarters that still give the grid 16 blocks an SM (probe_quarters).
+//     On the H100 (kernel_ab.py --cases sweep, device time, ms; spans of
+//     1, 2, 4, 8 quarters) stress100k's bounce rays took 0.084, 0.088,
+//     0.097, 0.098 and its camera rays 0.041, 0.046, 0.058, 0.081 (64
+//     tiles x 28 quarters: one quarter, 1,792 blocks); the 1M scene's
+//     bounce rays 0.479, 0.442, 0.432, 0.438 and camera rays 0.127,
+//     0.095, 0.092, 0.109 (248 quarters: four, 3,968 blocks). Wider spans
+//     leave SMs idle at the end of the grid; a block per quarter repeats
+//     the rays' loads and divisions too often on the 1M scene. The sweep
+//     forces the span by replacing probe_quarters' return line as text
+//     (kernel_ab.py's SWEEPS holds it exactly): change both together.
 
 #include <cuda_runtime.h>
+
+#include "launch_grid.cuh"
 
 namespace {
 
@@ -111,10 +130,18 @@ constexpr int kRays = 4;               // tile_kernel: rays per thread
 constexpr int kTileThreads = kTile / kRays;       // 256: one tile
 constexpr int kTileWarps = kTileThreads / 32;     // 8: one 128-ray row each
 constexpr int kSpanBlocks = 8;         // tile_kernel blocks an SM to aim at
+constexpr int kProbeBlocks = 16;       // K8's aim (probe_quarters)
 constexpr unsigned kInfBits = 0x7f800000u;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kGroups = 0, kProbe = 1 };
+// tile_kernel's outputs: K5's group words, K10's row bits, K8's c_best only
+enum TileMode { kGroupWords = 0, kRowBits = 1, kProbe = 2 };
+
+// The most quarters a tile_kernel block takes: one 128-cluster gate word
+// and block merge, or for K8 one quarter a warp (its union box).
+__host__ __device__ constexpr int max_quarters(int mode) {
+  return mode == kProbe ? kTileWarps : kBlock / kQuarter;
+}
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -177,16 +204,13 @@ __device__ __forceinline__ float inv_dir(float x) {
   return 1.0f / (fabsf(x) > 1e-8f ? x : 1e-8f);
 }
 
-// K4 (kGroups) and K8 (kProbe): one thread per ray, one block per (tile,
-// 128-cluster block).
-template <int MODE>
+// K4: one thread per ray, one block per (tile, 128-cluster block).
 __global__ void __launch_bounds__(kTile)
 prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
                int c, int cpad, const float* __restrict__ o,
                const float* __restrict__ d, const float* __restrict__ maxd,
                float t_min, int* __restrict__ gmask,
-               float* __restrict__ tn_out, unsigned* __restrict__ texit,
-               unsigned long long* __restrict__ cbest) {
+               float* __restrict__ tn_out, unsigned* __restrict__ texit) {
   // box[k][0] = (min, 1 if a bound is NaN else 0), box[k][1] = (max, 0)
   __shared__ float4 box[kBlock][2];
   __shared__ unsigned char nib[kWarps][kBlock];
@@ -236,7 +260,6 @@ prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
       kFull, !decided & !(isfinite(ox) & isfinite(oy) & isfinite(oz) &
                           isfinite(dx) & isfinite(dy) & isfinite(dz)));
   float ex = __int_as_float(0xff800000);     // -inf: no box hit yet
-  unsigned long long best = ~0ull;           // no box hit yet
   for (int q = 0; q < kBlock / kQuarter; ++q) {
     unsigned my_bal = 0u;                    // lane k: cluster q*32+k's
     unsigned my_tn = kInfBits;
@@ -255,13 +278,6 @@ prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
         }
         bool hit = !decided & (lo.w == 0.f) & (tf >= tn) & (tf > 0.f);
         if (maxd) hit = hit & (tn <= md);
-        if (MODE == kProbe) {
-          const unsigned long long key =
-              (static_cast<unsigned long long>(__float_as_uint(tn)) << 32) |
-              static_cast<unsigned>(c0 + cl);
-          if (hit && key < best) best = key;
-          continue;
-        }
         const unsigned bal = __ballot_sync(kFull, hit);
         const unsigned tmin = __reduce_min_sync(
             kFull, hit ? __float_as_uint(tn) : kInfBits);
@@ -272,18 +288,12 @@ prepass_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
         }
       }
     }
-    if (MODE == kGroups) {
-      nib[warp][q * kQuarter + lane] = static_cast<unsigned char>(
-          ((my_bal & 0x000000ffu) ? 1 : 0) |
-          ((my_bal & 0x0000ff00u) ? 2 : 0) |
-          ((my_bal & 0x00ff0000u) ? 4 : 0) |
-          ((my_bal & 0xff000000u) ? 8 : 0));
-      tnw[warp][q * kQuarter + lane] = my_tn;
-    }
-  }
-  if (MODE == kProbe) {                      // no per-cluster output
-    if (best != ~0ull) atomicMin(&cbest[ray], best);
-    return;
+    nib[warp][q * kQuarter + lane] = static_cast<unsigned char>(
+        ((my_bal & 0x000000ffu) ? 1 : 0) |
+        ((my_bal & 0x0000ff00u) ? 2 : 0) |
+        ((my_bal & 0x00ff0000u) ? 4 : 0) |
+        ((my_bal & 0xff000000u) ? 8 : 0));
+    tnw[warp][q * kQuarter + lane] = my_tn;
   }
   if (ex > 0.f) atomicMax(&texit[ray], __float_as_uint(ex));
   __syncthreads();
@@ -344,8 +354,9 @@ __device__ __forceinline__ bool some_hit(const Rays& g, const float4& lo,
 
 // One quarter's kc clusters (boxes bx[0 .. kc)) against a warp's rays:
 // lane k ends with cluster k's ballot (bit l: some ray of lane l hits) and
-// least entry bits.
-template <bool NAN_SAFE, bool ROWS, bool HAS_MAXD>
+// least entry bits (K5, K10); K10 and K8 fold each hit into the ray's
+// least (entry bits, cluster id), K8 nothing else.
+template <bool NAN_SAFE, int MODE, bool HAS_MAXD>
 __device__ __forceinline__ void quarter(Rays& g, const float4 (*bx)[2],
                                         int kc, int cl0, float t_min,
                                         int lane, unsigned& my_bal,
@@ -363,12 +374,14 @@ __device__ __forceinline__ void quarter(Rays& g, const float4 (*bx)[2],
                             g.iy[r], g.iz[r], t_min, tn, tf);
         bool h = (tf >= tn) & (tf > 0.f);
         if (HAS_MAXD) h = h & (tn <= g.md[r]);
-        any |= h;
-        if (h) {
-          tmin = fminf(tmin, tn);
-          g.ex[r] = fmaxf(g.ex[r], tf);
+        if (MODE != kProbe) {
+          any |= h;
+          if (h) {
+            tmin = fminf(tmin, tn);
+            g.ex[r] = fmaxf(g.ex[r], tf);
+          }
         }
-        if (ROWS) {
+        if (MODE != kGroupWords) {
           const unsigned b = __float_as_uint(tn);
           if (h && b < g.bb[r]) {
             g.bb[r] = b;
@@ -377,19 +390,32 @@ __device__ __forceinline__ void quarter(Rays& g, const float4 (*bx)[2],
         }
       }
     }
-    const unsigned bal = __ballot_sync(kFull, any);
-    const unsigned tw = __reduce_min_sync(kFull, __float_as_uint(tmin));
-    if (lane == k) {
-      my_bal = bal;
-      my_tn = tw;
+    if (MODE != kProbe) {
+      const unsigned bal = __ballot_sync(kFull, any);
+      const unsigned tw = __reduce_min_sync(kFull, __float_as_uint(tmin));
+      if (lane == k) {
+        my_bal = bal;
+        my_tn = tw;
+      }
     }
   }
 }
 
-// K5 (ROWS false, gate words) and K10 (ROWS true, no gate, no maxd): one
-// block is one tile (256 threads, 4 rays each) against a span of nq
-// 32-cluster quarters, blockIdx.x = the span.
-template <bool ROWS, bool HAS_MAXD>
+// The block merge's arrays: per warp and cluster of the span, the ballot
+// and the least entry bits. K8 has no per-cluster output and none.
+template <int MODE>
+struct BlockMerge {
+  unsigned tnw[kTileWarps][kBlock];
+  unsigned balw[kTileWarps][kBlock];
+};
+template <>
+struct BlockMerge<kProbe> {};
+
+// K5 (kGroupWords: gate words), K10 (kRowBits: no gate, no maxd) and K8
+// (kProbe: no gate, no maxd, c_best only): one block is one tile (256
+// threads, 4 rays each) against a span of nq 32-cluster quarters,
+// blockIdx.x = the span.
+template <int MODE, bool HAS_MAXD>
 __global__ void __launch_bounds__(kTileThreads)
 tile_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
             int c, int cpad, int nq, const float* __restrict__ o,
@@ -398,13 +424,13 @@ tile_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
             int* __restrict__ bits_out, float* __restrict__ tn_out,
             unsigned* __restrict__ texit,
             unsigned long long* __restrict__ cbest) {
+  constexpr int kSpan = max_quarters(MODE) * kQuarter;
   // box[k][0] = (min, 1 if a bound is NaN or k is past c else 0),
   // box[k][1] = (max, 0); uni[q] the union of quarter q's real boxes
   // (w = 1: it has none)
-  __shared__ float4 box[kBlock][2];
-  __shared__ float4 uni[kBlock / kQuarter][2];
-  __shared__ unsigned tnw[kTileWarps][kBlock];
-  __shared__ unsigned balw[kTileWarps][kBlock];
+  __shared__ float4 box[kSpan][2];
+  __shared__ float4 uni[max_quarters(MODE)][2];
+  __shared__ BlockMerge<MODE> merge;
 
   const int tile = blockIdx.y;
   const int tid = threadIdx.x;
@@ -419,11 +445,11 @@ tile_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
             ((c0 % kBlock) / kQuarter);
   }
   if (word == 0 || nc <= 0) {                // uniform: the empty result
-    if (tid < span) {
+    if (MODE != kProbe && tid < span) {
       const size_t col = static_cast<size_t>(c0 + tid);
-      for (int w = 0; w < (ROWS ? 1 : kWords); ++w) {
-        bits_out[(static_cast<size_t>(tile) * (ROWS ? 1 : kWords) + w) *
-                     cpad + col] = 0;
+      constexpr int kOut = MODE == kRowBits ? 1 : kWords;
+      for (int w = 0; w < kOut; ++w) {
+        bits_out[(static_cast<size_t>(tile) * kOut + w) * cpad + col] = 0;
       }
       tn_out[static_cast<size_t>(tile) * cpad + col] =
           __uint_as_float(kInfBits);
@@ -524,102 +550,99 @@ tile_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
       const float4 (*bx)[2] = box + q * kQuarter;
       if (nan_safe) {
         if (__any_sync(kFull, some_hit<true, HAS_MAXD>(g, ulo, uhi, t_min))) {
-          quarter<true, ROWS, HAS_MAXD>(g, bx, kc, cl0, t_min, lane, my_bal,
+          quarter<true, MODE, HAS_MAXD>(g, bx, kc, cl0, t_min, lane, my_bal,
                                         my_tn);
         }
       } else if (__any_sync(kFull,
                             some_hit<false, HAS_MAXD>(g, ulo, uhi, t_min))) {
-        quarter<false, ROWS, HAS_MAXD>(g, bx, kc, cl0, t_min, lane, my_bal,
+        quarter<false, MODE, HAS_MAXD>(g, bx, kc, cl0, t_min, lane, my_bal,
                                        my_tn);
       }
     }
-    balw[warp][q * kQuarter + lane] = my_bal;
-    tnw[warp][q * kQuarter + lane] = my_tn;
+    if constexpr (MODE != kProbe) {
+      merge.balw[warp][q * kQuarter + lane] = my_bal;
+      merge.tnw[warp][q * kQuarter + lane] = my_tn;
+    }
   }
 #pragma unroll
   for (int r = 0; r < kRays; ++r) {
-    if (g.ex[r] > 0.f) atomicMax(&texit[ray0 + r], __float_as_uint(g.ex[r]));
-    if (ROWS && g.bb[r] != ~0u) {
+    if (MODE != kProbe && g.ex[r] > 0.f) {
+      atomicMax(&texit[ray0 + r], __float_as_uint(g.ex[r]));
+    }
+    if (MODE != kGroupWords && g.bb[r] != ~0u) {
       atomicMin(&cbest[ray0 + r],
                 (static_cast<unsigned long long>(g.bb[r]) << 32) |
                     static_cast<unsigned>(g.bid[r]));
     }
   }
-  __syncthreads();
-
-  if (tid < span) {
-    unsigned tmin = kInfBits;
-    unsigned rows = 0u;
-    unsigned half[kTileWarps];               // warp w: groups 16w .. 16w+15
+  if constexpr (MODE != kProbe) {            // the per-cluster outputs
+    __syncthreads();
+    if (tid < span) {
+      unsigned tmin = kInfBits;
+      unsigned rows = 0u;
+      unsigned half[kTileWarps];             // warp w: groups 16w .. 16w+15
 #pragma unroll
-    for (int w = 0; w < kTileWarps; ++w) {
-      tmin = min(tmin, tnw[w][tid]);
-      rows |= (balw[w][tid] ? 1u : 0u) << w;
-      half[w] = pack_pairs(balw[w][tid]);
-    }
-    const size_t col = static_cast<size_t>(c0 + tid);
-    if (ROWS) {
-      bits_out[static_cast<size_t>(tile) * cpad + col] = rows;
-    } else {                                 // word k: warps 2k and 2k+1
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) {
-        bits_out[(static_cast<size_t>(tile) * kWords + k) * cpad + col] =
-            static_cast<int>(half[2 * k] | (half[2 * k + 1] << 16));
+      for (int w = 0; w < kTileWarps; ++w) {
+        tmin = min(tmin, merge.tnw[w][tid]);
+        rows |= (merge.balw[w][tid] ? 1u : 0u) << w;
+        half[w] = pack_pairs(merge.balw[w][tid]);
       }
+      const size_t col = static_cast<size_t>(c0 + tid);
+      if (MODE == kRowBits) {
+        bits_out[static_cast<size_t>(tile) * cpad + col] = rows;
+      } else {                               // word k: warps 2k and 2k+1
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) {
+          bits_out[(static_cast<size_t>(tile) * kWords + k) * cpad + col] =
+              static_cast<int>(half[2 * k] | (half[2 * k + 1] << 16));
+        }
+      }
+      tn_out[static_cast<size_t>(tile) * cpad + col] = __uint_as_float(tmin);
     }
-    tn_out[static_cast<size_t>(tile) * cpad + col] = __uint_as_float(tmin);
   }
 }
 
-// Quarters a tile_kernel block takes: the most (4, 2 or 1) that still give
-// the grid kSpanBlocks blocks an SM (fewer spans, fewer texit and c_best
-// atomics and ray loads).
-int span_quarters(int tiles, int cpad) {
-  static int sms[64];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& n = sms[dev & 63];
-  if (n == 0) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  int nq = 4;
-  while (nq > 1 &&
-         static_cast<long long>(tiles) * (cpad / (kQuarter * nq)) <
-             static_cast<long long>(kSpanBlocks) * n) {
-    nq /= 2;
-  }
-  return nq;
+// Quarters a tile_kernel block takes: the most (most, a power of two, then
+// halved down to 1) that still give the grid `aim` blocks an SM (fewer
+// spans, fewer texit and c_best atomics and ray loads).
+int span_quarters(int tiles, int cpad, int most, int aim) {
+  const int quarters = cpad / kQuarter;
+  return most / fewest_parts(most, aim, [=](int parts) {
+    const int nq = most / parts;
+    return static_cast<long long>(tiles) * ((quarters + nq - 1) / nq);
+  });
+}
+
+// K5's and K10's span (4 quarters at most: one gate word, one block merge).
+int tile_quarters(int tiles, int cpad) {
+  return span_quarters(tiles, cpad, kBlock / kQuarter, kSpanBlocks);
+}
+
+// K8's span (8 quarters at most).
+int probe_quarters(int tiles, int cpad) {
+  return span_quarters(tiles, cpad, max_quarters(kProbe), kProbeBlocks);
 }
 
 bool bad_shape(int n_rays, int c, int cpad) {
   return n_rays % kTile || cpad % kBlock || c > cpad || n_rays / kTile > 65535;
 }
 
-template <bool ROWS, bool HAS_MAXD>
+template <int MODE, bool HAS_MAXD>
 int launch_tiles(const float* cmin, const float* cmax, int c, int cpad,
                  const float* o, const float* d, const float* maxd,
                  int n_rays, float t_min, const int* gate, int* bits_out,
                  float* tn_out, float* texit, long long* cbest,
                  void* stream) {
   const int tiles = n_rays / kTile;
-  const int nq = span_quarters(tiles, cpad);
-  const dim3 grid(cpad / (kQuarter * nq), tiles);
-  tile_kernel<ROWS, HAS_MAXD>
+  const int nq = MODE == kProbe ? probe_quarters(tiles, cpad)
+                                : tile_quarters(tiles, cpad);
+  const int span = kQuarter * nq;
+  const dim3 grid((cpad + span - 1) / span, tiles);
+  tile_kernel<MODE, HAS_MAXD>
       <<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           cmin, cmax, c, cpad, nq, o, d, maxd, t_min, gate, bits_out, tn_out,
           reinterpret_cast<unsigned*>(texit),
           reinterpret_cast<unsigned long long*>(cbest));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int MODE>
-int launch(const float* cmin, const float* cmax, int c, int cpad,
-           const float* o, const float* d, const float* maxd, int n_rays,
-           float t_min, int* gmask, float* tn_out, float* texit,
-           long long* cbest, void* stream) {
-  const dim3 grid(cpad / kBlock, n_rays / kTile);
-  prepass_kernel<MODE><<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      cmin, cmax, c, cpad, o, d, maxd, t_min, gmask, tn_out,
-      reinterpret_cast<unsigned*>(texit),
-      reinterpret_cast<unsigned long long*>(cbest));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -655,17 +678,20 @@ int tpt_prepass(const float* cmin, const float* cmax, int c, int cpad,
   }
   if (n_rays == 0) return 0;
   if (gate == nullptr) {
-    return launch<kGroups>(cmin, cmax, c, cpad, o, d, maxd, n_rays, t_min,
-                           gmask, tn_out, texit, nullptr, stream);
+    const dim3 grid(cpad / kBlock, n_rays / kTile);
+    prepass_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+        cmin, cmax, c, cpad, o, d, maxd, t_min, gmask, tn_out,
+        reinterpret_cast<unsigned*>(texit));
+    return static_cast<int>(cudaGetLastError());
   }
   if (maxd) {
-    return launch_tiles<false, true>(cmin, cmax, c, cpad, o, d, maxd, n_rays,
-                                     t_min, gate, gmask, tn_out, texit,
-                                     nullptr, stream);
+    return launch_tiles<kGroupWords, true>(cmin, cmax, c, cpad, o, d, maxd,
+                                           n_rays, t_min, gate, gmask, tn_out,
+                                           texit, nullptr, stream);
   }
-  return launch_tiles<false, false>(cmin, cmax, c, cpad, o, d, nullptr,
-                                    n_rays, t_min, gate, gmask, tn_out, texit,
-                                    nullptr, stream);
+  return launch_tiles<kGroupWords, false>(cmin, cmax, c, cpad, o, d, nullptr,
+                                          n_rays, t_min, gate, gmask, tn_out,
+                                          texit, nullptr, stream);
 }
 
 // K10: rowbits and tn (tiles, cpad), texit (n_rays,) holding t_min on entry
@@ -678,9 +704,9 @@ int tpt_prepass_rows(const float* cmin, const float* cmax, int c, int cpad,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rays == 0) return 0;
-  return launch_tiles<true, false>(cmin, cmax, c, cpad, o, d, nullptr, n_rays,
-                                   t_min, nullptr, rowbits, tn_out, texit,
-                                   cbest, stream);
+  return launch_tiles<kRowBits, false>(cmin, cmax, c, cpad, o, d, nullptr,
+                                       n_rays, t_min, nullptr, rowbits,
+                                       tn_out, texit, cbest, stream);
 }
 
 // K8: cbest (n_rays,) only, holding the sentinel key on entry.
@@ -691,36 +717,39 @@ int tpt_prepass_probe(const float* cmin, const float* cmax, int c, int cpad,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rays == 0) return 0;
-  return launch<kProbe>(cmin, cmax, c, cpad, o, d, nullptr, n_rays, t_min,
-                        nullptr, nullptr, nullptr, cbest, stream);
+  return launch_tiles<kProbe, false>(cmin, cmax, c, cpad, o, d, nullptr,
+                                     n_rays, t_min, nullptr, nullptr, nullptr,
+                                     nullptr, cbest, stream);
 }
 
 // The launch of `kernel` (0 K4, 1 K5 on rays, 2 K5 on segments, 3 K8, 4
 // K10) at n_rays rays and cpad padded clusters: out[0..5) = blocks,
 // threads a block, static shared bytes a block, registers a thread, and
-// the 32-cluster quarters a block takes (4 for K4 and K8).
+// the 32-cluster quarters a block takes (4 for K4).
 int tpt_prepass_shape(int kernel, int n_rays, int cpad, int* out) {
   if (bad_shape(n_rays, 0, cpad)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int tiles = n_rays / kTile;
-  const int nq = span_quarters(tiles, cpad);
-  const int old_blocks = tiles * (cpad / kBlock);
-  const int new_blocks = tiles * (cpad / (kQuarter * nq));
+  const int nq = kernel == 3 ? probe_quarters(tiles, cpad)
+                             : tile_quarters(tiles, cpad);
+  const int spans = (cpad + kQuarter * nq - 1) / (kQuarter * nq);
+  const int blocks = tiles * spans;
   switch (kernel) {
     case 0:
-      return shape_of(prepass_kernel<kGroups>, old_blocks, kTile, 4, out);
+      return shape_of(prepass_kernel, tiles * (cpad / kBlock), kTile, 4, out);
     case 1:
-      return shape_of(tile_kernel<false, false>, new_blocks, kTileThreads, nq,
-                      out);
+      return shape_of(tile_kernel<kGroupWords, false>, blocks, kTileThreads,
+                      nq, out);
     case 2:
-      return shape_of(tile_kernel<false, true>, new_blocks, kTileThreads, nq,
-                      out);
+      return shape_of(tile_kernel<kGroupWords, true>, blocks, kTileThreads,
+                      nq, out);
     case 3:
-      return shape_of(prepass_kernel<kProbe>, old_blocks, kTile, 4, out);
-    case 4:
-      return shape_of(tile_kernel<true, false>, new_blocks, kTileThreads, nq,
+      return shape_of(tile_kernel<kProbe, false>, blocks, kTileThreads, nq,
                       out);
+    case 4:
+      return shape_of(tile_kernel<kRowBits, false>, blocks, kTileThreads,
+                      nq, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -226,8 +226,11 @@ def _library(source: str) -> ctypes.CDLL:
         lib.tpt_closest_record.argtypes = [p, p, i, i, p, p, i, f, p, p, p,
                                            p]
         lib.tpt_closest_record.restype = i
-        lib.tpt_closest_culled.argtypes = [p, i, p, i, p, p, i, f, p, p, p]
+        lib.tpt_closest_culled.argtypes = [p, i, p, i, p, p, i, f, p, p, p,
+                                           p]
         lib.tpt_closest_culled.restype = i
+        lib.tpt_closest_culled_shape.argtypes = [i, p]
+        lib.tpt_closest_culled_shape.restype = i
         lib.tpt_closest_shape.argtypes = [i, i, p]
         lib.tpt_closest_shape.restype = i
     else:

@@ -262,12 +262,14 @@ def closest_culled(tri_pack, mask, o, d, t_min=1e-4):
     t = torch.empty((b,), dtype=torch.float32, device=dev)
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
     if b:
+        best = torch.full((b,), _MISS_KEY, dtype=torch.int64, device=dev)
         lib = _allpairs_library("closest_hit.cu")
         with torch.cuda.device(dev):
             err = lib.tpt_closest_culled(
                 tri_pack.data_ptr(), tri_pack.shape[0], mask.data_ptr(), cpad,
-                o.data_ptr(), d.data_ptr(), b, t_min, t.data_ptr(),
-                idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                o.data_ptr(), d.data_ptr(), b, t_min, best.data_ptr(),
+                t.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(err, lib, "culled closest-hit")
     closest_culled.launches += 1
     return t, idx

@@ -4,8 +4,9 @@ Each kernel source under `tpu_pathtracer_torch/csrc/` is compiled by
 `nvcc` into a shared library with a plain C interface and loaded with
 `ctypes`. The build runs at first use, from the repository's sources
 only, into `build/tpu_pathtracer_torch/` at the repository root; the
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+library's file name carries a hash of the source, the headers of `csrc/`
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.
 Nothing here runs at import time.
 """
 
@@ -57,8 +58,9 @@ def nvcc_path() -> str:
 def build(source: str) -> BuildResult:
     """Compile csrc/<source> into BUILD_DIR unless that exact build exists."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
