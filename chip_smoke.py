@@ -46,6 +46,11 @@ Phases, one line each (any failure raises and exits non-zero):
                on adversarial_grouped's batch of the subdivision-3 box
                (exact ties 1-3 row lanes apart and across clusters, words
                with all 32 bits and with one, padding rays, a count-0
+               tile); K12 against its plain version and K6 on
+               adversarial_entries' batch of the same box cut to 12
+               clusters (exact ties across two members of one entry and
+               across entries, an entry with all 8 members live and one
+               with one, a last entry with padding members, a count-0
                tile); K4 in segment
                mode and K7 on form-factor segments of the boxes at
                subdivisions 3 and 5 and on random segments (on the sub-5
@@ -139,7 +144,8 @@ Phases, one line each (any failure raises and exits non-zero):
                the 1M-triangle scene: K12 against its plain version and K6
                on 65,536 camera and 65,536 bounce rays, K13 against its
                plain version and K7 on 65,536 NEE shadow segments, bitwise,
-               timed against K6 / K7 in turns; two NEE passes through the
+               timed against K6 / K7 in turns, by wrapper events and by
+               device time on the same masks; two NEE passes through the
                walk (K12 and K13 must launch), timed in turns with two
                per-cluster passes, their film bitwise the per-cluster one.
 
@@ -167,7 +173,12 @@ sort (`sort_*`) and its stats on the bounce rays,
 `visited`, `scheduled` and `row_tests`; K6 its `slices`, `set_bits` and
 `bits_per_visit` on the bounce rays and at the 16,384 lanes
 (`nee_set_bits`, `nee_bits_per_visit`) with `nee_shape_device_ms`,
-`nee_bound_ms` and `nee_bound_by` there; K3 `open_share`,
+`nee_bound_ms` and `nee_bound_by` there; K12 and K13 their
+`device_ms` (K12 on the bounce rays, with `camera_device_ms`), K6's or
+K7's device time on the same mask (`k6_device_ms`, `k7_device_ms`), their
+launch shape with `slices` and `dynamic_shared_bytes_per_block` (the ring
+of staged clusters; K6 carries the same keys), and K7
+`shadow_1m_device_ms`; K3 `open_share`,
 `blocked_share_of_open`, `mean_first_blocking_row` and
 `mean_rows_in_order` on the sub-3 segments, `nee_shape_open` the open
 segments of its timed NEE call).
@@ -664,6 +675,59 @@ def adversarial_grouped(geom, order, tri_pack, prepass, seed: int):
     return torch.from_numpy(tp).to(dev), gm, o_t, d_t
 
 
+def adversarial_entries(geom, order, tri_pack, prepass, seed: int):
+    """K12's hard cases on the ordered pack of the subdivision-3 box (16
+    clusters, two supercluster entries), made from numpy on the pack's
+    device: returns (tri_pack, gmask, o, d) for 4 tiles of 1024 rays. The
+    pack is cut to 12 clusters, so entry 1 holds members 8-11 and four
+    padding clusters (no rows, zero words). Ties: row 16 j of cluster 1
+    (entry 0, member 1) becomes a copy of row 16 j + 8 of cluster 0
+    (member 0) and row 16 j of cluster 8 (entry 1) a copy of row 16 j + 4
+    of cluster 0 (columns 0-11, j < 8), each keeping its own original id,
+    and for odd j the copy in cluster 1 and the source in cluster 0 swap
+    ids, so the lower id sits on either side. Tiles: (0) rays from inside
+    the box at the centroids of the tied triangles, every group bit of
+    clusters 0-8 set (entry 0 with all 8 members live); (1) the same kind
+    of rays, the only set bit bit 5 of word 2 in cluster 8 (entry 1 with
+    one live member, three of the block's words zero); (2) bounce rays
+    behind the prepass's mask with the low 8 group bits of cluster 11 (the
+    last real member) set in word 0; (3) no bit (count 0). prepass(o, d)
+    gives the base mask of the 16 clusters."""
+    g = np.random.default_rng(seed)
+    dev = tri_pack.device
+    tp = tri_pack.cpu().numpy().copy()
+    ids = tp[:, 13].copy()
+    src = []
+    for j in range(8):
+        a, b = 16 * j + 8, 128 + 16 * j
+        tp[b, :12] = tp[a, :12]
+        if j % 2:
+            tp[a, 13], tp[b, 13] = ids[b], ids[a]
+        tp[8 * 128 + 16 * j, :12] = tp[16 * j + 4, :12]
+        src += [a, 16 * j + 4]
+    tp = tp[:12 * 128]
+    tri = np.asarray(order)[np.asarray(src)]
+    v0 = geom.tri_v0.cpu().numpy()[tri]
+    ctr = v0 + (geom.tri_e1.cpu().numpy()[tri]
+                + geom.tri_e2.cpu().numpy()[tri]) / 3
+    n = 4096
+    lo = np.array([-2.7, 0.05, -5.45], np.float32)
+    hi = np.array([2.7, 5.45, -0.05], np.float32)
+    o = lo + (hi - lo) * g.random((n, 3), np.float32)
+    d = g.standard_normal((n, 3)).astype(np.float32)
+    d[:2048] = ctr[g.integers(0, len(src), 2048)] - o[:2048]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o_t, d_t = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    gm = prepass(o_t, d_t).clone()
+    gm[..., 12:] = 0
+    gm[0, :, :9] = -1
+    gm[1] = 0
+    gm[1, 2, 8] = 1 << 5
+    gm[2, 0, 11] |= 0xFF
+    gm[3] = 0
+    return torch.from_numpy(tp).to(dev), gm, o_t, d_t
+
+
 def adversarial_anyhit(geom, n: int, seed: int):
     """K3's hard cases, made from numpy on geom's device: returns
     (tri_pack, prim_ids, o, d, maxd, ex_a, ex_b). The packs get 8 more
@@ -838,6 +902,14 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_pair(first, second, reps: int = 20) -> tuple[float, float]:
+    """device_ms of first and second in the turns first, second, second,
+    first: (first's ms, second's ms)."""
+    f1, s1, s2, f2 = (device_ms(fn, reps)
+                      for fn in (first, second, second, first))
+    return (f1 + f2) / 2, (s1 + s2) / 2
+
+
 def launch_shape(lib, fn: str, *args, n: int) -> list[int]:
     """The n ints a kernel library's shape query `fn(*args, out)` writes:
     blocks, threads and static shared bytes a block, registers a thread,
@@ -884,17 +956,26 @@ def k11_shape(n_rays: int) -> dict:
             **{f"sort_{k}": x for k, x in zip(keys, v[4:])}}
 
 
-def k6_shape(n_rays: int) -> dict:
-    """K6's launch facts at n_rays rays (grouped_closest.cu), with the
-    slices the wrapper picks on this card."""
+def walk_shape(kernel: str, n_rays: int) -> dict:
+    """The launch facts of the walk kernel K6, K12 or K13 at n_rays rays,
+    with the slices its wrapper picks on this card (dynamic shared bytes:
+    K12's and K13's ring of staged clusters)."""
     from tpu_pathtracer_torch.ops import intersect_culled as ic
 
-    slices = ic._closest_slices(torch.device("cuda", 0), n_rays // 1024)
-    v = launch_shape(ic._library("grouped_closest.cu"),
-                     "tpt_grouped_closest_shape", n_rays, slices, n=4)
+    dev, tiles = torch.device("cuda", 0), n_rays // 1024
+    src, fn, slices = {
+        "K6": ("grouped_closest.cu", "tpt_grouped_closest_shape",
+               ic._closest_slices(dev, tiles)),
+        "K12": ("grouped_closest.cu", "tpt_grouped_closest_sc_shape",
+                ic._sc_slices(dev, tiles, ic._SC_CLOSEST_PER_SM)),
+        "K13": ("grouped_anyhit.cu", "tpt_grouped_anyhit_sc_shape",
+                ic._sc_slices(dev, tiles, ic._SC_ANYHIT_PER_SM)),
+    }[kernel]
+    v = launch_shape(ic._library(src), fn, n_rays, slices, n=5)
     return {**dict(zip(("blocks", "threads_per_block",
-                        "shared_bytes_per_block", "registers_per_thread"),
-                       v)), "slices": slices}
+                        "shared_bytes_per_block", "registers_per_thread",
+                        "dynamic_shared_bytes_per_block"), v)),
+            "slices": slices}
 
 
 def k3_shape(n: int) -> dict:
@@ -1113,7 +1194,8 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
               f"{t4[1]:.6f} ms vs plain {t4[0]:.6f} ms, K6 {t6[1]:.6f} ms vs "
               f"plain {t6[0]:.6f} ms per call, K6 device time {k6_dev:.6f} "
               f"ms")
-        facts["K6"] = {"device_ms": k6_dev, **k6_shape(N_RAYS),  # bounce's
+        facts["K6"] = {"device_ms": k6_dev,                # bounce's
+                       **walk_shape("K6", N_RAYS),
                        "set_bits": bits, "bits_per_visit": bits / visits}
         facts["K4"] = {"device_ms": device_ms(
             lambda: ic.prepass_dense(cmin, cmax, o, d, 1e-4)),
@@ -1286,6 +1368,25 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
           f" hit, {set_bits(gma)} bits; K6 bitwise equal to plain {ok}")
     if not ok:
         raise AssertionError("K6 differs on the adversarial grouped batch "
+                             "(tolerance: bitwise)")
+
+    # K12 on its hard cases: exact ties across members of one entry and
+    # across entries, all 8 members live or one, a last entry with padding
+    # clusters, a tile with count 0
+    tpe, gme, oe, de = adversarial_entries(
+        g3, cs3.order, p3.tri_pack,
+        lambda o, d: ic.prepass_dense(p3.cluster_min, p3.cluster_max, o, d,
+                                      1e-4)[0], 9)
+    k12 = ic.closest_grouped_sc(tpe, gme, oe, de)
+    ok = (prepass_equal(k12, ic.closest_grouped_sc_plain(tpe, gme, oe, de))
+          and prepass_equal(k12, ic.closest_grouped(tpe, gme, oe, de)))
+    phase("kernels", f"adversarial entries batch (cbox_sub3 cut to 12 "
+          f"clusters, 4096 rays: ties across members and entries, 8 live "
+          f"members or one, padding members, a count-0 tile): "
+          f"{int(torch.isfinite(k12[0]).sum())} hit, {set_bits(gme)} bits; "
+          f"K12 bitwise equal to plain and to K6 {ok}")
+    if not ok:
+        raise AssertionError("K12 differs on the adversarial entries batch "
                              "(tolerance: bitwise)")
 
     # K5 against K4 and the plain prepass on the 1M-triangle scene
@@ -1964,10 +2065,13 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
     """Phase 11b: the supercluster walk on the 1M-triangle scene, with
     _SC_MIN_CLUSTERS lowered to 2048 and restored after. K12 against its
     plain version and K6, K13 against its plain version and K7, bitwise,
-    timed against K6 / K7 in turns; two NEE passes through the walk (K12
+    timed against K6 / K7 in turns, by wrapper events and by device time
+    (device_ms) on the same masks; two NEE passes through the walk (K12
     and K13 must launch, K6 and K7 not), timed in turns with the
     per-cluster passes, their film bitwise the per-cluster one. Returns
-    K12's and K13's launches in those passes."""
+    K12's and K13's launches in those passes and their facts for the
+    record: device time, launch shape and, beside it, K6's or K7's device
+    time on the same mask (the bounce rays' and the shadow segments')."""
     from tpu_pathtracer_torch.app import App
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.utils.config import Config
@@ -1975,6 +2079,7 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
     part = cs1m.parts[0]
     cmin, cmax, tri = part.cluster_min, part.cluster_max, part.tri_pack
     n_cl = int(torch.isfinite(cmin[:, 0]).sum())
+    facts = {}
     saved = ic._SC_MIN_CLUSTERS
     try:
         ic._SC_MIN_CLUSTERS = 2048
@@ -1995,16 +2100,25 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
             t6, t12 = time_pair(lambda: ic.closest_grouped(tri, gm, o, d),
                                 lambda: ic.closest_grouped_sc(tri, gm, o, d),
                                 reps=5)
+            d6, d12 = device_pair(
+                lambda: ic.closest_grouped(tri, gm, o, d),
+                lambda: ic.closest_grouped_sc(tri, gm, o, d))
             entries = int(ic.supercluster_list(gm)[0].sum())
             phase("nee", f"1M scene ({n_cl} clusters) {rname}: K12 bitwise "
                   f"equal to plain and to K6 {ok}; {entries} (tile, entry) "
                   f"visits, {set_bits(gm)} (group, cluster) bits; K12 "
                   f"{t12:.6f} ms vs K6 {t6:.6f} ms (turns K6, K12, K12, K6);"
-                  f" plain K12 {p_ms:.3f} ms")
+                  f" device time K12 {d12:.6f} ms vs K6 {d6:.6f} ms; plain "
+                  f"K12 {p_ms:.3f} ms")
+            facts[f"K12 {rname}"] = {"device_ms": d12, "k6_device_ms": d6}
             if not ok:
                 raise AssertionError(f"K12 differs on the 1M scene {rname} "
                                      "(tolerance: bitwise)")
             times["K12"] = (p_ms, t12)          # the bounce rays' stay
+            facts["K12"] = {"device_ms": d12, "k6_device_ms": d6,
+                            "camera_device_ms": facts["K12 camera"][
+                                "device_ms"],
+                            **walk_shape("K12", N_RAYS)}
             bounds["K12"] = bound(set_bits(gm) * 8 * 128 * PAIR_FLOPS, tri,
                                   gm, o, d, *k12)
 
@@ -2021,10 +2135,16 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
             lambda: ic.occluded_grouped(tri, gm, so, sd, maxd, ea, eb),
             lambda: ic.occluded_grouped_sc(tri, gm, so, sd, maxd, ea, eb),
             reps=5)
+        d7, d13 = device_pair(
+            lambda: ic.occluded_grouped(tri, gm, so, sd, maxd, ea, eb),
+            lambda: ic.occluded_grouped_sc(tri, gm, so, sd, maxd, ea, eb))
         phase("nee", f"1M scene NEE shadow segments: {int((maxd > 0).sum())}"
               f" of {N_RAYS} taken, {int(k13.sum())} blocked; K13 bitwise "
               f"equal to plain and to K7 {ok}; K13 {t13:.6f} ms vs K7 "
-              f"{t7:.6f} ms (turns K7, K13, K13, K7); plain K13 {p_ms:.3f} ms")
+              f"{t7:.6f} ms (turns K7, K13, K13, K7); device time K13 "
+              f"{d13:.6f} ms vs K7 {d7:.6f} ms; plain K13 {p_ms:.3f} ms")
+        facts["K13"] = {"device_ms": d13, "k7_device_ms": d7,
+                        **walk_shape("K13", N_RAYS)}
         if not ok:
             raise AssertionError("K13 differs on the 1M scene (tolerance: "
                                  "bitwise)")
@@ -2067,7 +2187,7 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
     if not (same and launches["K12"] == launches["K13"] == r.iterations > 0
             and launches["K6"] == launches["K7"] == launches["ref K12"] == 0):
         raise AssertionError("the supercluster NEE pass failed its checks")
-    return {k: launches[k] for k in ("K12", "K13")}
+    return {k: launches[k] for k in ("K12", "K13")}, facts
 
 
 def main() -> int:
@@ -2503,8 +2623,8 @@ def main() -> int:
     # 11. nee: next-event estimation, the queues, the supercluster walk ------
     nee = nee_phase(dev, start, end, (headline_rays, headline_ms),
                     (first_large, large_ms))
-    sc = supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
-                            times, bounds)
+    sc, sc_facts = supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start,
+                                      end, err, times, bounds)
 
     def entry(name, key, source, replaces, n_launches,
               module="intersect_pallas.py"):
@@ -2549,7 +2669,8 @@ def main() -> int:
          **nee["K6 nee"]},
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
-         "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"]},
+         "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"],
+         "shadow_1m_device_ms": sc_facts["K13"]["k7_device_ms"]},
         {**entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
                  "cluster_prepass.cu", 45, rows["K8"], legacy),
          **facts["K8"]},
@@ -2561,10 +2682,12 @@ def main() -> int:
         {**entry("K11 closest_rows (_kernel_culled_dma)", "K11",
                  "row_closest.cu", 572, rows["K11"], legacy),
          **facts["K11"]},
-        entry("K12 closest_grouped_sc (_kernel_grouped_dma_sc)", "K12",
-              "grouped_closest.cu", 36, sc["K12"], lab),
-        entry("K13 occluded_grouped_sc (_kernel_grouped_anyhit_dma_sc)",
-              "K13", "grouped_anyhit.cu", 222, sc["K13"], lab),
+        {**entry("K12 closest_grouped_sc (_kernel_grouped_dma_sc)", "K12",
+                 "grouped_closest.cu", 36, sc["K12"], lab),
+         **sc_facts["K12"]},
+        {**entry("K13 occluded_grouped_sc (_kernel_grouped_anyhit_dma_sc)",
+                 "K13", "grouped_anyhit.cu", 222, sc["K13"], lab),
+         **sc_facts["K13"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

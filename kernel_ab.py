@@ -66,13 +66,26 @@ in the turns baseline, this, this, baseline:
     this checkout's closest_hit.cu goes to chiprun_out/closest_hit.sass,
     with its instruction count per kernel. A baseline whose
     tpt_closest_culled takes no key scratch is called without it;
+  - the supercluster walk (`_SC_MIN_CLUSTERS` lowered to 2048 for its
+    passes): K12 and K6 on the 1M scene's 65,536 camera (tile order) and
+    bounce rays behind the same masks, K13 and K7 on its 65,536 NEE shadow
+    segments, by device time (a baseline without
+    tpt_grouped_closest_sc_shape, the staged-span design, runs K12 and
+    K13 at its 6 blocks an SM), then the first 1M NEE pass per cluster
+    and through the walk, films bitwise equal across builds and walks.
+    The SASS of this checkout's grouped_closest.cu and grouped_anyhit.cu
+    goes beside FILE as grouped_closest.sass and grouped_anyhit.sass,
+    with their instruction counts per kernel;
   - the sweep (this checkout alone, no baseline call): K8 with its span
     forced to 1, 2, 4 and 8 quarters on stress100k's and the 1M scene's
-    camera and bounce rays, and K9 with its blocks a (64 rays, tile)
-    forced to 1, 2, 4, 8 and 16 on stress100k's bounce and camera rays,
-    by device time (variant sources built under build/kernel_ab_sweep/).
+    camera and bounce rays, K9 with its blocks a (64 rays, tile) forced
+    to 1, 2, 4, 8 and 16 on stress100k's bounce and camera rays, and K12
+    (the 1M camera and bounce rays) and K13 (its shadow segments) with
+    their rows through L1 or staged by bulk copies in a ring of 2, 3, 4,
+    6 or 8 slots (kScBulk, kRing) at 4, 8, 16 and 32 blocks an SM, by
+    device time (variant sources built under build/kernel_ab_sweep/).
 The sections, in this order (--cases picks some): segments (the sub-5
-segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass, k9,
+segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass, k9, sc,
 sweep.
 Prints a line per case and,
 last, one JSON object with every number (also written to FILE, default
@@ -101,7 +114,7 @@ SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
            "closest_hit.cu", "grouped_closest.cu", "any_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
 CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve", "k6",
-         "k3", "prepass", "k9", "sweep")
+         "k3", "prepass", "k9", "sc", "sweep")
 # the sweep's variants of this checkout's sources: the line that picks a
 # launch parameter, its replacement, and the values forced
 SWEEPS = {
@@ -210,17 +223,23 @@ def side(name: str, libs: dict):
     def pick_ap(src):
         return libs[src] if src in libs else own_ap(src)
 
+    per_sm = ic._SC_CLOSEST_PER_SM, ic._SC_ANYHIT_PER_SM
     try:
         ic._library = lg._library = pick
         ap._library = lg._allpairs_library = pick_ap
         if isinstance(pick("cluster_prepass.cu").tpt_prepass_shape,
                       argparse.Namespace):
             ic.prepass_groups = quarter_gated_groups
+        if isinstance(pick("grouped_closest.cu").tpt_grouped_closest_sc_shape,
+                      argparse.Namespace):
+            # the staged-span K12/K13 ran at the walk's 6 blocks an SM
+            ic._SC_CLOSEST_PER_SM = ic._SC_ANYHIT_PER_SM = 6
         yield
     finally:
         ic._library = lg._library = own
         ap._library = lg._allpairs_library = own_ap
         ic.prepass_groups = own_groups
+        ic._SC_CLOSEST_PER_SM, ic._SC_ANYHIT_PER_SM = per_sm
 
 
 def quarter_gated_groups(cluster_min, cluster_max, o, d, t_min, maxd=None):
@@ -271,6 +290,63 @@ def sweep(src: str, calls: dict, out: dict) -> None:
         rec = {str(v): sum(t) / 2 for v, t in times.items()}
         cs.phase("ab", f"sweep {name} ({src}, device ms by forced value): "
                  f"{rec}")
+        out[f"sweep {name}"] = rec
+
+
+SC_DESIGNS = {      # K12's / K13's rows: through L1 (a), or staged (b)
+    "a": ("false", 4),                   # in a ring of this many slots
+    **{f"b, {n} slots": ("true", n) for n in (2, 3, 4, 6, 8)}}
+SC_PER_SM = (4, 8, 16, 32)
+
+
+def sc_variant(text: str, bulk: str, ring: int) -> str:
+    """A grouped_*.cu source with kScBulk and kRing set."""
+    import re
+
+    for name, val in (("bool kScBulk", bulk), ("int kRing", str(ring))):
+        pat = rf"constexpr {name} = \w+;"
+        if not re.search(pat, text):
+            raise AssertionError(f"the sweep's line {pat} is gone")
+        text = re.sub(pat, f"constexpr {name} = {val};", text)
+    return text
+
+
+def sc_sweep(calls: dict, out: dict) -> None:
+    """K12 and K13 under each of SC_DESIGNS (variant sources built under
+    build/kernel_ab_sweep/) at SC_PER_SM blocks an SM: the device time of
+    each call of `calls` ({name: (source, fn)}), in the turns up and down
+    the blocks, every design at each; outputs bitwise equal."""
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.utils.cuda_build import CSRC_DIR
+
+    libs = {}
+    for src in {src for src, _ in calls.values()}:
+        text = (CSRC_DIR / src).read_text()
+        for design, (bulk, ring) in SC_DESIGNS.items():
+            libs[src, design] = variant_library(
+                src, sc_variant(text, bulk, ring),
+                f"{Path(src).stem}-{bulk}-{ring}")
+    knob = {"grouped_closest.cu": "_SC_CLOSEST_PER_SM",
+            "grouped_anyhit.cu": "_SC_ANYHIT_PER_SM"}
+    for name, (src, fn) in calls.items():
+        ref = fn()
+        times = {(dz, v): [] for dz in SC_DESIGNS for v in SC_PER_SM}
+        saved = getattr(ic, knob[src])
+        try:
+            for v in (*SC_PER_SM, *SC_PER_SM[::-1]):
+                setattr(ic, knob[src], v)
+                for dz in SC_DESIGNS:
+                    with side("baseline", {src: libs[src, dz]}):
+                        if not equal(fn(), ref):
+                            raise AssertionError(f"{name}: {dz} {v} differs")
+                        times[dz, v].append(cs.device_ms(fn))
+        finally:
+            setattr(ic, knob[src], saved)
+        rec = {dz: {str(v): sum(times[dz, v]) / 2 for v in SC_PER_SM}
+               for dz in SC_DESIGNS}
+        cs.phase("ab", f"sweep {name} (device ms by design, (a) rows "
+                 f"through L1 / (b) staged in a ring of 2-8 slots, and "
+                 f"blocks an SM): {rec}")
         out[f"sweep {name}"] = rec
 
 
@@ -859,12 +935,71 @@ def main() -> int:
                 tile_on_mean=float(on.float().mean()))
         save()
 
+    if "sc" in cases:             # K12 and K13 on the 1M scene's rays
+        for src in ("grouped_closest.cu", "grouped_anyhit.cu"):
+            counts = sass_counts(src, Path(args.out).parent /
+                                 f"{Path(src).stem}.sass")
+            cs.phase("ab", f"{src} SASS instructions per kernel: {counts}")
+            out[f"{Path(src).stem}_sass"] = counts
+        path1m = cs.generate_1m(os.path.join(HERE, "build", "stress1m"))
+        cfg1m = Config(spp=16, nee=True, **{**cs.LARGE, "scene": path1m})
+        app1m = App(cfg1m, device=dev)
+        g1m = app1m.load_scene()
+        cs1m = app1m.culled
+        p = cs1m.parts[0]
+        cmin, cmax, tri = p.cluster_min, p.cluster_max, p.tri_pack
+        cam_1m = cs.scene_camera(cfg1m, dev)
+        rays = [("camera", *cs.swizzled_camera_rays(cam_1m, 256, 5, dev)),
+                ("bounce", *cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                        cs.N_RAYS, 6, dev))]
+        for rname, o, d in rays:
+            gm = ic.prepass_groups(cmin, cmax, o, d, 1e-4)[0]
+            for kname, fn in (("K12", ic.closest_grouped_sc),
+                              ("K6", ic.closest_grouped)):
+                ab(f"{kname} 1M {rname}", lambda f=fn: f(tri, gm, o, d),
+                   lambda: ic.closest_grouped_plain(tri, gm, o, d), libs, 5,
+                   out, graph=True)
+            out[f"K12 1M {rname}"].update(
+                set_bits=cs.set_bits(gm),
+                entries=int(ic.supercluster_list(gm)[0].sum()))
+        seg = cs.shadow_segments(cs1m, g1m, rays[0][1], rays[0][2], 7)
+        gm = ic.prepass_groups(cmin, cmax, seg[0], seg[1], 1e-5, seg[2])[0]
+        for kname, fn in (("K13", ic.occluded_grouped_sc),
+                          ("K7", ic.occluded_grouped)):
+            ab(f"{kname} 1M shadow segments", lambda f=fn: f(tri, gm, *seg),
+               lambda: ic.occluded_grouped_plain(tri, gm, *seg), libs, 5, out,
+               graph=True)
+        out["K13 1M shadow segments"].update(
+            set_bits=cs.set_bits(gm), open=int((seg[2] > 0).sum()),
+            pairs=cs.anyhit_pairs(cs.group_pairs(gm), seg[2],
+                                  ic.occluded_grouped_plain(tri, gm, *seg)))
+
+        def fresh():
+            app1m._renderer = None
+            return app1m.renderer()
+
+        saved = ic._SC_MIN_CLUSTERS
+        films = {}
+        for walk in ("per cluster", "supercluster walk"):
+            try:   # the walk: K12 and K13 for the closest and shadow rays
+                ic._SC_MIN_CLUSTERS = 2048 if walk != "per cluster" else saved
+                render_ab(f"1M NEE pass, {walk}", fresh, libs, out)
+            finally:
+                ic._SC_MIN_CLUSTERS = saved
+            films[walk] = app1m._renderer.film.accum
+        same = torch.equal(*films.values())
+        cs.phase("ab", f"1M NEE passes: the walk's film bitwise the per-"
+                 f"cluster one {same}")
+        if not same:
+            raise AssertionError("the 1M NEE films differ between the walks")
+        save()
+
     if "sweep" in cases:          # K8's span and K9's shares, forced
         p = ic.CulledScene(geom_large, grouped=False).parts[0]
         path1m = cs.generate_1m(os.path.join(HERE, "build", "stress1m"))
         cfg1m = Config(**{**cs.LARGE, "scene": path1m})
-        p1 = ic.CulledScene(load_prims(cfg1m).build(dev),
-                            grouped=False).parts[0]
+        g1m = load_prims(cfg1m).build(dev)
+        p1 = ic.CulledScene(g1m, grouped=False).parts[0]
         s100 = {"camera": cs.swizzled_camera_rays(
                     cs.scene_camera(scene_app.config, dev), 256, 1, dev),
                 "bounce": cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
@@ -887,6 +1022,25 @@ def main() -> int:
                 lambda m=mask, o=o, d=d: lg.closest_culled(p.tri_pack, m, o,
                                                            d, 1e-4))
         sweep("closest_hit.cu", k9, out)
+        cs1m = ic.CulledScene(g1m)
+        q = cs1m.parts[0]
+        sc = {}
+        for rname, (o, d) in (("camera", cs.swizzled_camera_rays(
+                cs.scene_camera(cfg1m, dev), 256, 5, dev)),
+                ("bounce", cs.box_rays((-2.0, -1.05, -2.0), (2.0, 2.5, 2.0),
+                                       cs.N_RAYS, 6, dev))):
+            gm = ic.prepass_groups(q.cluster_min, q.cluster_max, o, d,
+                                   1e-4)[0]
+            sc[f"K12 1M {rname}"] = ("grouped_closest.cu", lambda g=gm, o=o,
+                                     d=d: ic.closest_grouped_sc(
+                                         q.tri_pack, g, o, d))
+        seg = cs.shadow_segments(cs1m, g1m, *cs.swizzled_camera_rays(
+            cs.scene_camera(cfg1m, dev), 256, 5, dev), 7)
+        gm = ic.prepass_groups(q.cluster_min, q.cluster_max, seg[0], seg[1],
+                               1e-5, seg[2])[0]
+        sc["K13 1M shadow segments"] = ("grouped_anyhit.cu", lambda: (
+            ic.occluded_grouped_sc(q.tri_pack, gm, *seg)))
+        sc_sweep(sc, out)
         save()
     print(json.dumps(out), flush=True)
     return 0

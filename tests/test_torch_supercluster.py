@@ -2,7 +2,10 @@
 package's, on the CPU.
 
 The schedule (`supercluster_list`), the plain K12 and K13 of
-`ops/intersect_culled.py`, the dispatch of the culled queries by
+`ops/intersect_culled.py`, the kernels' designs step by step (the chunked
+entries dealt over slices, each member's word read once, the block prefix
+sum and its items, the 4-lane merge or OR, K13's dropped decided groups,
+design (b)'s ring of staged members), the dispatch of the culled queries by
 `_SC_MIN_CLUSTERS`, and a NEE film through the walk. The JAX package's
 supercluster kernels run in interpret mode with its threshold lowered to
 1, as its own `TestSCWalk` forces them, on one ray batch shape (the 4096
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import tpu_pathtracer.ops.intersect_pallas as ip
 from tpu_pathtracer.ops import cluster_layout as jcl
 from tpu_pathtracer.render import camera as jcamera
@@ -168,6 +172,275 @@ def test_sc_anyhit_plain_equals_k7_plain(sub3, stress, name):
     before = ic.occluded_grouped_sc.launches
     assert torch.equal(ic.occluded_grouped_sc(part.tri_pack, gm, *seg), got)
     assert ic.occluded_grouped_sc.launches == before
+
+
+# --- the kernels' designs, step by step ------------------------------------
+
+RING = 4           # design (b)'s shared-memory slots (kRing in csrc/)
+
+
+def _sc_chunks(gmask, tile, w, s, slices):
+    """K12's and K13's chunks for block (tile, mask word w, slice s): the
+    slice's share of the tile's active entries (s, s + slices, ...), 32
+    entries a chunk; thread t holds member t & 7 of the chunk's entry t >>
+    3 and reads that member's word once, only where the bitmap bit is set.
+    Yields (cluster ids (256,), words (256,) int64 of 32 bits)."""
+    count, entries, bitmaps = ic.supercluster_list(gmask)
+    n_active = int(count[tile])
+    n_mine = -(-(n_active - s) // slices) if n_active > s else 0
+    n_slots = n_mine * ic._SC
+    for base in range(0, n_slots, 256):
+        j = torch.arange(base, base + 256)
+        e = torch.where(j < n_slots, s + (j // ic._SC) * slices, 0)
+        mem = j % ic._SC
+        on = (j < n_slots) & (((bitmaps[tile, e] >> mem) & 1) != 0)
+        cid = torch.where(on, entries[tile, e] * ic._SC + mem, 0)
+        word = gmask[tile, w, cid].to(torch.int64) & 0xFFFFFFFF
+        yield cid, torch.where(on, word, 0)
+
+
+def _chunk_items(word):
+    """The chunk's work items in the kernel's order, (slot, group bit) per
+    set bit: item i lies in the slot whose inclusive prefix sum of set bits
+    first exceeds i, and is its (i - earlier bits)-th set bit."""
+    bits = ((word[:, None] >> torch.arange(32)) & 1) != 0
+    ends = torch.cumsum(bits.sum(dim=1), 0)
+    i = torch.arange(int(ends[-1]))
+    slot = torch.searchsorted(ends, i, right=True)
+    k = i - torch.where(slot > 0, ends[slot - 1], 0)
+    rank = torch.cumsum(bits.int(), dim=1) - 1      # of each set bit
+    group = torch.nonzero(bits[slot] & (rank[slot] == k[:, None]))[:, 1]
+    return slot, group
+
+
+class _Ring:
+    """Design (b)'s staging, emulated: the chunk's live members (non-zero
+    words, in slot order) are copied into RING slots, member k of the
+    chunk into slot (staged + k) % RING as that slot's copy (staged + k) //
+    RING; the first RING members when the chunk is listed, member k + RING
+    when the last item of member k is done. `rows_of` checks that an
+    item's member is the slot's current copy and returns its cluster."""
+
+    def __init__(self):
+        self.staged, self.slot, self.issued = 0, {}, [0] * RING
+
+    def start(self, cid, word):
+        self.live = torch.nonzero(word).flatten()
+        self.cid, self.left = cid, (word[self.live][:, None] >> torch.arange(
+            32) & 1).sum(dim=1).tolist()
+        for k in range(min(RING, len(self.live))):
+            self._issue(k)
+
+    def _issue(self, k):
+        r, use = (self.staged + k) % RING, (self.staged + k) // RING
+        assert self.issued[r] == use
+        self.slot[r] = (use, int(self.cid[self.live[k]]))
+        self.issued[r] += 1
+
+    def rows_of(self, slot):
+        k = int(torch.searchsorted(self.live, slot))
+        r, use = (self.staged + k) % RING, (self.staged + k) // RING
+        assert self.issued[r] > use and self.slot[r] == (use, int(
+            self.cid[slot]))
+        return k, self.slot[r][1]
+
+    def done(self, k):
+        self.left[k] -= 1
+        if self.left[k] == 0 and k + RING < len(self.live):
+            self._issue(k + RING)
+
+    def end(self):
+        self.staged += len(self.live)
+
+
+def _item_clusters(cid, word, slot, ring):
+    """Each item's cluster: from the chunk's list (design (a)) or from the
+    ring slot that holds its member (design (b), items in order)."""
+    if ring is None:
+        return cid[slot]
+    ring.start(cid, word)
+    out = []
+    for sl in slot.tolist():
+        k, cl = ring.rows_of(sl)
+        out.append(cl)
+        ring.done(k)
+    ring.end()
+    return torch.tensor(out, dtype=torch.int64)
+
+
+def _sc_closest_design(tri_pack, gmask, o, d, slices, bulk, t_min=1e-4):
+    """K12's design in plain torch: per block (tile, word, slice) and chunk,
+    the items of the chunk's set bits; lane (ray, q) of an item keeps the
+    least key over rows q, q + 4, ... of the member, the 4 lanes merge by
+    min, the block's keys and then the slices merge by min. Returns (t,
+    id, items)."""
+    tiles = gmask.shape[0]
+    best = torch.full((o.shape[0],), ic._MISS_KEY, dtype=torch.int64)
+    items = 0
+    packs = tri_pack.view(-1, ic.TRI_CHUNK, 16)
+    for tile in range(tiles):
+        for w in range(ic.WORDS):
+            for s in range(slices):
+                ring = _Ring() if bulk else None
+                for cid, word in _sc_chunks(gmask, tile, w, s, slices):
+                    slot, group = _chunk_items(word)
+                    cl = _item_clusters(cid, word, slot, ring)
+                    items += len(slot)
+                    if not len(slot):
+                        continue
+                    rays = (tile * ic.RAYS_PER_TILE + w * 256 + group * 8
+                            )[:, None] + torch.arange(8)
+                    on = torch.ones(rays.shape, dtype=torch.bool)
+                    lanes = torch.stack([ic.closest_keys(
+                        packs[cl][:, q::4], o[rays], d[rays], t_min, on)
+                        for q in range(4)])
+                    best.scatter_reduce_(0, rays.flatten(),
+                                         lanes.amin(dim=0).flatten(), "amin")
+    return (*ic.key_hits(best), items)
+
+
+def _sc_anyhit_design(tri_pack, gmask, o, d, maxd, ex_a, ex_b, slices,
+                      bulk):
+    """K13's design in plain torch: per block, segments with maxd <= 0 (or
+    NaN) decided from the start; per chunk, none if every segment is
+    decided (the block has left), else the words with the bits of groups
+    whose 8 segments are all decided dropped, and the items of the rest;
+    an undecided segment's 4 lanes test rows q, q + 4, ... (an OR: where
+    a lane stops changes nothing) and OR their answers. Returns (blocked,
+    items, items of blocks decided from the start)."""
+    blocked = torch.zeros((o.shape[0],), dtype=torch.bool)
+    packs = tri_pack.view(-1, ic.TRI_CHUNK, 16)
+    items = idle_items = 0
+    for tile in range(gmask.shape[0]):
+        for w in range(ic.WORDS):
+            ray0 = tile * ic.RAYS_PER_TILE + w * 256
+            for s in range(slices):
+                done = ~(maxd[ray0:ray0 + 256] > 0)
+                idle = bool(done.all())
+                ring = _Ring() if bulk else None
+                for cid, word in _sc_chunks(gmask, tile, w, s, slices):
+                    if done.all():
+                        break
+                    live = (~done).view(32, 8).any(dim=1)
+                    word = word & int((live.long() << torch.arange(32)).sum())
+                    slot, group = _chunk_items(word)
+                    cl = _item_clusters(cid, word, slot, ring)
+                    items += len(slot)
+                    idle_items += len(slot) if idle else 0
+                    if not len(slot):
+                        continue
+                    seg = group[:, None] * 8 + torch.arange(8)   # (n, 8)
+                    r = ray0 + seg
+                    hit = torch.zeros(seg.shape, dtype=torch.bool)
+                    for q in range(4):
+                        rows = packs[cl][:, q::4]
+                        t, u, v = ic._tuv(rows, o[r], d[r])
+                        prim = rows[:, None, :, 12]
+                        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                              & (t > 1e-5) & (t < maxd[r][..., None])
+                              & (prim != ex_a[r].float()[..., None])
+                              & (prim != ex_b[r].float()[..., None]))
+                        hit |= ok.any(dim=-1)
+                    hit &= ~done[seg]
+                    done[seg[hit]] = True
+                    blocked[r[hit]] = True
+    return blocked, items, idle_items
+
+
+def _entries_case(sub3):
+    """chip_smoke's adversarial batch for K12 on the sub-3 box."""
+    _, tg = sub3
+    cs = ic.CulledScene(tg)
+    p = cs.parts[0]
+
+    def prepass(o, d):
+        return ic.prepass_plain(p.cluster_min, p.cluster_max, o, d, 1e-4)[0]
+
+    return chip_smoke.adversarial_entries(tg, cs.order, p.tri_pack, prepass,
+                                          9)
+
+
+@pytest.mark.parametrize("design", ["a", "b"])
+@pytest.mark.parametrize("slices", [1, 3])
+@pytest.mark.parametrize("name", ["cbox_sub3", "stress100k", "adversarial"])
+def test_sc_closest_design_equals_plain(sub3, stress, name, slices, design):
+    """K12's design, rows through L1 (a) or staged in the ring (b), equals
+    closest_grouped_sc_plain and K6's plain version bitwise and lists
+    exactly K6's items (one a set (group, cluster) bit). The adversarial
+    batch (chip_smoke.adversarial_entries; the card holds K12 on it):
+    exact ties across two members of one entry and across two entries go
+    to the lower original id, an entry with all 8 members live, one with
+    one live member whose word is zero for three of the tile's blocks, a
+    last entry with padding clusters, a tile with no bit."""
+    if name == "adversarial":
+        tp, gm, o, d = _entries_case(sub3)
+    else:
+        _, part, o, d = _case(name, sub3, stress)
+        tp = part.tri_pack
+        gm = ic.prepass_plain(part.cluster_min, part.cluster_max, o, d,
+                              1e-4)[0]
+    t, idx, items = _sc_closest_design(tp, gm, o, d, slices, design == "b")
+    want = ic.closest_grouped_sc_plain(tp, gm, o, d)
+    assert torch.equal(t, want[0]) and torch.equal(idx, want[1])
+    k6 = ic.closest_grouped_plain(tp, gm, o, d)
+    assert torch.equal(t, k6[0]) and torch.equal(idx, k6[1])
+    assert items == chip_smoke.set_bits(gm)
+    if name != "adversarial":
+        assert torch.isfinite(t).float().mean() > 0.3
+        return
+    count, entries, bitmaps = ic.supercluster_list(gm)
+    assert count.tolist() == [2, 1, 2, 0]
+    assert bitmaps[0, 0] == 0xFF and bitmaps[1, 0] == 1
+    assert bitmaps[2, 1] & 0x08 and not bitmaps[2, 1] & 0xF0
+    # tile 0 tests both triangles of every tie: the lower id wins
+    ids, hit0 = tp[:, 13].contiguous().view(torch.int32), idx[:1024]
+    won = 0
+    for j in range(8):
+        for a, b in ((16 * j + 8, 128 + 16 * j), (16 * j + 4, 1024 + 16 * j)):
+            both = (hit0 == ids[a]) | (hit0 == ids[b])
+            assert not (hit0[both] == max(ids[a], ids[b])).any()
+            won += int(both.sum())
+    assert won > 200
+    assert torch.isfinite(t[1024 + 69 * 8:1024 + 70 * 8]).any()
+    assert not torch.isfinite(torch.cat([t[1024:1024 + 69 * 8],
+                                         t[1024 + 70 * 8:2048]])).any()
+    assert not torch.isfinite(t[3072:]).any()
+
+
+@pytest.mark.parametrize("design", ["a", "b"])
+@pytest.mark.parametrize("slices", [1, 3])
+@pytest.mark.parametrize("name", ["cbox_sub3", "stress100k", "adversarial"])
+def test_sc_anyhit_design_equals_plain(sub3, stress, name, slices, design):
+    """K13's design, rows (a) or (b), equals occluded_grouped_sc_plain and
+    K7's plain version bitwise, never lists more items than set bits, and
+    a block whose segments are all decided from the start (maxd <= 0 or
+    NaN) lists none. The adversarial batch is chip_smoke's
+    adversarial_segments (the card holds K7 and K13 on it): first-cluster
+    blockers, all-excluded crossings, whole blocks at maxd 0, -1 or NaN,
+    padding lanes."""
+    if name == "adversarial":
+        _, tg = sub3
+        cs = ic.CulledScene(tg)
+        part = cs.parts[0]
+        seg = chip_smoke.adversarial_segments(tg, cs.order, 4096, 12)
+    else:
+        geom, part, o, d = _case(name, sub3, stress)
+        seg = _segments(geom, part, o, d, 5)
+    gm = ic.prepass_plain(part.cluster_min, part.cluster_max, seg[0], seg[1],
+                          1e-5, seg[2])[0]
+    if name == "adversarial":   # set bits on a block of segments at maxd <= 0
+        assert not (seg[2][512:768] > 0).any()
+        gm[0, 2] = gm[0, 0]
+    got, items, idle = _sc_anyhit_design(part.tri_pack, gm, *seg, slices,
+                                         design == "b")
+    want = ic.occluded_grouped_sc_plain(part.tri_pack, gm, *seg)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ic.occluded_grouped_plain(part.tri_pack, gm,
+                                                      *seg))
+    assert want.any() and not want.all()
+    assert 0 < items <= chip_smoke.set_bits(gm) and idle == 0
+    if name == "adversarial":
+        assert chip_smoke.set_bits(gm[0, 2]) > 0
 
 
 # --- the schedule and the walk against JAX -----------------------------------------

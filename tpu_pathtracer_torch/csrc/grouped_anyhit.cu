@@ -48,14 +48,24 @@
 // segment by the lane that flips its flag). A blocked segment writes 1 (the
 // output starts at 0), which any share may do.
 //
-// K13 walks K12's supercluster schedule (grouped_closest.cu): a block
-// stages an entry's 1024-row span (64 KiB of dynamic shared memory) once and
-// runs the pair test on the slices of the members whose mask word for the
-// block is non-zero, one lane per segment, with block votes: the block
-// leaves when every lane is decided. An OR again, so K13 equals K7 and its
-// plain version bitwise. Both kernels test a pair with pair_blocks.
+// K13 is K7's kernel over K12's supercluster schedule (grouped_closest.cu):
+// the slices deal the tile's active entries, a chunk is 32 entries, thread
+// t holds member t & 7 of entry t >> 3 and reads its word once (none where
+// the bitmap bit is clear), the bits of decided groups are dropped, and the
+// rest are K7's items. So K13 tests exactly K7's pairs, with K7's exits: an
+// OR again, equal to K7 and its plain version bitwise. Both kernels test a
+// pair with pair_blocks. kScBulk picks K12's design (b) for the rows (the
+// one built; (a) reads them through L1 as K7 does): live members' slices
+// copied by TMA bulk copies into a ring of kRing slots; a warp waiting on a
+// slot also watches the block's open count, and before the block leaves it
+// waits for every copy it issued, so no copy lands in shared memory the
+// block has released. At 32 blocks an SM (intersect_culled.
+// _SC_ANYHIT_PER_SM, the sweep's best) (b) took 0.97x (a)'s device time
+// on the 1M scene's NEE shadow segments (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include "bulk_ring.cuh"
 
 namespace {
 
@@ -65,10 +75,11 @@ constexpr int kTile = 1024;     // segments per tile
 constexpr int kWords = 4;       // mask words per (tile, cluster)
 constexpr int kChunk = 128;     // triangles per cluster
 constexpr int kRowVec = 4;      // float4s per pack row
-constexpr int kLanesPerSeg = 4; // lanes of a K7 work item per segment
+constexpr int kLanesPerSeg = 4; // lanes of a work item per segment
 constexpr int kSC = 8;          // clusters per supercluster entry
-constexpr int kSpanVec = kSC * kChunk * kRowVec;   // float4s of a span
-constexpr int kSpanBytes = kSpanVec * 16;          // 65,536
+constexpr bool kScBulk = true;  // K13's rows: staged (b), not via L1 (a)
+constexpr int kRing = 4;        // (b): shared-memory slots of 8 KiB
+constexpr int kSliceBytes = kChunk * kRowVec * 16;   // a cluster's rows
 constexpr unsigned kFull = 0xffffffffu;
 
 // Does the segment hit the triangle of pack row (a, b, c, p) (c0-c3,
@@ -88,23 +99,11 @@ __device__ __forceinline__ bool pair_blocks(
          (t < md) & (p != fa) & (p != fb);
 }
 
-// Does the segment hit one of a staged cluster's 128 rows (rows: its pack
-// rows)?
-__device__ __forceinline__ bool anyhit_rows(
-    const float4* rows, float ox, float oy, float oz, float dx, float dy,
-    float dz, float md, float fa, float fb) {
-  for (int r = 0; r < kChunk; ++r) {
-    const float4* row = rows + r * kRowVec;
-    if (pair_blocks(row[0], row[1], row[2], row[3].x, ox, oy, oz, dx, dy,
-                    dz, md, fa, fb)) {
-      return true;
-    }
-  }
-  return false;
-}
-
-// K7: one block per (tile, mask word, slice); work items are the set
-// (group, cluster) bits of the block's share of the schedule.
+// One block per (tile, mask word, slice); work items are the set (group,
+// cluster) bits of the block's share of the schedule whose group has an
+// open segment. K7 (kPer = 1) and K13 (kPer = 8, kBulk) as the closest-hit
+// kernels of grouped_closest.cu.
+template <int kPer, bool kBulk>
 __global__ void __launch_bounds__(kThreads)
 grouped_anyhit_kernel(const float4* __restrict__ tri,
                       const float* __restrict__ o,
@@ -113,7 +112,8 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
                       const int* __restrict__ ex_a,
                       const int* __restrict__ ex_b,
                       const int* __restrict__ count,
-                      const int* __restrict__ clusters,
+                      const int* __restrict__ list,
+                      const int* __restrict__ bitmaps,
                       const int* __restrict__ masks, int cpad, int slices,
                       unsigned char* __restrict__ blocked_out) {
   __shared__ float s_seg[9][kThreads];  // o, d, maxd, ex_a, ex_b (f32)
@@ -124,6 +124,11 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
   __shared__ int s_wsum[kWarps];
   __shared__ unsigned s_live[kWarps];   // per warp: its 4 groups' open bits
   __shared__ int s_left;                // segments still open
+  extern __shared__ float4 ring[];      // (b): kRing cluster slices
+  __shared__ unsigned long long s_full[kBulk ? kRing : 1];  // (b): a slot
+  __shared__ int s_issued[kBulk ? kRing : 1];  // copied into, its copies
+  __shared__ int s_items[kBulk ? kRing : 1];   // and its member's items done
+  __shared__ int s_member[kBulk ? kThreads : 1];  // live members' slots
 
   const int per_tile = kWords * slices;
   const int tile = blockIdx.x / per_tile;
@@ -135,6 +140,13 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
   const int warp = tid >> 5;
   const int ray0 = tile * kTile + w * kThreads;
 
+  if constexpr (kBulk) {
+    if (tid < kRing) {
+      bar_init(&s_full[tid]);
+      s_issued[tid] = 0;
+      s_items[tid] = 0;
+    }
+  }
   {
     const int ray = ray0 + tid;
     const float md = maxd[ray];
@@ -152,12 +164,22 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
   volatile int* done = s_done;
   volatile int* left = &s_left;
 
+  auto stage = [&](int member, int r) {  // (b): a live member's slice
+    bulk_copy(ring + r * kChunk * kRowVec,
+              tri + static_cast<size_t>(s_cid[s_member[member]]) * kChunk *
+                        kRowVec,
+              kSliceBytes, &s_full[r], &s_issued[r]);
+  };
+
   const int n_active = count[tile];
   const int n_mine = n_active > s ? (n_active - s + slices - 1) / slices : 0;
-  const int* cl_list = clusters + static_cast<size_t>(tile) * cpad;
+  const int n_slots = n_mine * kPer;    // kPer slots per schedule entry
+  const int* l_list = list + static_cast<size_t>(tile) * (cpad / kPer);
+  const int* b_list = bitmaps + static_cast<size_t>(tile) * (cpad / kPer);
   const int* m_list =
       masks + (static_cast<size_t>(tile) * kWords + w) * cpad;
-  for (int base = 0; base < n_mine; base += kThreads) {
+  int staged = 0;                       // (b): live members before the chunk
+  for (int base = 0; base < n_slots; base += kThreads) {
     // the groups that still have an open segment
     const unsigned open = __ballot_sync(kFull, !done[tid]);
     if (lane == 0) {
@@ -174,14 +196,20 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
     const int j = base + tid;
     unsigned m = 0u;
     int cid = 0;
-    if (j < n_mine) {
-      const int e = s + j * slices;
-      m = static_cast<unsigned>(m_list[e]) & live;
-      cid = cl_list[e];
+    if (j < n_slots) {
+      const int e = s + (j / kPer) * slices;
+      if (kPer == 1) {
+        m = static_cast<unsigned>(m_list[e]) & live;
+        cid = l_list[e];
+      } else if ((b_list[e] >> (j % kPer)) & 1) {
+        cid = l_list[e] * kPer + j % kPer;
+        m = static_cast<unsigned>(m_list[cid]) & live;
+      }
     }
     s_cid[tid] = cid;
     s_mask[tid] = m;
-    int x = __popc(m);                   // inclusive scan over the block
+    // inclusive scan over the block: bits, and with (b) live members << 16
+    int x = __popc(m) + (kBulk && m ? 1 << 16 : 0);
     for (int k = 1; k < 32; k <<= 1) {
       const int y = __shfl_up_sync(kFull, x, k);
       if (lane >= k) x += y;
@@ -195,20 +223,41 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
       total += v;
     }
     s_end[tid] = x;
+    const int n_live = total >> 16;
+    total &= 0xffff;
+    if (kBulk && m) s_member[(x >> 16) - 1] = tid;
     __syncthreads();
+    if constexpr (kBulk) {
+      if (tid < kRing && tid < n_live) stage(tid, (staged + tid) % kRing);
+    }
 
     for (int i = warp; i < total; i += kWarps) {
       if (__shfl_sync(kFull, *left, 0) == 0) break;   // warp-uniform
-      // item i: the e-th chunk entry with s_end[e - 1] <= i < s_end[e],
+      // item i: the e-th chunk slot with s_end[e - 1] <= i < s_end[e],
       // and the k-th set bit of its mask
       int lo = 0, hi = kThreads - 1;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (s_end[mid] > i) hi = mid; else lo = mid + 1;
+        if ((s_end[mid] & 0xffff) > i) hi = mid; else lo = mid + 1;
       }
-      unsigned mm = s_mask[lo];
-      for (int k = i - (lo ? s_end[lo - 1] : 0); k > 0; --k) mm &= mm - 1u;
+      const unsigned m_lo = s_mask[lo];
+      unsigned mm = m_lo;
+      for (int k = i - (lo ? s_end[lo - 1] & 0xffff : 0); k > 0; --k) {
+        mm &= mm - 1u;
+      }
       const int seg = (__ffs(mm) - 1) * 8 + (lane & 7);
+      const float4* rows =
+          tri + static_cast<size_t>(s_cid[lo]) * kChunk * kRowVec;
+      int member = 0, r = 0;
+      if constexpr (kBulk) {            // wait for the member's slice
+        member = (s_end[lo] >> 16) - 1;
+        r = (staged + member) % kRing;
+        // false: every segment was decided meanwhile
+        const bool ready = wait_slot(&s_issued[r], &s_full[r],
+                                     (staged + member) / kRing, &s_left);
+        if (!__all_sync(kFull, ready)) break;
+        rows = ring + r * kChunk * kRowVec;
+      }
       int hit = 0;
       if (!done[seg]) {
         const float ox = s_seg[0][seg], oy = s_seg[1][seg],
@@ -216,13 +265,12 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
                     dy = s_seg[4][seg], dz = s_seg[5][seg],
                     md = s_seg[6][seg], fa = s_seg[7][seg],
                     fb = s_seg[8][seg];
-        const float4* rows =
-            tri + static_cast<size_t>(s_cid[lo]) * kChunk * kRowVec;
-        for (int r = lane >> 3; r < kChunk; r += kLanesPerSeg) {
-          const float4* row = rows + r * kRowVec;
-          if (pair_blocks(__ldg(row), __ldg(row + 1), __ldg(row + 2),
-                          __ldg(&row[3].x), ox, oy, oz, dx, dy, dz, md, fa,
-                          fb)) {
+        for (int row_i = lane >> 3; row_i < kChunk; row_i += kLanesPerSeg) {
+          const float4* row = rows + row_i * kRowVec;
+          if (pair_blocks(row_load<kBulk>(row), row_load<kBulk>(row + 1),
+                          row_load<kBulk>(row + 2),
+                          row_load<kBulk>(&row[3].x), ox, oy, oz, dx, dy, dz,
+                          md, fa, fb)) {
             hit = 1;
             break;
           }
@@ -234,86 +282,53 @@ grouped_anyhit_kernel(const float4* __restrict__ tri,
         blocked_out[ray0 + seg] = 1;
         atomicSub(&s_left, 1);
       }
+      if constexpr (kBulk) {
+        // the last item of the member frees its slot for member + kRing
+        if (lane == 0) {
+          __threadfence_block();
+          if (atomicAdd(&s_items[r], 1) + 1 == __popc(m_lo)) {
+            __threadfence_block();
+            s_items[r] = 0;
+            if (member + kRing < n_live) stage(member + kRing, r);
+          }
+        }
+      }
+    }
+    staged += n_live;
+  }
+  if constexpr (kBulk) {   // no copy may land after the block has left
+    __syncthreads();
+    if (tid < kRing && s_issued[tid] > 0) {
+      wait_slot(&s_issued[tid], &s_full[tid], s_issued[tid] - 1, nullptr);
     }
   }
 }
 
-// K13: K7's blocks and votes over K12's supercluster schedule.
-__global__ void __launch_bounds__(kThreads)
-grouped_anyhit_sc_kernel(const float4* __restrict__ tri,
-                         const float* __restrict__ o,
-                         const float* __restrict__ d,
-                         const float* __restrict__ maxd,
-                         const int* __restrict__ ex_a,
-                         const int* __restrict__ ex_b,
-                         const int* __restrict__ count,
-                         const int* __restrict__ entries,
-                         const int* __restrict__ bitmaps,
-                         const int* __restrict__ gmask, int cpad, int slices,
-                         unsigned char* __restrict__ blocked_out) {
-  extern __shared__ float4 span[];   // kSpanVec: one entry's 1024 rows
-  __shared__ int s_eid[kThreads];
-  __shared__ unsigned s_bits[kThreads];
-
-  const int per_tile = kWords * slices;
-  const int tile = blockIdx.x / per_tile;
-  const int rem = blockIdx.x - tile * per_tile;
-  const int w = rem / slices;
-  const int s = rem - w * slices;
-  const int tid = threadIdx.x;
-  const int ray = tile * kTile + w * kThreads + tid;
-  const unsigned bit = 1u << (tid >> 3);
-
-  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  const float md = maxd[ray];
-  const float fa = static_cast<float>(ex_a[ray]);
-  const float fb = static_cast<float>(ex_b[ray]);
-  bool blocked = false;
-  bool decided = !(md > 0.f);    // maxd <= 0 (or NaN): never blocked
-
-  const int n_entries = cpad / kSC;
-  const int n_active = count[tile];
-  const int* e_list = entries + static_cast<size_t>(tile) * n_entries;
-  const int* b_list = bitmaps + static_cast<size_t>(tile) * n_entries;
-  const unsigned* words = reinterpret_cast<const unsigned*>(gmask) +
-                          (static_cast<size_t>(tile) * kWords + w) * cpad;
-  for (int base = 0; base < n_active; base += kThreads) {
-    // barrier (the previous chunk is no longer read) and block-wide vote
-    if (__syncthreads_and(decided)) break;
-    if (base + tid < n_active) {
-      s_eid[tid] = e_list[base + tid];
-      s_bits[tid] = static_cast<unsigned>(b_list[base + tid]);
-    }
-    __syncthreads();
-    const int n = min(kThreads, n_active - base);
-    for (int e = s; e < n; e += slices) {
-      const int first = s_eid[e] * kSC;   // the entry's first cluster
-      const unsigned members = s_bits[e];
-      unsigned live = 0u;                 // members with a word for us
-      for (int m = 0; m < kSC; ++m) {
-        if (((members >> m) & 1u) && words[first + m] != 0u) live |= 1u << m;
-      }
-      if (live == 0u) continue;           // uniform over the block
-      const float4* src = tri + static_cast<size_t>(first) * kChunk * kRowVec;
-      // barrier (the previous span is not read) and block-wide vote
-      if (__syncthreads_and(decided)) break;
-      for (int k = tid; k < kSpanVec; k += kThreads) span[k] = src[k];
-      __syncthreads();
-      if (!decided) {
-        while (live && !blocked) {
-          const int m = __ffs(live) - 1;
-          live &= live - 1u;
-          if (words[first + m] & bit) {
-            blocked = anyhit_rows(span + m * kChunk * kRowVec, ox, oy, oz, dx,
-                                  dy, dz, md, fa, fb);
-          }
-        }
-        decided = blocked;
-      }
-    }
+template <int kPer, bool kBulk>
+int launch(const float* tri, const float* o, const float* d,
+           const float* maxd, const int* ex_a, const int* ex_b, int n_rays,
+           const int* count, const int* list, const int* bitmaps,
+           const int* masks, int cpad, int slices,
+           unsigned char* blocked_out, void* stream) {
+  if (n_rays % kTile || slices < 1 || cpad % kPer) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (blocked) blocked_out[ray] = 1;
+  if (n_rays == 0) return 0;
+  const int blocks = n_rays / kTile * kWords * slices;
+  const int ring_bytes = kBulk ? kRing * kSliceBytes : 0;
+  if (ring_bytes > 32 * 1024) {
+    // a block past 48 KiB of shared memory needs the opt-in: only rings of
+    // more than 4 slots (kernel_ab.py's sweep builds 6 and 8)
+    const cudaError_t attr = cudaFuncSetAttribute(
+        grouped_anyhit_kernel<kPer, kBulk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  grouped_anyhit_kernel<kPer, kBulk>
+      <<<blocks, kThreads, ring_bytes, static_cast<cudaStream_t>(stream)>>>(
+          reinterpret_cast<const float4*>(tri), o, d, maxd, ex_a, ex_b,
+          count, list, bitmaps, masks, cpad, slices, blocked_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -329,43 +344,41 @@ int tpt_grouped_anyhit(const float* tri, const float* o, const float* d,
                        int n_rays, const int* count, const int* clusters,
                        const int* masks, int cpad, int slices,
                        unsigned char* blocked_out, void* stream) {
-  if (n_rays % kTile || slices < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rays == 0) return 0;
-  const int blocks = n_rays / kTile * kWords * slices;
-  grouped_anyhit_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(tri), o, d, maxd, ex_a, ex_b, count,
-      clusters, masks, cpad, slices, blocked_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<1, false>(tri, o, d, maxd, ex_a, ex_b, n_rays, count,
+                          clusters, clusters, masks, cpad, slices,
+                          blocked_out, stream);
 }
 
 // Any hit per segment over the supercluster schedule (the K13 kernel):
 // count, entries and bitmaps as for tpt_grouped_closest_sc, gmask (tiles, 4,
 // cpad) i32 from the segment prepass; the rest as for tpt_grouped_anyhit.
-// Returns the CUDA error code of the shared-memory attribute call or of the
-// launch (0 = cudaSuccess).
+// Returns the CUDA error code of the launch (0 = cudaSuccess).
 int tpt_grouped_anyhit_sc(const float* tri, const float* o, const float* d,
                           const float* maxd, const int* ex_a, const int* ex_b,
                           int n_rays, const int* count, const int* entries,
                           const int* bitmaps, const int* gmask, int cpad,
                           int slices, unsigned char* blocked_out,
                           void* stream) {
-  if (n_rays % kTile || slices < 1 || cpad % kSC) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rays == 0) return 0;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      grouped_anyhit_sc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSpanBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int blocks = n_rays / kTile * kWords * slices;
-  grouped_anyhit_sc_kernel<<<blocks, kThreads, kSpanBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(tri), o, d, maxd, ex_a, ex_b, count,
-      entries, bitmaps, gmask, cpad, slices, blocked_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kSC, kScBulk>(tri, o, d, maxd, ex_a, ex_b, n_rays, count,
+                              entries, bitmaps, gmask, cpad, slices,
+                              blocked_out, stream);
+}
+
+// The K13 launch shape for n_rays segments and `slices` shares of a
+// schedule: out[0..4] = blocks, threads a block, static shared bytes a
+// block, registers a thread and dynamic shared bytes a block. Returns a
+// CUDA error code.
+int tpt_grouped_anyhit_sc_shape(int n_rays, int slices, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, grouped_anyhit_kernel<kSC, kScBulk>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = n_rays / kTile * kWords * slices;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.numRegs;
+  out[4] = kScBulk ? kRing * kSliceBytes : 0;
+  return 0;
 }
 
 const char* tpt_error_string(int code) {

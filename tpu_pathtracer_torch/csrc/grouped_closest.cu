@@ -62,17 +62,38 @@
 // K12, the supercluster walk. A schedule entry is 8 consecutive clusters,
 // whose 1024 pack rows are one contiguous span (packs are padded to whole
 // 128-cluster blocks, so every span is in bounds), with an 8-bit bitmap of
-// the members some group of the tile hits. The TPU kernel's point was to
-// pay one DMA and one schedule read per 8 clusters instead of per cluster;
-// here a block stages an entry's whole span (64 KiB, dynamic shared memory,
-// above the 48 KiB static limit) once, then pops the members whose mask word
-// for this block is non-zero and runs the pair test (accept, K6's) on
-// each member's 128-row slice, one thread a ray. The words are read from the (tiles, 4, cpad) mask by
-// cluster id. Same keys and atomicMin as K6, so K12 equals K6 bitwise. What
-// bounds it is what bounds K6; the span costs 8 clusters' bytes per visit
-// even when one member is live, which is the trade the TPU measured.
+// the members some group of the tile hits; a member's words are read from
+// the (tiles, 4, cpad) mask by cluster id. K12 is K6's kernel over entries:
+// the slices deal the tile's active entries, a chunk is 32 entries, and
+// thread t of the chunk holds member t & 7 of entry t >> 3, reading the
+// member's word for the block's mask word once (no read where the bitmap
+// bit is clear; padding clusters have none). The chunk's set bits are then
+// K6's items, so K12 tests exactly K6's pairs and equals it bitwise; a
+// member with a zero word for this block costs no item. The TPU kernel's
+// point was one DMA and one schedule read per 8 clusters.
+//
+// The rows of an item come in one of two ways (kScBulk). (a) Through L1
+// with __ldg, as in K6: neighbouring warps on items of one member share the
+// L2 fetch. (b) Staged: the block lists its live members (non-zero words)
+// in chunk order, and one thread copies each member's 8 KiB slice into a
+// ring of kRing shared-memory slots with a TMA 1-D bulk copy
+// (cp.async.bulk) that completes on the slot's mbarrier. The first kRing
+// members are copied when the chunk's items are listed; the lane that
+// finishes the last item of member k copies member k + kRing into the freed
+// slot. A warp waits only on its item's slot, never on a block barrier.
+// Items come in member order and a warp takes them in order, so the least
+// unfinished item always has its member staged: no wait can deadlock. (b)
+// is the one built: on the H100 it took 0.93x (a)'s device time on the 1M
+// scene's bounce rays and 0.84x on its camera rays (kernel_ab.py's sweep,
+// which builds both; PERF.md). Four slots (32 KiB, no opt-in past 48 KiB
+// a block) were the best of the sweep's 2-8: fewer leave warps waiting for
+// staged members, more cost resident blocks. The wrapper asks for 32
+// blocks an SM (intersect_culled._SC_CLOSEST_PER_SM), the sweep's best of
+// 4-32.
 
 #include <cuda_runtime.h>
+
+#include "bulk_ring.cuh"
 
 namespace {
 
@@ -83,10 +104,11 @@ constexpr int kWords = 4;       // mask words per (tile, cluster)
 constexpr int kChunk = 128;     // triangles per cluster
 constexpr int kRowVec = 4;      // float4s per pack row
 constexpr int kGroup = 8;       // rays per group (one mask bit)
-constexpr int kRowLanes = 4;    // lanes of a K6 work item per ray
+constexpr int kRowLanes = 4;    // lanes of a work item per ray
 constexpr int kSC = 8;          // clusters per supercluster entry
-constexpr int kSpanVec = kSC * kChunk * kRowVec;   // float4s of a span
-constexpr int kSpanBytes = kSpanVec * 16;          // 65,536
+constexpr bool kScBulk = true;  // K12's rows: staged (b), not via L1 (a)
+constexpr int kRing = 4;        // (b): shared-memory slots of 8 KiB
+constexpr int kSliceBytes = kChunk * kRowVec * 16;   // a cluster's rows
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kMiss = ~0ull;
 
@@ -115,29 +137,20 @@ __device__ __forceinline__ unsigned long long key_of(float t, float id) {
          static_cast<unsigned>(__float_as_int(id));
 }
 
-// K12: fold the accepted pairs of one ray and one staged cluster (rows: its
-// 128 pack rows) into the ray's least key.
-__device__ __forceinline__ void closest_rows(
-    const float4* rows, float ox, float oy, float oz, float dx, float dy,
-    float dz, float t_min, unsigned long long& key) {
-  for (int r = 0; r < kChunk; ++r) {
-    const float4* row = rows + r * kRowVec;
-    float t;
-    if (accept(row[0], row[1], row[2], ox, oy, oz, dx, dy, dz, t_min, t)) {
-      const unsigned long long k2 = key_of(t, row[3].y);
-      if (k2 < key) key = k2;
-    }
-  }
-}
-
-// K6: one block per (tile, mask word, slice); work items are the set
-// (group, cluster) bits of the block's share of the schedule.
+// One block per (tile, mask word, slice); work items are the set (group,
+// cluster) bits of the block's share of the schedule. K6 (kPer = 1): the
+// schedule lists clusters, masks (tiles, 4, cpad) holds their words in
+// schedule order. K12 (kPer = 8): it lists supercluster entries with their
+// member bitmaps, masks is the prepass's gmask, read by cluster id. kBulk:
+// design (b) of the rows (above); ring is its dynamic shared memory.
+template <int kPer, bool kBulk>
 __global__ void __launch_bounds__(kThreads)
 grouped_closest_kernel(const float4* __restrict__ tri,
                        const float* __restrict__ o,
                        const float* __restrict__ d,
                        const int* __restrict__ count,
-                       const int* __restrict__ clusters,
+                       const int* __restrict__ list,
+                       const int* __restrict__ bitmaps,
                        const int* __restrict__ masks, int cpad, int slices,
                        float t_min, unsigned long long* __restrict__ best) {
   __shared__ float s_o[3 * kThreads];   // the block's rays, as in o and d
@@ -147,6 +160,11 @@ grouped_closest_kernel(const float4* __restrict__ tri,
   __shared__ unsigned s_mask[kThreads]; // and their group bits
   __shared__ int s_end[kThreads];       // inclusive prefix sum of the bits
   __shared__ int s_wsum[kWarps];
+  extern __shared__ float4 ring[];      // (b): kRing cluster slices
+  __shared__ unsigned long long s_full[kBulk ? kRing : 1];  // (b): a slot
+  __shared__ int s_issued[kBulk ? kRing : 1];  // copied into, its copies
+  __shared__ int s_done[kBulk ? kRing : 1];    // and its member's items done
+  __shared__ int s_live[kBulk ? kThreads : 1]; // (b): live members' slots
 
   const int per_tile = kWords * slices;
   const int tile = blockIdx.x / per_tile;
@@ -164,26 +182,42 @@ grouped_closest_kernel(const float4* __restrict__ tri,
     s_d[k] = d[3 * ray0 + k];
   }
   s_key[tid] = kMiss;
+  if constexpr (kBulk) {
+    if (tid < kRing) {
+      bar_init(&s_full[tid]);
+      s_issued[tid] = 0;
+      s_done[tid] = 0;
+    }
+  }
 
   const int n_active = count[tile];
   const int n_mine = n_active > s ? (n_active - s + slices - 1) / slices : 0;
-  const int* cl_list = clusters + static_cast<size_t>(tile) * cpad;
+  const int n_slots = n_mine * kPer;    // kPer slots per schedule entry
+  const int* l_list = list + static_cast<size_t>(tile) * (cpad / kPer);
+  const int* b_list = bitmaps + static_cast<size_t>(tile) * (cpad / kPer);
   const int* m_list =
       masks + (static_cast<size_t>(tile) * kWords + w) * cpad;
-  for (int base = 0; base < n_mine; base += kThreads) {
+  int staged = 0;                       // (b): live members before the chunk
+  for (int base = 0; base < n_slots; base += kThreads) {
     // barrier: the rays published, the previous chunk no longer read
     __syncthreads();
     const int j = base + tid;
     unsigned m = 0u;
     int cid = 0;
-    if (j < n_mine) {
-      const int e = s + j * slices;
-      m = static_cast<unsigned>(m_list[e]);
-      cid = cl_list[e];
+    if (j < n_slots) {
+      const int e = s + (j / kPer) * slices;
+      if (kPer == 1) {
+        m = static_cast<unsigned>(m_list[e]);
+        cid = l_list[e];
+      } else if ((b_list[e] >> (j % kPer)) & 1) {
+        cid = l_list[e] * kPer + j % kPer;
+        m = static_cast<unsigned>(m_list[cid]);
+      }
     }
     s_cid[tid] = cid;
     s_mask[tid] = m;
-    int x = __popc(m);                   // inclusive scan over the block
+    // inclusive scan over the block: bits, and with (b) live members << 16
+    int x = __popc(m) + (kBulk && m ? 1 << 16 : 0);
     for (int k = 1; k < 32; k <<= 1) {
       const int y = __shfl_up_sync(kFull, x, k);
       if (lane >= k) x += y;
@@ -197,32 +231,56 @@ grouped_closest_kernel(const float4* __restrict__ tri,
       total += v;
     }
     s_end[tid] = x;
+    const int n_live = total >> 16;
+    total &= 0xffff;
+    if (kBulk && m) s_live[(x >> 16) - 1] = tid;
     __syncthreads();
+    if constexpr (kBulk) {
+      if (tid < kRing && tid < n_live) {  // the chunk's first members
+        const int r = (staged + tid) % kRing;
+        bulk_copy(ring + r * kChunk * kRowVec,
+                  tri + static_cast<size_t>(s_cid[s_live[tid]]) * kChunk *
+                            kRowVec,
+                  kSliceBytes, &s_full[r], &s_issued[r]);
+      }
+    }
 
     for (int i = warp; i < total; i += kWarps) {
-      // item i: the e-th chunk entry with s_end[e - 1] <= i < s_end[e],
+      // item i: the e-th chunk slot with s_end[e - 1] <= i < s_end[e],
       // and the k-th set bit of its mask
       int lo = 0, hi = kThreads - 1;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (s_end[mid] > i) hi = mid; else lo = mid + 1;
+        if ((s_end[mid] & 0xffff) > i) hi = mid; else lo = mid + 1;
       }
-      unsigned mm = s_mask[lo];
-      for (int k = i - (lo ? s_end[lo - 1] : 0); k > 0; --k) mm &= mm - 1u;
+      const unsigned m_lo = s_mask[lo];
+      unsigned mm = m_lo;
+      for (int k = i - (lo ? s_end[lo - 1] & 0xffff : 0); k > 0; --k) {
+        mm &= mm - 1u;
+      }
       const int ray = (__ffs(mm) - 1) * kGroup + (lane & (kGroup - 1));
       const float ox = s_o[3 * ray], oy = s_o[3 * ray + 1],
                   oz = s_o[3 * ray + 2], dx = s_d[3 * ray],
                   dy = s_d[3 * ray + 1], dz = s_d[3 * ray + 2];
       const float4* rows =
           tri + static_cast<size_t>(s_cid[lo]) * kChunk * kRowVec;
+      int member = 0, r = 0;
+      if constexpr (kBulk) {            // wait for the member's slice
+        member = (s_end[lo] >> 16) - 1;
+        r = (staged + member) % kRing;
+        wait_slot(&s_issued[r], &s_full[r], (staged + member) / kRing,
+                  nullptr);
+        rows = ring + r * kChunk * kRowVec;
+      }
       unsigned long long key = kMiss;
 #pragma unroll 4
-      for (int r = q; r < kChunk; r += kRowLanes) {
-        const float4* row = rows + r * kRowVec;
+      for (int row_i = q; row_i < kChunk; row_i += kRowLanes) {
+        const float4* row = rows + row_i * kRowVec;
         float t;
-        if (accept(__ldg(row), __ldg(row + 1), __ldg(row + 2), ox, oy, oz,
-                   dx, dy, dz, t_min, t)) {
-          const unsigned long long k2 = key_of(t, __ldg(&row[3].y));
+        if (accept(row_load<kBulk>(row), row_load<kBulk>(row + 1),
+                   row_load<kBulk>(row + 2), ox, oy, oz, dx, dy, dz, t_min,
+                   t)) {
+          const unsigned long long k2 = key_of(t, row_load<kBulk>(&row[3].y));
           if (k2 < key) key = k2;
         }
       }
@@ -231,78 +289,70 @@ grouped_closest_kernel(const float4* __restrict__ tri,
         if (y < key) key = y;
       }
       if (q == 0 && key != kMiss) atomicMin(&s_key[ray], key);
+      if constexpr (kBulk) {
+        // the last item of the member frees its slot for member + kRing
+        if (lane == 0) {
+          __threadfence_block();
+          if (atomicAdd(&s_done[r], 1) + 1 == __popc(m_lo)) {
+            __threadfence_block();
+            s_done[r] = 0;
+            if (member + kRing < n_live) {
+              bulk_copy(ring + r * kChunk * kRowVec,
+                        tri + static_cast<size_t>(
+                                  s_cid[s_live[member + kRing]]) *
+                                  kChunk * kRowVec,
+                        kSliceBytes, &s_full[r], &s_issued[r]);
+            }
+          }
+        }
+      }
     }
+    staged += n_live;
   }
   __syncthreads();
   const unsigned long long key = s_key[tid];
   if (key != kMiss) atomicMin(best + ray0 + tid, key);
 }
 
-// K12: blocks as K6's; the schedule lists entries (ids, member bitmaps) and
-// the member words are read from gmask (tiles, 4, cpad) by cluster id.
-__global__ void __launch_bounds__(kThreads)
-grouped_closest_sc_kernel(const float4* __restrict__ tri,
-                          const float* __restrict__ o,
-                          const float* __restrict__ d,
-                          const int* __restrict__ count,
-                          const int* __restrict__ entries,
-                          const int* __restrict__ bitmaps,
-                          const int* __restrict__ gmask, int cpad, int slices,
-                          float t_min, unsigned long long* __restrict__ best) {
-  extern __shared__ float4 span[];   // kSpanVec: one entry's 1024 rows
-  __shared__ int s_eid[kThreads];
-  __shared__ unsigned s_bits[kThreads];
-
-  const int per_tile = kWords * slices;
-  const int tile = blockIdx.x / per_tile;
-  const int rem = blockIdx.x - tile * per_tile;
-  const int w = rem / slices;
-  const int s = rem - w * slices;
-  const int tid = threadIdx.x;
-  const int ray = tile * kTile + w * kThreads + tid;
-  const unsigned bit = 1u << (tid >> 3);
-
-  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  unsigned long long key = ~0ull;
-
-  const int n_entries = cpad / kSC;
-  const int n_active = count[tile];
-  const int* e_list = entries + static_cast<size_t>(tile) * n_entries;
-  const int* b_list = bitmaps + static_cast<size_t>(tile) * n_entries;
-  const unsigned* words = reinterpret_cast<const unsigned*>(gmask) +
-                          (static_cast<size_t>(tile) * kWords + w) * cpad;
-  for (int base = 0; base < n_active; base += kThreads) {
-    __syncthreads();   // the previous chunk is no longer read
-    if (base + tid < n_active) {
-      s_eid[tid] = e_list[base + tid];
-      s_bits[tid] = static_cast<unsigned>(b_list[base + tid]);
-    }
-    __syncthreads();
-    const int n = min(kThreads, n_active - base);
-    for (int e = s; e < n; e += slices) {
-      const int first = s_eid[e] * kSC;   // the entry's first cluster
-      const unsigned members = s_bits[e];
-      unsigned live = 0u;                 // members with a word for us
-      for (int m = 0; m < kSC; ++m) {
-        if (((members >> m) & 1u) && words[first + m] != 0u) live |= 1u << m;
-      }
-      if (live == 0u) continue;           // uniform over the block
-      const float4* src = tri + static_cast<size_t>(first) * kChunk * kRowVec;
-      __syncthreads();                    // the previous span is not read
-      for (int k = tid; k < kSpanVec; k += kThreads) span[k] = src[k];
-      __syncthreads();
-      while (live) {
-        const int m = __ffs(live) - 1;
-        live &= live - 1u;
-        if (words[first + m] & bit) {
-          closest_rows(span + m * kChunk * kRowVec, ox, oy, oz, dx, dy, dz,
-                       t_min, key);
-        }
-      }
-    }
+template <int kPer, bool kBulk>
+int launch(const float* tri, const float* o, const float* d, int n_rays,
+           const int* count, const int* list, const int* bitmaps,
+           const int* masks, int cpad, int slices, float t_min,
+           long long* best, void* stream) {
+  if (n_rays % kTile || slices < 1 || cpad % kPer) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (key != ~0ull) atomicMin(best + ray, key);
+  if (n_rays == 0) return 0;
+  const int blocks = n_rays / kTile * kWords * slices;
+  const int ring_bytes = kBulk ? kRing * kSliceBytes : 0;
+  if (ring_bytes > 32 * 1024) {
+    // a block past 48 KiB of shared memory needs the opt-in: only rings of
+    // more than 4 slots (kernel_ab.py's sweep builds 6 and 8)
+    const cudaError_t attr = cudaFuncSetAttribute(
+        grouped_closest_kernel<kPer, kBulk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  grouped_closest_kernel<kPer, kBulk>
+      <<<blocks, kThreads, ring_bytes, static_cast<cudaStream_t>(stream)>>>(
+          reinterpret_cast<const float4*>(tri), o, d, count, list, bitmaps,
+          masks, cpad, slices, t_min,
+          reinterpret_cast<unsigned long long*>(best));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kPer, bool kBulk>
+int shape(int n_rays, int slices, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, grouped_closest_kernel<kPer, kBulk>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = n_rays / kTile * kWords * slices;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.numRegs;
+  out[4] = kBulk ? kRing * kSliceBytes : 0;
+  return 0;
 }
 
 }  // namespace
@@ -317,56 +367,34 @@ int tpt_grouped_closest(const float* tri, const float* o, const float* d,
                         int n_rays, const int* count, const int* clusters,
                         const int* masks, int cpad, int slices, float t_min,
                         long long* best, void* stream) {
-  if (n_rays % kTile || slices < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rays == 0) return 0;
-  const int blocks = n_rays / kTile * kWords * slices;
-  grouped_closest_kernel<<<blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(tri), o, d, count, clusters, masks,
-      cpad, slices, t_min, reinterpret_cast<unsigned long long*>(best));
-  return static_cast<int>(cudaGetLastError());
+  return launch<1, false>(tri, o, d, n_rays, count, clusters, clusters,
+                          masks, cpad, slices, t_min, best, stream);
 }
 
 // The K6 launch shape for n_rays rays and `slices` shares of a schedule:
-// out[0..3] = blocks, threads a block, static shared bytes a block and
-// registers a thread. Returns a CUDA error code.
+// out[0..4] = blocks, threads a block, static shared bytes a block,
+// registers a thread and dynamic shared bytes a block. Returns a CUDA error
+// code.
 int tpt_grouped_closest_shape(int n_rays, int slices, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, grouped_closest_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = n_rays / kTile * kWords * slices;
-  out[1] = kThreads;
-  out[2] = static_cast<int>(a.sharedSizeBytes);
-  out[3] = a.numRegs;
-  return 0;
+  return shape<1, false>(n_rays, slices, out);
 }
 
 // Closest hit per ray over the supercluster schedule (the K12 kernel):
 // count (tiles,), entries and bitmaps (tiles, cpad / 8) i32 from
 // supercluster_list, gmask (tiles, 4, cpad) i32 from the prepass; the rest
-// as for tpt_grouped_closest. Returns the CUDA error code of the shared-
-// memory attribute call or of the launch (0 = cudaSuccess).
+// as for tpt_grouped_closest. Returns the CUDA error code of the launch.
 int tpt_grouped_closest_sc(const float* tri, const float* o, const float* d,
                            int n_rays, const int* count, const int* entries,
                            const int* bitmaps, const int* gmask, int cpad,
                            int slices, float t_min, long long* best,
                            void* stream) {
-  if (n_rays % kTile || slices < 1 || cpad % kSC) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rays == 0) return 0;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      grouped_closest_sc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSpanBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int blocks = n_rays / kTile * kWords * slices;
-  grouped_closest_sc_kernel<<<blocks, kThreads, kSpanBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(tri), o, d, count, entries, bitmaps,
-      gmask, cpad, slices, t_min, reinterpret_cast<unsigned long long*>(best));
-  return static_cast<int>(cudaGetLastError());
+  return launch<kSC, kScBulk>(tri, o, d, n_rays, count, entries, bitmaps,
+                              gmask, cpad, slices, t_min, best, stream);
+}
+
+// The K12 launch shape, as tpt_grouped_closest_shape's.
+int tpt_grouped_closest_sc_shape(int n_rays, int slices, int* out) {
+  return shape<kSC, kScBulk>(n_rays, slices, out);
 }
 
 const char* tpt_error_string(int code) {

@@ -46,9 +46,11 @@ and K13, built at first use) or raises. Each wrapper counts its launches
 The supercluster walk (K12, K13; `intersect_pallas_lab.py` of the JAX
 package): a schedule entry is _SC = 8 consecutive clusters whose 1024
 triangle rows are one contiguous span of the pack, with an 8-bit bitmap of
-its members that some group of the tile hits (`supercluster_list`); the
-walk stages an entry's span once and tests each active member's 128-row
-slice as K6/K7 test a cluster. The queries take it when a pack has at
+its members that some group of the tile hits (`supercluster_list`). The
+kernels deal a tile's entries over their blocks, read each member's group
+word once by cluster id, and run K6's / K7's work items (a set (group,
+member cluster) bit each) on it, so they test exactly K6's / K7's pairs.
+The queries take it when a pack has at
 least `_SC_MIN_CLUSTERS` clusters, read at call time as the JAX package
 reads its own copy: 2**30, so never in production (the TPU measured the
 walk a wash); a caller lowers it to run the walk.
@@ -102,6 +104,8 @@ WORDS = RAYS_PER_TILE // GROUP // 32   # 4 group-mask words per cluster
 _GATE_MIN_BLOCKS = 16        # K5 from 16 blocks (2048 clusters), K4 below
 _SC = 8                      # clusters per supercluster schedule entry
 _SC_MIN_CLUSTERS = 1 << 30   # supercluster walk from this many clusters
+_SC_CLOSEST_PER_SM = 32      # K12's blocks an SM (kernel_ab.py's sweep)
+_SC_ANYHIT_PER_SM = 32       # K13's
 _INT_MAX = 0x7FFFFFFF
 _MISS_KEY = (0x7F800000 << 32) | _INT_MAX   # (t = inf, id = INT_MAX)
 
@@ -247,12 +251,16 @@ def _library(source: str) -> ctypes.CDLL:
         lib.tpt_grouped_closest_sc.argtypes = [p, p, p, i, p, p, p, p, i, i,
                                                f, p, p]
         lib.tpt_grouped_closest_sc.restype = i
+        lib.tpt_grouped_closest_sc_shape.argtypes = [i, i, p]
+        lib.tpt_grouped_closest_sc_shape.restype = i
     else:
         fn = lib.tpt_grouped_anyhit
         fn.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, p, p]
         lib.tpt_grouped_anyhit_sc.argtypes = [p, p, p, p, p, p, i, p, p, p,
                                               p, i, i, p, p]
         lib.tpt_grouped_anyhit_sc.restype = i
+        lib.tpt_grouped_anyhit_sc_shape.argtypes = [i, i, p]
+        lib.tpt_grouped_anyhit_sc_shape.restype = i
     fn.restype = i
     lib.tpt_error_string.argtypes = [i]
     lib.tpt_error_string.restype = ctypes.c_char_p
@@ -506,6 +514,12 @@ def _closest_slices(dev, tiles: int) -> int:
     return _walk_slices(dev, tiles, per_sm=32, most=32)
 
 
+def _sc_slices(dev, tiles: int, per_sm: int) -> int:
+    """K12's or K13's shares of a tile's entries (_walk_slices), at their
+    blocks an SM: _SC_CLOSEST_PER_SM or _SC_ANYHIT_PER_SM."""
+    return _walk_slices(dev, tiles, per_sm=per_sm, most=32)
+
+
 def _check_tiled_walk(tri_pack, o, d):
     """Rays in whole 1024-ray tiles and an ordered pack of whole clusters;
     returns (tiles, cpad)."""
@@ -686,8 +700,8 @@ def closest_grouped_sc(tri_pack, gmask, o, d, t_min=1e-4):
             tri_pack.data_ptr(), o.data_ptr(), d.data_ptr(), b,
             count.data_ptr(), entries.data_ptr(), bitmaps.data_ptr(),
             gmask.data_ptr(), gmask.shape[2],
-            _walk_slices(dev, b // RAYS_PER_TILE), t_min, best.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _sc_slices(dev, b // RAYS_PER_TILE, _SC_CLOSEST_PER_SM), t_min,
+            best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "supercluster closest-hit")
     closest_grouped_sc.launches += 1
@@ -711,7 +725,8 @@ def occluded_grouped_sc(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
             tri_pack.data_ptr(), o.data_ptr(), d.data_ptr(), maxd.data_ptr(),
             ex_a.data_ptr(), ex_b.data_ptr(), b, count.data_ptr(),
             entries.data_ptr(), bitmaps.data_ptr(), gmask.data_ptr(),
-            gmask.shape[2], _walk_slices(dev, b // RAYS_PER_TILE),
+            gmask.shape[2],
+            _sc_slices(dev, b // RAYS_PER_TILE, _SC_ANYHIT_PER_SM),
             blocked.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "supercluster any-hit")
