@@ -105,7 +105,42 @@ Phases, one line each (any failure raises and exits non-zero):
                solve of phase 5 through the culled backend must equal the
                one through K3 bitwise; the 1024x1024 radiosity view of the
                sub-5 solution through the culled primary hit;
- 10. rows      the row-granular culled backend and ray sorting: K8, K10,
+ 10. shooting the matrix-free shooting solver, OBJ scenes and the BVH: the
+               box at subdivision 6 (65,536 primitives, 131,072
+               triangles) through "auto" (the culled backend): bench.py's
+               bounded slice of the shooting solve (one warm-up step,
+               then 16 steps of 128 shooters and 4 MC samples timed with
+               CUDA events: seconds a step, K4 and K7 launches a step,
+               segments a second), the same 16 steps again (radiosity,
+               unshot, grids and history bitwise equal), every K4 and
+               K7 call of one more step timed per launch, the busiest
+               against their plain versions (bitwise); the App at
+               subdivision 6 with "auto" backend and solver (shooting,
+               48 of the default 192 steps), its CDFs, one MIS pass at
+               512x512 (K7 and K6 must launch) and the radiosity view;
+               the box at subdivision 4 (8,192 triangles), 3 shooting
+               steps through K3 and occluded_plain (bitwise equal), and
+               for each of SHOOT4_KEYS through the culled backend, its K4
+               and K7 calls against their plain versions (bitwise) and
+               K3 on the same segments: bitwise equal to K3's solve where
+               no active segment's visibility parts from K3's, else at
+               most SHOOT_FLIPS such flips, each a knife edge (K3's
+               blockers' cluster boxes fail the prepass by at most
+               FLIP_WIDTHS widths; the brute force's answer printed) and
+               radiosity within SHOOT_FLIP_REL;
+               scenes/cbox.obj and scenes/cbox_mirror.obj
+               through "auto" (K2) in the cbox_mirror golden's config
+               against the builtin boxes (corners within 1e-5, relative
+               RMSE < 0.01, bitwise printed) and the mirror one against
+               goldens/cbox_mirror.npz, with the OBJ parser that ran;
+               backend "bvh" on the subdivision-3 box at 256x256, 4 spp
+               against "pallas" (relative RMSE < 0.01, bitwise printed),
+               its build (native or NumPy), pass time and lockstep
+               iterations a batch, and bvh_closest_hit on 65,536 bounce
+               rays against the brute force (t bitwise, ids but at exact
+               ties) and K2 (t within BVH_T_ULP ulp: K2 rounds the plane
+               offset apart);
+ 11. rows      the row-granular culled backend and ray sorting: K8, K10,
                K9 and K11 against their plain versions, bitwise, on 65,536
                camera and 65,536 bounce rays of stress100k (K11 also its
                visited counts; the early-out must fire on a camera tile),
@@ -126,7 +161,7 @@ Phases, one line each (any failure raises and exits non-zero):
                phase 8's, as are the first passes through CulledScene(
                grouped=False), CulledScene(regroup=True) and App(Config(
                sort_rays=True));
- 11. nee       next-event estimation, the balanced lane queues and the
+ 12. nee       next-event estimation, the balanced lane queues and the
                supercluster walk: cbox1024_nee (the headline's frame with
                NEE: warm-up and 3 timed passes, K2 and K3 once per
                iteration, its extra rays over the headline's are the shadow
@@ -161,8 +196,11 @@ launch at cbox1024_nee's 65,536 shadow rays (K3, with
 `nee_shape_device_ms`) or stress100k_nee's 16,384 lanes, and K4
 `solve_launches`, its launches in the sub-5 solve, and `segments_ms`,
 `segments_plain_ms`, `segments_bound_ms` and `segments_bound_by` on the
-sub-5 form-factor segments; K1, K2, K2-guide, K3, K4, K5, K6, K8, K10
-and K11 carry `device_ms` and their launch shape: `blocks`,
+sub-5 form-factor segments; K3, K4 and K7 `shooting_launches`, their
+launches in phase shooting's steps (K3 the sub-4 steps through K3, K4
+and K7 the 16 timed sub-6 steps), and `shooting_ms`, their time per
+launch averaged over every call of one shooting step; K1, K2,
+K2-guide, K3, K4, K5, K6, K8, K10 and K11 carry `device_ms` and their launch shape: `blocks`,
 `threads_per_block`, `shared_bytes_per_block`, `registers_per_thread`
 (K4, K5, K8 and K10 also `quarters_per_block`; K5 its `gated_pairs`
 and `tested_pairs` past the warp cull on the 1M bounce rays, K8 and K10
@@ -244,6 +282,25 @@ LARGE = dict(scene=STRESS, width=256, height=256, max_depth=4,
              spp_per_pass=8, ray_chunk=1 << 16, sampling_mode="bsdf")
 SOLVE5 = dict(scene="cbox_quads", subdivision=5, mc_samples=2,
               radiosity_iterations=8)
+SHOOT6 = dict(scene="cbox_quads", subdivision=6)   # 65,536 primitives
+SHOOT_STEPS = 16       # bench.py's bounded slice of the sub-6 shooting solve
+SHOOT6_STEPS = 48      # the App's sub-6 solve, cut from the default 192
+SHOOT6_FRAME = dict(width=512, height=512, spp=16, max_depth=5)
+SHOOT4 = dict(scene="cbox_quads", subdivision=4)   # 8,192 triangles: K3
+SHOOT4_KEYS = (12345, 2024)
+# K3 takes t from the affine pack (inv o - inv v0), the culled prepass
+# culls by box entry: a segment that grazes a plane near its end may be
+# blocked for one and not the other (a knife-edge visibility flip). A flip
+# passes where each of K3's blockers has a cluster box that fails the
+# prepass by at most FLIP_WIDTHS widths (see knife_edge_widths); at most
+# SHOOT_FLIPS of them, and radiosity within SHOOT_FLIP_REL of K3's (one
+# flip moved it by 1.068e-11 on the H100)
+FLIP_WIDTHS = 4.0
+SHOOT_FLIPS = 16
+SHOOT_FLIP_REL = 1e-9
+BVH3 = dict(scene="cbox_quads", subdivision=3, width=256, height=256, spp=4,
+            spp_per_pass=4, max_depth=5)
+BVH_T_ULP = 1024       # BVH t against K2's, in ulp of max(1, t)
 
 # NVIDIA's H100 SXM data sheet (at the 700 W limit): f32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -1040,25 +1097,63 @@ def first_blocking_rows(tri_pack, prim_ids, o, d, maxd, ex_a, ex_b):
     return first
 
 
+def knife_edge_widths(geom, tri_pack, prim_ids, part, rank, o, d, maxd,
+                      ex_a, ex_b):
+    """How near one segment ((1, ...) each) is to a knife edge for K3: for
+    every triangle that blocks it in K3's arithmetic, by how much its
+    cluster box fails the prepass's test (entry beyond exit or beyond
+    maxd; <= 0 where the box passes, and then the walk tests the same pair
+    in K3's arithmetic), in widths w = 2**-23 ||n||_1 (|o|_inf +
+    |v0|_inf) / |n . d|, n the pack's plane row: how far t moves when the
+    plane offset n . (o - v0) moves by the rounding of n. `rank` maps a
+    triangle to its row in `part`'s pack. Returns [(t, widths)] over the
+    blockers."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
+    n_tri = geom.num_tris
+    t, u, v = ap._tuv(tri_pack[:n_tri].T[:, None, :], o, d)
+    pr = prim_ids[None, :n_tri]
+    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
+          & (t < maxd[:, None]) & (pr != ex_a[:, None])
+          & (pr != ex_b[:, None]))
+    out = []
+    for r in torch.nonzero(ok[0]).flatten().tolist():
+        nrow = tri_pack[r, 6:9]
+        w = float(2.0 ** -23 * nrow.abs().sum()
+                  * (o.abs().max() + geom.tri_v0[r].abs().max())
+                  / (nrow * d[0]).sum().abs())
+        c = int(rank[r]) // ic.TRI_CHUNK
+        tn, tf, _ = ic._slab(part.cluster_min[c:c + 1],
+                             part.cluster_max[c:c + 1], o, ic._inv_dir(d),
+                             1e-5)
+        tn, tf = float(tn[0, 0]), float(tf[0, 0])
+        margin = max(tn - tf, -tf, tn - float(maxd[0]))
+        out.append((float(t[0, r]), margin / w))
+    return out
+
+
 def solutions_equal(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
         "form_factors", "radiosity", "unshot", "grid_counts", "rad_grid",
         "history"))
 
 
-def keep_third_calls(step, fns) -> dict:
+def keep_calls(step, fns, nth=None) -> dict:
     """Run step() with each of fns, (module, function name, key of a
-    call's positional arguments), wrapped so that the arguments of the
-    third call under each key are kept (cloned); returns {key: args}."""
+    call's positional arguments), wrapped so that the arguments of every
+    call under each key (of the nth only, when given) are kept (cloned);
+    returns {key: [args, ...]} in call order."""
     seen, kept, real = {}, {}, []
 
     def wrap(fn, key_of):
         def call(*args):
             key = key_of(args)
             seen[key] = seen.get(key, 0) + 1
-            if seen[key] == 3:
-                kept[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
-                                  else a for a in args)
+            if nth is None or seen[key] == nth:
+                kept.setdefault(key, []).append(tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args))
             return fn(*args)
 
         call.launches = 0                     # the kernels count on these
@@ -1073,6 +1168,12 @@ def keep_third_calls(step, fns) -> dict:
         for mod, name, fn in reversed(real):
             setattr(mod, name, fn)
     return kept
+
+
+def keep_third_calls(step, fns) -> dict:
+    """keep_calls' arguments of the third call under each key: {key:
+    args}."""
+    return {k: v[0] for k, v in keep_calls(step, fns, nth=3).items()}
 
 
 def zero_counts() -> None:
@@ -1602,6 +1703,347 @@ def solve_phase(dev, sol3, start, end):
     return k7, k4
 
 
+def shooting_phase(dev, start, end):
+    """Phase 10: the matrix-free shooting solver, OBJ scenes and the BVH.
+    The sub-6 box through "auto" (the culled backend, K4 in segment mode
+    and K7): bench.py's bounded slice (a warm-up step, 16 timed steps of
+    128 shooters and 4 MC samples), the same 16 steps again (bitwise
+    equal), then every K4 and K7 call of one more step timed per launch,
+    its busiest against the plain versions (bitwise); the App's sub-6
+    solve (SHOOT6_STEPS steps), CDFs, one MIS pass at 512x512 and the
+    radiosity view; the sub-4 box's shooting steps through K3 and
+    occluded_plain (bitwise equal) and, for each of SHOOT4_KEYS, the
+    culled backend (its K4 and K7 bitwise their plain versions; within
+    knife-edge flips of K3's visibility); the OBJ scenes against the
+    builtin boxes and the cbox_mirror golden; the BVH against K2 and the
+    brute force, its film against "pallas". Returns the kernel record's
+    shooting facts: {kernel: (launches, ms a launch)}."""
+    import time
+
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.core import rng
+    from tpu_pathtracer_torch.ops import bvh as bv
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops.intersect import closest_hit, occluded
+    from tpu_pathtracer_torch.render import radiosity as rad
+    from tpu_pathtracer_torch.render.camera import CameraController
+    from tpu_pathtracer_torch.utils.config import Config
+    from tpu_pathtracer_torch.utils.native import get_lib
+
+    def fields_equal(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+            "radiosity", "unshot", "rad_grid", "grid_counts", "history"))
+
+    # the bounded slice of bench.py's shooting_sub6_s_per_step
+    app6 = App(Config(**SHOOT6), device=dev)
+    g6 = app6.load_scene()
+    if app6.culled is None:
+        raise AssertionError("auto did not pick the culled backend")
+    kw = dict(shooters_per_step=128, mc_samples=4,
+              occlusion_packs=app6.culled, check_every=0)
+    rad.solve_radiosity_shooting(g6, rng.base_key(1), steps=1, **kw)
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start.record()
+    sol = rad.solve_radiosity_shooting(g6, rng.base_key(12345),
+                                       steps=SHOOT_STEPS, **kw)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    k4, k7 = ic.prepass_dense.launches, ic.occluded_grouped.launches
+    n = g6.num_prims
+    segments = SHOOT_STEPS * n * 128 * 4
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        sol.radiosity, sol.unshot, sol.rad_grid, sol.grid_counts))
+    phase("shooting", f"cbox sub {SHOOT6['subdivision']} ({n} prims, "
+          f"{g6.num_tris} tris, "
+          f"{app6.culled.num_clusters} clusters), {SHOOT_STEPS} steps x 128 "
+          f"shooters x 4 MC samples after a warm-up step: {ms:.3f} ms (CUDA "
+          f"events) = {ms / 1e3 / SHOOT_STEPS:.6f} s a step; K4 (segments) "
+          f"{k4 / SHOOT_STEPS:g} and K7 {k7 / SHOOT_STEPS:g} launches a "
+          f"step; {segments} segments = {segments / (ms / 1e3) / 1e6:.3f} M "
+          f"segments/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; finite "
+          f"{finite}; unshot power left "
+          f"{float((sol.unshot * g6.area[:, None]).sum()):.6f} of "
+          f"{float((g6.emission * g6.area[:, None]).sum()):.6f}")
+    start.record()
+    again = rad.solve_radiosity_shooting(g6, rng.base_key(12345),
+                                         steps=SHOOT_STEPS, **kw)
+    end.record()
+    end.synchronize()
+    same = fields_equal(sol, again)
+    again_ms = start.elapsed_time(end)
+    phase("shooting", f"second run from the same key {again_ms:.3f} ms: "
+          f"radiosity, unshot, grids and history bitwise equal {same}")
+    if not (finite and same and k4 == k7 > 0):
+        raise AssertionError("the sub-6 shooting slice failed its checks")
+    del again
+    # every K4 and K7 call of one more step: timed per launch, and the
+    # call with the most (group, cluster) bits against the plain versions
+    kept = keep_calls(
+        lambda: rad.solve_radiosity_shooting(g6, rng.base_key(7), steps=1,
+                                             **kw),
+        [(ic, "prepass_dense", lambda a: "K4"),
+         (ic, "occluded_grouped", lambda a: "K7")])
+    bits = [set_bits(a[1]) for a in kept["K7"]]
+    busy = max(range(len(bits)), key=bits.__getitem__)
+    k4_out = ic.prepass_dense(*kept["K4"][busy])
+    k7_out = ic.occluded_grouped(*kept["K7"][busy])
+    torch.cuda.synchronize()
+    plain_ok = (prepass_equal(k4_out, ic.prepass_plain(*kept["K4"][busy]))
+                and torch.equal(k7_out, ic.occluded_grouped_plain(
+                    *kept["K7"][busy])))
+    fns = {"K4": ic.prepass_dense, "K7": ic.occluded_grouped}
+    per_call = {k: [time_call(lambda a=a, f=fns[k]: f(*a), reps=3)
+                    for a in calls] for k, calls in kept.items()}
+    per_launch = {k: sum(v) / len(v) for k, v in per_call.items()}
+    phase("shooting", f"per launch over a step's {len(bits)} K4 and K7 "
+          f"calls at {kept['K7'][0][2].shape[0]} segments ((group, "
+          f"cluster) bits a call {min(bits)}-{max(bits)}, "
+          f"{sum(bits) / len(bits):.1f} on average): " + ", ".join(
+              f"{k} {v:.6f} ms" for k, v in per_launch.items())
+          + f"; the busiest call ({bits[busy]} bits, "
+          f"{int((kept['K7'][busy][4] > 0).sum())} active segments, "
+          f"{int(k7_out.sum())} blocked): K4 {per_call['K4'][busy]:.6f} ms,"
+          f" K7 {per_call['K7'][busy]:.6f} ms, bitwise equal to their plain "
+          f"versions {plain_ok}")
+    if not (plain_ok and bits[busy] > 0):
+        raise AssertionError("K4 or K7 differs from its plain version on a "
+                             "sub-6 shooting step (tolerance: bitwise)")
+    del kept
+
+    # the App end to end: the sub-6 solve, CDFs, a MIS pass, the view
+    cfg = dict(sampling_mode="mis", shooting_steps=SHOOT6_STEPS, **SHOOT6,
+               **SHOOT6_FRAME)
+    app = App(Config(**cfg), device=dev)
+    app.load_scene()
+    zero_counts()
+    start.record()
+    s6 = app.run_solver()
+    end.record()
+    end.synchronize()
+    solve_ms = start.elapsed_time(end)
+    k7_app = ic.occluded_grouped.launches
+    _, cdf_ms = time_once(app.precompute_cdfs)
+    r = app.renderer()
+    zero_counts()
+    _, pass_ms = time_once(r.step)
+    k6 = ic.closest_grouped.launches
+    accum = r.film.accum
+    ok = bool(torch.isfinite(accum).all()) and float(accum.mean()) > 0
+    view = App(Config(**{**cfg, "integrator": "radiosity",
+                         "sampling_mode": "bsdf", "spp": 1}), device=dev)
+    view.load_scene()
+    view.solution = s6
+    img, view_ms = time_once(view.render)
+    frame = (f"{SHOOT6_FRAME['width']}x{SHOOT6_FRAME['height']} "
+             f"{SHOOT6_FRAME['spp']} spp")
+    phase("shooting", f"App sub {SHOOT6['subdivision']} (auto: culled "
+          f"backend, shooting solver, "
+          f"{SHOOT6_STEPS} of the default 192 steps): solve {solve_ms:.3f} "
+          f"ms, K7 launches {k7_app}, {s6.history_count} history entries, "
+          f"form_factors {tuple(s6.form_factors.shape)}; CDFs {cdf_ms:.3f} "
+          f"ms ({int(app.cdfs.valid.sum())} valid); MIS pass {frame} "
+          f"{pass_ms:.3f} ms, {r.total_rays} rays, K6 launches {k6}, film "
+          f"finite and non-zero {ok}; radiosity view {img.shape[1]}x"
+          f"{img.shape[0]} {view_ms:.3f} ms, mean {img.mean():.3f}, max "
+          f"{img.max()}")
+    if not (ok and k7_app > 0 and k6 > 0 and img.max() > 0
+            and tuple(s6.form_factors.shape) == (0, 0)):
+        raise AssertionError("the App's sub-6 shooting path failed")
+    del app, view, s6, r, sol, k4_out, k7_out
+
+    # sub 4: a few steps through K3, occluded_plain and the culled backend
+    g4 = App(Config(**SHOOT4), device=dev).load_scene()
+    tp4, pp4 = ap.pack_triangles(g4), ap.pack_prim_ids(g4)
+    kw4 = dict(steps=3, shooters_per_step=128, mc_samples=4, check_every=0)
+
+    def via_k3(key):
+        return time_once(lambda: rad.solve_radiosity_shooting(
+            g4, key, occlusion_packs=(tp4, pp4), **kw4))
+
+    key = rng.base_key(SHOOT4_KEYS[0])
+    zero_counts()
+    k3_sol, k3_ms = via_k3(key)
+    k3 = ap.occluded.launches
+    (k3_calls,) = keep_calls(
+        lambda: rad.solve_radiosity_shooting(
+            g4, key, occlusion_packs=(tp4, pp4), **{**kw4, "steps": 1}),
+        [(ap, "occluded", lambda a: "K3")]).values()
+    k3_launch_ms = sum(time_call(lambda a=a: ap.occluded(*a), reps=3)
+                       for a in k3_calls) / len(k3_calls)
+    k3_active = [int((a[4] > 0).sum()) for a in k3_calls]
+    via_plain, plain_ms = time_once(lambda: rad.solve_radiosity_shooting(
+        g4, key, occlusion_packs=lambda o, d, m, a, b: ap.occluded_plain(
+            tp4, pp4, o, d, m, a, b), **kw4))
+    same_plain = fields_equal(k3_sol, via_plain)
+    phase("shooting", f"cbox sub {SHOOT4['subdivision']} ({g4.num_prims} "
+          f"prims, {g4.num_tris} tris), 3 steps x 128 shooters x 4 samples "
+          f"(key {SHOOT4_KEYS[0]}): through K3 {k3_ms:.3f} ms ({k3} "
+          f"launches; {k3_launch_ms:.6f} ms a launch over a step's "
+          f"{len(k3_calls)} calls at {k3_calls[0][2].shape[0]} segments, "
+          f"{k3_active} active), occluded_plain {plain_ms:.3f} "
+          f"ms; bitwise equal {same_plain}")
+    if not (same_plain and k3 > 0):
+        raise AssertionError("the sub-4 shooting steps through K3 and "
+                             "occluded_plain differ (tolerance: bitwise)")
+
+    # the culled route answers each call. Beside it, its K4 and K7 calls
+    # again against their plain versions (bitwise), and K3 on the same
+    # segments: each active segment they part on (a flip) must be a knife
+    # edge, and the brute force's answer on it is printed
+    cs4 = ic.CulledScene(g4)
+    (part4,) = cs4.parts
+    for seed in SHOOT4_KEYS:
+        key = rng.base_key(seed)
+        plain_equal, flips = [], []
+
+        def culled_beside_k3(o, d, m, a, b):
+            a, b = a.to(torch.int32), b.to(torch.int32)
+            blocked = cs4.occluded(o, d, m, a, b)
+            n = o.shape[0]
+            po, pd, pm, pa, pb = ic._pad_rays(
+                ic._tiled(n), (o, torch.nan), (d, 1.0), (m, 0.0), (a, -1),
+                (b, -1))
+            box = (part4.cluster_min, part4.cluster_max, po, pd, 1e-5, pm)
+            k4, p4 = ic.prepass_dense(*box), ic.prepass_plain(*box)
+            k7 = ic.occluded_grouped(part4.tri_pack, k4[0], po, pd, pm, pa,
+                                     pb)
+            p7 = ic.occluded_grouped_plain(part4.tri_pack, p4[0], po, pd,
+                                           pm, pa, pb)
+            plain_equal.append(prepass_equal(k4, p4) and torch.equal(k7, p7)
+                               and torch.equal(blocked, k7[:n]))
+            other = ap.occluded(tp4, pp4, o, d, m, a, b)
+            for j in torch.nonzero((blocked != other) & (m > 0)).flatten()[
+                    :SHOOT_FLIPS + 1].tolist():
+                i = slice(j, j + 1)
+                flips.append(dict(
+                    k3=bool(other[j]), culled=bool(blocked[j]),
+                    brute=bool(occluded(g4, o[i], d[i], m[i], a[i], b[i])[0]),
+                    maxd=float(m[j]), d=d[j].tolist(),
+                    blockers=knife_edge_widths(g4, tp4, pp4, part4, cs4.rank,
+                                               o[i], d[i], m[i], a[i], b[i])))
+            return blocked
+
+        k3_sol = k3_sol if seed == SHOOT4_KEYS[0] else via_k3(key)[0]
+        via_culled, culled_ms = time_once(lambda: rad.solve_radiosity_shooting(
+            g4, key, occlusion_packs=culled_beside_k3, **kw4))
+        same_culled = fields_equal(k3_sol, via_culled)
+        rk, rc = k3_sol.radiosity, via_culled.radiosity
+        rel_culled = float((rc - rk).norm() / rk.norm())
+        # a knife edge: K3 blocks, the culled route does not (it tests a
+        # subset of K3's pairs in K3's arithmetic), and each of K3's
+        # blockers has a cluster box that fails the prepass by at most
+        # FLIP_WIDTHS widths
+        knife = all(f["k3"] and not f["culled"] and f["blockers"] and all(
+            0.0 < x <= FLIP_WIDTHS for _, x in f["blockers"]) for f in flips)
+        phase("shooting", f"cbox sub {SHOOT4['subdivision']}, key {seed}, "
+              f"the same 3 steps through the culled backend {culled_ms:.3f} "
+              f"ms: K4 and K7 bitwise equal to their plain versions on "
+              f"every call {all(plain_equal)} ({len(plain_equal)} calls); "
+              f"{len(flips)} active segments whose visibility parts from "
+              f"K3's ({flips}; knife edges within {FLIP_WIDTHS} widths "
+              f"{knife}), solution bitwise equal to K3's {same_culled}, "
+              f"radiosity relative L2 {rel_culled:.3e} (bar: bitwise without "
+              f"a flip, else {SHOOT_FLIP_REL} and at most {SHOOT_FLIPS} "
+              f"flips)")
+        culled_ok = same_culled if not flips else (
+            len(flips) <= SHOOT_FLIPS and knife
+            and rel_culled < SHOOT_FLIP_REL)
+        if not (all(plain_equal) and culled_ok):
+            raise AssertionError("the sub-4 shooting steps depend on the "
+                                 "route")
+
+    # OBJ scenes through "auto" (K2) against the builtin boxes, in the
+    # cbox_mirror golden's config
+    parser = "native" if get_lib() is not None else "Python"
+    base = {**GOLDEN_CONFIGS["cbox_mirror"], "mirror_tall_box": False}
+    for obj, builtin, golden in (
+            ("cbox.obj", dict(scene="cbox"), None),
+            ("cbox_mirror.obj", dict(scene="cbox_quads",
+                                     mirror_tall_box=True), "cbox_mirror")):
+        films, geoms = [], []
+        zero_counts()
+        for scene_kw in ({"scene": os.path.join(HERE, "scenes", obj)},
+                         builtin):
+            a = App(Config(**{**base, **scene_kw}), device=dev)
+            rr = a.renderer()
+            rr.render(a.config.spp)
+            films.append(rr.film.mean_radiance().cpu().numpy())
+            geoms.append(a.geom)
+        k2 = ap.closest_record.launches
+        corner_err = float((geoms[0].corners - geoms[1].corners).abs().max())
+        rel = rel_rmse(films[0], films[1])
+        msg = (f"{obj} ({parser} parser, {geoms[0].num_prims} prims): "
+               f"corners within {corner_err:.3e} of the builtin box's; film "
+               f"bitwise the builtin's {np.array_equal(films[0], films[1])}"
+               f", relative RMSE {rel:.3e}; K2 launches {k2}")
+        if golden:
+            with np.load(os.path.join(HERE, "goldens", f"{golden}.npz")) as z:
+                grel = rel_rmse(films[0], z["image"])
+            msg += f"; against goldens/{golden}.npz {grel:.3e}"
+            rel = max(rel, grel)
+        phase("shooting", msg)
+        if not (corner_err < 1e-5 and rel < 0.01 and k2 > 0):
+            raise AssertionError(f"{obj} failed its checks")
+
+    # the BVH: a film against "pallas", its hits against the brute force
+    # and K2. The BVH and the brute force take t = -(inv (o - v0))_s /
+    # (inv d)_s, K2 -(inv o - inv v0)_s / (inv d)_s: bitwise the brute
+    # force's t, K2's within BVH_T_ULP (the plane offsets round apart by a
+    # few ulp, a grazing ray's (inv d)_s divides that)
+    bapp = App(Config(backend="bvh", **BVH3), device=dev)
+    t0 = time.perf_counter()
+    bapp.load_scene()
+    build_s = time.perf_counter() - t0
+    rb = bapp.renderer()
+    bv.bvh_closest_tuv.iterations = 0
+    _, bpass_ms = time_once(rb.step)
+    lock = bv.bvh_closest_tuv.iterations / max(rb.iterations, 1)
+    pr = App(Config(backend="pallas", **BVH3), device=dev).renderer()
+    _, ppass_ms = time_once(pr.step)
+    same_film = torch.equal(rb.film.accum, pr.film.accum)
+    frel = rel_rmse(rb.film.accum.cpu().numpy(), pr.film.accum.cpu().numpy())
+    g3 = bapp.geom
+    tp3, at3 = ap.pack_triangles(g3), ap.pack_attributes(g3)
+    cam = CameraController.default().build(dev)
+    _, bo, bd = make_rays(cam, 12, dev)[1]
+    bv.bvh_closest_tuv.iterations = 0
+    hb, bvh_ms = time_once(lambda: bv.bvh_closest_hit(g3, bapp.bvh, bo, bd))
+    lock_bounce = bv.bvh_closest_tuv.iterations
+    hk = ap.closest_hit(g3, tp3, bo, bd, attr_pack=at3)
+    hr = closest_hit(g3, bo, bd)
+    v = hb.valid
+    valid_same = torch.equal(v, hk.valid) and torch.equal(v, hr.valid)
+    t_oracle = torch.equal(hb.t, hr.t)
+    ids_oracle = int((hb.prim != hr.prim).sum())
+    ulps = float(((hb.t[v] - hk.t[v]).abs()
+                  / (hk.t[v].abs().clamp(min=1.0) * 2.0 ** -23)).max())
+    ids_k2 = int((hb.prim[v] != hk.prim[v]).sum())
+    how = "native" if bapp.bvh.native else "NumPy"
+    phase("shooting", f"BVH of cbox sub {BVH3['subdivision']} "
+          f"({g3.num_tris} tris, {bapp.bvh.num_nodes} nodes, {how} build; "
+          f"load + build {build_s * 1e3:.3f} ms): pass "
+          f"{BVH3['width']}x{BVH3['height']} {BVH3['spp']} spp "
+          f"{bpass_ms:.3f} ms against \"pallas\" {ppass_ms:.3f} ms, "
+          f"{rb.iterations} intersect calls, {lock:.1f} lockstep iterations "
+          f"a batch; film bitwise the \"pallas\" film {same_film}, "
+          f"relative RMSE {frel:.3e} (bar 0.01); bvh_closest_hit on "
+          f"{bo.shape[0]} bounce rays {bvh_ms:.3f} ms, {lock_bounce} "
+          f"lockstep iterations: valid equal to K2's and the brute force's "
+          f"{valid_same}; t bitwise the brute force's {t_oracle}, ids differ "
+          f"on {ids_oracle} (exact ties); against K2 t within {ulps:.1f} "
+          f"ulp (bar {BVH_T_ULP}), ids differ on {ids_k2}")
+    if not (frel < 0.01 and valid_same and t_oracle and ids_oracle <= 8
+            and ulps <= BVH_T_ULP and ids_k2 <= 8):
+        raise AssertionError("the BVH failed its checks")
+    return {"K4": (k4, per_launch["K4"]), "K7": (k7, per_launch["K7"]),
+            "K3": (k3, k3_launch_ms)}
+
+
 def row_kernels(part, o, d, check_early_out):
     """K8, K10, K9 and K11 on (o, d) against their plain versions; returns
     (kernel outputs, max |d| of each, and whether all are bitwise equal)."""
@@ -1635,7 +2077,7 @@ def row_kernels(part, o, d, check_early_out):
 
 def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
                facts):
-    """Phase 10: K8-K11 against their plain versions (bitwise) and timed
+    """Phase 11: K8-K11 against their plain versions (bitwise) and timed
     against them; K11 against K6 and K2 on the sub-3 box; stress100k
     through the sorted row backend, and the same first pass through the
     other row-backend options and the App's lane sort, bitwise equal to
@@ -1904,7 +2346,7 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
 
 
 def nee_phase(dev, start, end, headline, large):
-    """Phase 11a: next-event estimation on the card. cbox1024_nee (K2 and
+    """Phase 12a: next-event estimation on the card. cbox1024_nee (K2 and
     K3 once per iteration; its path rays are the headline's, so its extra
     rays are the shadow rays) and stress100k_nee with balance_lanes=4 (K6
     and K7 once per iteration), timed against the NEE-off passes; the
@@ -2062,7 +2504,7 @@ def nee_phase(dev, start, end, headline, large):
 
 def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
                        times, bounds):
-    """Phase 11b: the supercluster walk on the 1M-triangle scene, with
+    """Phase 12b: the supercluster walk on the 1M-triangle scene, with
     _SC_MIN_CLUSTERS lowered to 2048 and restored after. K12 against its
     plain version and K6, K13 against its plain version and K7, bitwise,
     timed against K6 / K7 in turns, by wrapper events and by device time
@@ -2616,11 +3058,14 @@ def main() -> int:
     # 9. solve: the sub-5 gather solve through K7 ---------------------------
     k7_launches, k4_solve = solve_phase(dev, sol, start, end)
 
-    # 10. rows: the row-granular culled backend and ray sorting --------------
+    # 10. shooting: the shooting solver, OBJ scenes, the BVH ----------------
+    shoot = shooting_phase(dev, start, end)
+
+    # 11. rows: the row-granular culled backend and ray sorting --------------
     rows = rows_phase(dev, cam, (part1m, cam1m), first_large, start, end, err,
                       times, bounds, facts)
 
-    # 11. nee: next-event estimation, the queues, the supercluster walk ------
+    # 12. nee: next-event estimation, the queues, the supercluster walk ------
     nee = nee_phase(dev, start, end, (headline_rays, headline_ms),
                     (first_large, large_ms))
     sc, sc_facts = supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start,
@@ -2652,7 +3097,9 @@ def main() -> int:
                  k3_launches), **facts["K3"], "nee_launches": nee["K3"],
          "nee_shape_ms": nee["K3 ms"],
          "nee_shape_device_ms": nee["K3 device ms"],
-         "nee_shape_open": nee["K3 open"]},
+         "nee_shape_open": nee["K3 open"],
+         "shooting_launches": shoot["K3"][0],
+         "shooting_ms": shoot["K3"][1]},
         {**entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
                  "cluster_prepass.cu", 1023, large["K4"]), **facts["K4"],
          "solve_launches": k4_solve, "nee_launches": nee["K4"],
@@ -2660,7 +3107,9 @@ def main() -> int:
          "segments_plain_ms": times["K4 segments"][0],
          "segments_bound_ms": bounds["K4 segments"][0],
          "segments_bound_by": bounds["K4 segments"][1],
-         "nee_shape_ms": nee["K4 ms"]},
+         "nee_shape_ms": nee["K4 ms"],
+         "shooting_launches": shoot["K4"][0],
+         "shooting_ms": shoot["K4"][1]},
         {**entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
                  "cluster_prepass.cu", 1149, large["K5"]), **facts["K5"]},
         {**entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
@@ -2670,7 +3119,9 @@ def main() -> int:
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
          "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"],
-         "shadow_1m_device_ms": sc_facts["K13"]["k7_device_ms"]},
+         "shadow_1m_device_ms": sc_facts["K13"]["k7_device_ms"],
+         "shooting_launches": shoot["K7"][0],
+         "shooting_ms": shoot["K7"][1]},
         {**entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
                  "cluster_prepass.cu", 45, rows["K8"], legacy),
          **facts["K8"]},

@@ -84,9 +84,14 @@ in the turns baseline, this, this, baseline:
     their rows through L1 or staged by bulk copies in a ring of 2, 3, 4,
     6 or 8 slots (kScBulk, kRing) at 4, 8, 16 and 32 blocks an SM, by
     device time (variant sources built under build/kernel_ab_sweep/).
+  - steps of the sub-6 shooting solve (65,536 primitives, 128 shooters,
+    4 MC samples, through "auto": K4 in segment mode and K7) on this
+    checkout's build only (no A/B: until a change to K4 or K7 at these
+    shapes): ms a step, then two steps under torch.profiler (device time
+    by kernel, the K4 and K7 shares, the busy share).
 The sections, in this order (--cases picks some): segments (the sub-5
 segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass, k9, sc,
-sweep.
+sweep, shoot.
 Prints a line per case and,
 last, one JSON object with every number (also written to FILE, default
 chiprun_out/kernel_ab.json, after every section). Imports nothing of jax.
@@ -114,7 +119,9 @@ SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
            "closest_hit.cu", "grouped_closest.cu", "any_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
 CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve", "k6",
-         "k3", "prepass", "k9", "sc", "sweep")
+         "k3", "prepass", "k9", "sc", "sweep", "shoot")
+SHOOT_TIMED = 4       # sub-6 shooting steps a turn
+SHOOT_PROFILED = 2    # sub-6 shooting steps under torch.profiler
 # the sweep's variants of this checkout's sources: the line that picks a
 # launch parameter, its replacement, and the values forced
 SWEEPS = {
@@ -534,6 +541,63 @@ def solve_profile(libs: dict, out: dict) -> None:
                  f"{rec['K4']}, K7 {rec['K7']}; top {rec['top']}")
     out["solve"] = {"ms": solve, "turns": ms, "launches": launches,
                     "profile": prof_out}
+
+
+def shoot_profile(out: dict) -> None:
+    """Steps of the sub-6 shooting solve (chip_smoke.SHOOT6 through "auto":
+    the culled backend; 128 shooters, 4 MC samples) on this checkout's
+    build: ms a step over SHOOT_TIMED steps (a warm-up step first), then
+    SHOOT_PROFILED steps under torch.profiler, with the device time by
+    kernel, the K4 and K7 shares and the busy share (kernel time over the
+    unprofiled steps' time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.core import rng
+    from tpu_pathtracer_torch.render import radiosity as rad
+    from tpu_pathtracer_torch.utils.config import Config
+
+    app = App(Config(**cs.SHOOT6), device="cuda")
+    geom = app.load_scene()
+    kw = dict(shooters_per_step=128, mc_samples=4,
+              occlusion_packs=app.culled, check_every=0)
+
+    def steps(n):
+        return rad.solve_radiosity_shooting(geom, rng.base_key(12345),
+                                            steps=n, **kw)
+
+    steps(1)                                  # warm-up
+    _, ms = cs.time_once(lambda: steps(SHOOT_TIMED))
+    step = ms / SHOOT_TIMED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(SHOOT_PROFILED)
+        torch.cuda.synchronize()
+    kern = kernel_times(prof)
+    total = sum(us for us, _ in kern.values())
+
+    def share(tag):
+        us = sum(v[0] for k, v in kern.items() if tag in k)
+        n = sum(v[1] for k, v in kern.items() if tag in k)
+        return {"ms": us / 1e3, "share": us / max(total, 1e-9),
+                "launches": n}
+
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
+    rec = {"ms_per_step": step,
+           "device_ms_per_step": total / 1e3 / SHOOT_PROFILED,
+           "kernels_per_step": sum(n for _, n in kern.values())
+           / SHOOT_PROFILED,
+           "busy_share": total / 1e3 / SHOOT_PROFILED / step,
+           "K4": share("prepass_kernel"),
+           "K7": share("grouped_anyhit_kernel"),
+           "top": [(k[:80], us / 1e3, n) for k, (us, n) in top]}
+    cs.phase("ab", f"sub-6 shooting: {step:.3f} ms a step over "
+             f"{SHOOT_TIMED} steps; {SHOOT_PROFILED} steps profiled: "
+             f"{rec['kernels_per_step']:.0f} kernels and "
+             f"{rec['device_ms_per_step']:.3f} ms of device time a step, "
+             f"busy share {rec['busy_share']:.4f}; K4 {rec['K4']}, K7 "
+             f"{rec['K7']}; top {rec['top']}")
+    out["shoot"] = rec
 
 
 def solve3_ab(libs: dict, out: dict) -> None:
@@ -1041,6 +1105,10 @@ def main() -> int:
         sc["K13 1M shadow segments"] = ("grouped_anyhit.cu", lambda: (
             ic.occluded_grouped_sc(q.tri_pack, gm, *seg)))
         sc_sweep(sc, out)
+        save()
+
+    if "shoot" in cases:          # steps of the sub-6 shooting solve
+        shoot_profile(out)
         save()
     print(json.dumps(out), flush=True)
     return 0

@@ -154,9 +154,10 @@ def test_cli_renders_pbrt_scene_on_the_culled_backend(tmp_path):
     assert img.shape == (32, 32, 3) and img.max() > 0
 
 
-def test_auto_backend_on_cpu_refuses_large_pbrt_scene():
-    """"auto" on the CPU picks the BVH above 2048 triangles, which the
-    port does not have yet."""
+def test_auto_backend_on_cpu_builds_a_bvh_for_large_pbrt_scene():
+    """"auto" on the CPU picks the BVH above 2048 triangles, as the JAX App
+    does: stress100k gets one over all its triangles."""
     app = App(Config(scene=STRESS), device="cpu")
-    with pytest.raises(NotImplementedError, match="BVH"):
-        app.load_scene()
+    app.load_scene()
+    assert app.bvh is not None and app.culled is None
+    assert app.bvh.tri_order.shape[0] == app.geom.num_tris == 101_704

@@ -1,9 +1,10 @@
 """The port's paths end to end on the CPU: goldens (path tracing, guided
 MIS and the radiosity view), layout invariances, the film and checkpoint
-formats, and the options it does not port yet."""
+formats, the App's options, and those it does not port yet."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -227,14 +228,35 @@ def test_cosine_sample_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(radiosity_solver="shooting"),
-    dict(backend="bvh"),
-    dict(radiosity_solver="shooting", integrator="radiosity"),
     dict(num_tiles=2),
 ])
 def test_unported_config_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*21"):
         App(Config(**kw), device="cpu")
+
+
+_TINY_SHOOT = dict(shooting_steps=3, shooters_per_step=8,
+                   shooting_mc_samples=2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(radiosity_solver="shooting", sampling_mode="mis", **_TINY_SHOOT),
+    dict(backend="bvh"),
+    dict(radiosity_solver="shooting", integrator="radiosity", **_TINY_SHOOT),
+])
+def test_shooting_and_bvh_configs_render(kw):
+    """The configs the port once refused run through the App at 16x16:
+    the shooting solver (its (0, 0) form factors) under a guided mode and
+    under the radiosity view, and the BVH backend."""
+    app = App(Config(width=16, height=16, spp=2, max_depth=3, **kw),
+              device="cpu")
+    img = app.render()
+    assert img.shape == (16, 16, 3) and img.max() > 0
+    if "radiosity_solver" in kw:
+        assert tuple(app.solution.form_factors.shape) == (0, 0)
+        assert app.solution.history_count == 3
+    else:
+        assert app.bvh is not None and app.solution is None
 
 
 @pytest.mark.parametrize("kw", [
@@ -396,12 +418,19 @@ def test_guided_render_settings_need_cdfs(mode, small_cdfs):
     assert r.film.spp == 1 and torch.isfinite(r.film.accum).all()
 
 
-def test_auto_solver_above_16384_primitives_raises():
-    app = App(Config(subdivision=6, backend="brute",
-                     sampling_mode="mis"), device="cpu")
-    app.load_scene()                       # 65,536 primitives
-    with pytest.raises(NotImplementedError, match="ROADMAP.*17b"):
-        app.run_solver()
+def test_auto_solver_above_16384_primitives_is_shooting():
+    """"auto" solves the sub-6 box (65,536 primitives) by shooting, as the
+    JAX App does: one step of one shooter here (visibility through the
+    culled plain versions), which checks the choice, not convergence."""
+    app = App(Config(subdivision=6, backend="culled", sampling_mode="mis",
+                     shooting_steps=1, shooters_per_step=1,
+                     shooting_mc_samples=1), device="cpu")
+    app.load_scene()
+    sol = app.run_solver()
+    assert app.geom.num_prims == 65_536
+    assert tuple(sol.form_factors.shape) == (0, 0)
+    assert sol.history_count == 1 and (sol.unshot >= 0).all()
+    assert float(sol.radiosity.sum()) > float(app.geom.emission.sum())
 
 
 def test_radiosity_view_and_pick():
@@ -418,9 +447,15 @@ def test_radiosity_view_and_pick():
 
 
 def test_auto_backend_on_cpu_is_brute_up_to_2048_triangles():
-    app = App(Config(subdivision=4), device="cpu")   # 8192 triangles
-    with pytest.raises(NotImplementedError, match="BVH"):
-        app.load_scene()
+    """"auto" on the CPU: brute force at 2048 triangles (sub-3), the BVH
+    at 8192 (sub-4), as in the JAX App."""
+    small = App(Config(subdivision=3), device="cpu")
+    small.load_scene()
+    assert small.bvh is None and small.tri_pack is None
+    big = App(Config(subdivision=4), device="cpu")
+    big.load_scene()
+    assert big.geom.num_tris == 8192 and big.bvh is not None
+    assert big.culled is None and big.tri_pack is None
 
 
 def test_config_json_loads_in_both_packages():
@@ -434,10 +469,16 @@ def test_config_json_loads_in_both_packages():
         dataclasses.asdict(Config())
 
 
-def test_unported_scenes_raise():
+def test_obj_scene_loads():
+    """scenes/cbox.obj loads into the App: the builtin "cbox" box's 32
+    triangles, its materials and its camera."""
     app = App(Config(scene="scenes/cbox.obj"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        app.load_scene()
+    geom = app.load_scene()
+    want = App(Config(scene="cbox"), device="cpu").load_scene()
+    assert geom.num_prims == geom.num_tris == 32
+    assert torch.equal(geom.material, want.material)
+    assert torch.equal(geom.emission, want.emission)
+    assert (geom.corners - want.corners).abs().max() < 1e-6
 
 
 def test_pbrt_scene_loads():
@@ -536,17 +577,18 @@ def test_cuda_request_without_cuda_fails():
 
 
 def test_package_imports_without_jax():
-    """The port never imports jax: with jax made unimportable, every
-    module of the package still imports."""
+    """The port never imports jax nor the JAX package: with jax made
+    unimportable, every module of the package still imports."""
     mods = ["tpu_pathtracer_torch." + m for m in (
         "app", "cli", "core.rng", "core.math_utils", "core.constants",
-        "ops.cluster_layout", "ops.filters", "ops.guiding", "ops.intersect",
-        "ops.intersect_allpairs", "ops.intersect_culled",
+        "ops.bvh", "ops.cluster_layout", "ops.filters", "ops.guiding",
+        "ops.intersect", "ops.intersect_allpairs", "ops.intersect_culled",
         "ops.intersect_culled_legacy", "ops.tonemap",
         "render.camera", "render.film", "render.integrator",
         "render.radiosity", "render.renderer", "scene.builtin", "scene.mesh",
-        "scene.pbrt_loader",
-        "utils.config", "utils.cuda_build", "utils.logger", "utils.png",
+        "scene.obj_loader", "scene.pbrt_loader",
+        "utils.config", "utils.cuda_build", "utils.logger", "utils.native",
+        "utils.png",
     )]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
@@ -561,6 +603,8 @@ def test_package_imports_without_jax():
                 with open(os.path.join(root, f)) as fh:
                     text = fh.read()
                 assert "import jax" not in text and "from jax" not in text, f
+                assert not re.search(
+                    r"(from|import) tpu_pathtracer(\.| |$)", text, re.M), f
 
 
 def test_geometry_fields_match_jax():

@@ -2,7 +2,7 @@
 image, checkpoints.
 
 Counterpart: `tpu_pathtracer/app.py` (`load_prims`, `App.load_scene`,
-`_select_backend`, `run_solver` with the gather solver, `precompute_cdfs`,
+`_select_backend`, `run_solver`, `precompute_cdfs`,
 `_effective_cdf_source`, `prepare`, `renderer`, `render`,
 `render_history_delta`, `pick`, `save_png`, `save_checkpoint`,
 `load_checkpoint`). `App(cfg, device=...)` runs on the device it is
@@ -13,17 +13,21 @@ Backends: "pallas" selects the hand-written all-pairs kernels
 and NEE's shadow rays; their plain torch versions on the CPU), "culled"
 the cluster-culled kernels for large scenes (ops/intersect_culled.py: the
 K4/K5 prepass, K6 for hits, K7 for visibility and shadow rays; K12/K13
-in supercluster mode) and "brute" the brute-force queries. "auto"
-selects, as the JAX package does on its accelerator and on the CPU, the
-all-pairs kernels on CUDA up to 16,384 triangles and the culled ones
-above, and brute force on the CPU up to 2048 triangles. As in the JAX
+in supercluster mode), "bvh" the BVH traversal for hits
+(ops/bvh.py; visibility and shadow rays by brute force, as in the JAX
+package) and "brute" the brute-force queries. "auto" selects, as the JAX
+package does on its accelerator and on the CPU, the all-pairs kernels on
+CUDA up to 16,384 triangles and the culled ones above, and on the CPU
+brute force up to 2048 triangles and the BVH above. The radiosity solver
+"auto" is the gather solve up to 16,384 primitives and the matrix-free
+shooting solve above, whose (N, N) matrix would not fit. As in the JAX
 App, `sort_rays` is the integrator's lane sort on any backend, `nee` the
 integrator's next-event estimation and `balance_lanes` the renderer's
 balanced lane queues (the JAX CLI has no flags for the last two: a
 `--config-json` carries them); the App's `CulledScene` keeps its
-defaults. Options this package does not port yet (the shooting solver,
-the BVH, OBJ scenes, multi-device tiling) raise NotImplementedError
-naming the ROADMAP item that will port them.
+defaults. Scenes are the builtins, `.obj` and `.pbrt` files. Multi-device
+tiling is not ported yet and raises NotImplementedError naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from .core.constants import (
     SAMPLING_TOPK,
 )
 from .core.math_utils import luminance
+from .ops.bvh import BVH, build_bvh
 from .ops.filters import bilateral_filter_rgb, filter_pdfs, gaussian_filter_rgb
 from .ops.guiding import CDFPack, build_cdfs, top_k_mask
 from .ops.intersect_allpairs import (
@@ -53,7 +58,11 @@ from .ops.intersect_allpairs import (
 from .ops.intersect_culled import CulledScene
 from .render.camera import CameraController
 from .render.film import Film
-from .render.radiosity import RadiositySolution, solve_radiosity
+from .render.radiosity import (
+    RadiositySolution,
+    solve_radiosity,
+    solve_radiosity_shooting,
+)
 from .render.renderer import (
     ProgressiveRenderer,
     RenderSettings,
@@ -61,6 +70,7 @@ from .render.renderer import (
     render_radiosity_view,
 )
 from .scene.builtin import cornell_box
+from .scene.obj_loader import load_obj
 from .scene.pbrt_loader import parse_pbrt
 from .scene.mesh import (
     Geometry,
@@ -82,17 +92,9 @@ _BUILTINS = {
     ),
 }
 
-_UNPORTED_BACKENDS = {
-    "bvh": "the BVH backend is ROADMAP Queue 1 item 18",
-}
-
-
 # npz keys of the radiosity solution (= its field names) in a checkpoint
 _SOLUTION_KEYS = ("radiosity", "unshot", "rad_grid", "grid_counts",
                   "form_factors")
-_SHOOTING = ("the matrix-free shooting solver (radiosity_solver="
-             "'shooting', and 'auto' above 16384 primitives) is ROADMAP "
-             "Queue 1 item 17b")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -103,32 +105,30 @@ def check_ported(cfg: Config) -> None:
     """Raise NotImplementedError for a Config option outside the port (and
     ValueError for an unknown sampling mode)."""
     _ = cfg.sampling_mode_id
-    if cfg.radiosity_solver == "shooting":
-        raise _not_ported(_SHOOTING)
     if cfg.num_tiles > 1:
         raise _not_ported("num_tiles (multi-device tiling) is ROADMAP "
                           "Queue 1 item 21")
-    if cfg.backend in _UNPORTED_BACKENDS:
-        raise _not_ported(_UNPORTED_BACKENDS[cfg.backend])
-    if cfg.backend not in ("auto", "brute", "pallas", "culled"):
+    if cfg.backend not in ("auto", "brute", "pallas", "culled", "bvh"):
         raise ValueError(f"unknown backend '{cfg.backend}'")
+    if cfg.radiosity_solver not in ("auto", "gather", "shooting"):
+        raise ValueError(
+            f"unknown radiosity_solver '{cfg.radiosity_solver}'")
 
 
 def load_prims(cfg: Config) -> PrimList:
-    """Builtin scenes and .pbrt files, then optional quad splitting and
-    subdivision. A .pbrt scene's camera is adopted when the config's
+    """Builtin scenes, .obj and .pbrt files, then optional quad splitting
+    and subdivision. A .pbrt scene's camera is adopted when the config's
     camera is left at its defaults (additive: the reference discards it)."""
+    ext = os.path.splitext(cfg.scene)[1].lower()
     if cfg.scene in _BUILTINS:
         prims = _BUILTINS[cfg.scene](cfg)
+    elif ext == ".obj":
+        prims = load_obj(cfg.scene)
     else:
-        ext = os.path.splitext(cfg.scene)[1].lower()
-        if ext == ".obj":
-            raise _not_ported("OBJ scenes (obj_loader) are ROADMAP Queue 1 "
-                              "item 4b")
         if ext != ".pbrt":
             raise ValueError(
-                f"unsupported scene '{cfg.scene}' (.pbrt files and builtins "
-                f"{sorted(_BUILTINS)})"
+                f"unsupported scene '{cfg.scene}' (.obj and .pbrt files, "
+                f"builtins {sorted(_BUILTINS)})"
             )
         scene = parse_pbrt(cfg.scene, max_triangles=cfg.pbrt_max_triangles)
         prims = scene.prims
@@ -165,6 +165,7 @@ class App:
         self.tri_pack = None
         self.attr_pack = None
         self.culled: CulledScene | None = None
+        self.bvh: BVH | None = None
         self.solution: RadiositySolution | None = None
         self.cdfs: CDFPack | None = None
         self.filtered_formfactor = None   # (N, 256) filtered float PDFs
@@ -197,7 +198,7 @@ class App:
         """"auto" -> the all-pairs kernel on CUDA (the cluster-culled
         backend above 16384 triangles), brute force on the CPU up to 2048
         triangles (the BVH above). "culled" on the CPU runs the culled
-        path's plain versions."""
+        path's plain versions; "bvh" runs on either device."""
         backend = self.config.backend
         n = self.geom.num_tris
         if backend == "auto":
@@ -205,10 +206,12 @@ class App:
                 backend = "culled" if n > 16384 else "pallas"
             else:
                 backend = "bvh" if n > 2048 else "brute"
-        if backend in _UNPORTED_BACKENDS:
-            raise _not_ported(_UNPORTED_BACKENDS[backend])
-        self.tri_pack = self.attr_pack = self.culled = None
-        if backend == "culled":
+        self.tri_pack = self.attr_pack = self.culled = self.bvh = None
+        if backend == "bvh":
+            self.bvh = build_bvh(self.geom)
+            log.info("Backend: BVH traversal (%d tris, %d nodes)", n,
+                     self.bvh.num_nodes)
+        elif backend == "culled":
             self.culled = CulledScene(self.geom)
             log.info("Backend: cluster-culled kernels (%d tris, %d clusters)",
                      n, self.culled.num_clusters)
@@ -228,9 +231,10 @@ class App:
 
     def run_solver(self) -> RadiositySolution:
         """RadiosityState::runSolver: the gather solve, with in-loop grid
-        filtering when enable_grid_filtering; visibility through K7 on the
-        culled backend, K3 on the all-pairs backend, brute force
-        otherwise."""
+        filtering when enable_grid_filtering, or the shooting solve
+        (radiosity_solver "shooting", or "auto" above 16,384 primitives);
+        visibility through K7 on the culled backend, K3 on the all-pairs
+        backend, brute force otherwise."""
         cfg = self.config
         if self.geom is None:
             self.load_scene()
@@ -246,21 +250,45 @@ class App:
         occlusion_packs = self.culled
         if self.tri_pack is not None:
             occlusion_packs = (self.tri_pack, pack_prim_ids(self.geom))
-        if cfg.radiosity_solver == "auto" and self.geom.num_prims > 16384:
-            raise _not_ported(_SHOOTING)
+        solver = cfg.radiosity_solver
+        if solver == "auto":
+            # the (N, N) gather matrix is 1 GB at 16,384 primitives
+            solver = "shooting" if self.geom.num_prims > 16384 else "gather"
+        key = rng.base_key(cfg.seed + 12345)
         t0 = time.perf_counter()
-        self.solution = solve_radiosity(
-            self.geom,
-            rng.base_key(cfg.seed + 12345),
-            num_iterations=cfg.radiosity_iterations,
-            use_monte_carlo=cfg.use_monte_carlo,
-            mc_samples=cfg.mc_samples,
-            filter_fn=filter_fn,
-            occlusion_packs=occlusion_packs,
-            estimator=cfg.ff_estimator,
-        )
+        if solver == "shooting":
+            if filter_fn is not None:
+                log.warning(
+                    "enable_grid_filtering is ignored by the shooting "
+                    "solver; use cdf_source='filtered_radiosity' to filter "
+                    "before the CDF build")
+            if not cfg.use_monte_carlo:
+                log.warning(
+                    "use_monte_carlo=False (analytic form factors) is a "
+                    "gather-solver feature; the shooting solver is MC-only "
+                    "(set radiosity_solver='gather' to force it, if the "
+                    "(N, N) matrix fits)")
+            self.solution = solve_radiosity_shooting(
+                self.geom, key,
+                steps=cfg.shooting_steps,
+                shooters_per_step=cfg.shooters_per_step,
+                mc_samples=cfg.shooting_mc_samples,
+                occlusion_packs=occlusion_packs,
+                grid_refresh=cfg.grid_refresh,
+                estimator=cfg.ff_estimator,
+            )
+        else:
+            self.solution = solve_radiosity(
+                self.geom, key,
+                num_iterations=cfg.radiosity_iterations,
+                use_monte_carlo=cfg.use_monte_carlo,
+                mc_samples=cfg.mc_samples,
+                filter_fn=filter_fn,
+                occlusion_packs=occlusion_packs,
+                estimator=cfg.ff_estimator,
+            )
         self._sync()
-        log.info("Radiosity solved (gather): %d prims, %.1f ms",
+        log.info("Radiosity solved (%s): %d prims, %.1f ms", solver,
                  self.geom.num_prims, (time.perf_counter() - t0) * 1e3)
         return self.solution
 
@@ -355,6 +383,7 @@ class App:
                 culled=self.culled,
                 prim_ids=(pack_prim_ids(self.geom)
                           if cfg.nee and self.tri_pack is not None else None),
+                bvh=self.bvh,
             )
         return self._renderer
 

@@ -67,6 +67,7 @@ from ..core.math_utils import (
     reflect,
 )
 from ..ops import intersect_allpairs
+from ..ops.bvh import BVH, bvh_closest_hit
 from ..ops.guiding import (
     CDFPack,
     cos_theta_edges,
@@ -344,7 +345,7 @@ def _shade(hit: Hit, d, beta, live, draws, do_rr, mode=SAMPLING_BSDF,
 
 
 def _intersect(geom: Geometry, o, d, tri_pack, attr_pack, culled=None,
-               camera_mask=None) -> Hit:
+               camera_mask=None, bvh: BVH | None = None) -> Hit:
     if culled is not None:
         return culled.closest_hit(geom, o, d, t_min=RAY_EPS,
                                   camera_mask=camera_mask)
@@ -352,6 +353,8 @@ def _intersect(geom: Geometry, o, d, tri_pack, attr_pack, culled=None,
         return intersect_allpairs.closest_hit(
             geom, tri_pack, o, d, t_min=RAY_EPS, attr_pack=attr_pack
         )
+    if bvh is not None:
+        return bvh_closest_hit(geom, bvh, o, d, t_min=RAY_EPS)
     return closest_hit(geom, o, d, t_min=RAY_EPS)
 
 
@@ -397,6 +400,7 @@ def trace(
     prim_ids: torch.Tensor | None = None,
     lane_ids: torch.Tensor | None = None,
     nee: bool = False,
+    bvh: BVH | None = None,
 ) -> tuple[torch.Tensor, TraceStats]:
     """The per-depth scan integrator: trace a batch of paths, one bounce
     per step, for max_depth steps.
@@ -404,8 +408,9 @@ def trace(
     Bounce `depth` draws `lane_uniforms(fold_in(key, depth), lane_ids)`,
     so a lane's draws depend on its logical id (default arange(B)), not
     its place in the batch. Hits come from K2 (or K1 without attr_pack)
-    when `tri_pack` is given and from the brute force otherwise; `culled`
-    serves only the shadow rays, as in the JAX package. Shadow rays are
+    when `tri_pack` is given, from the BVH traversal when `bvh` is, and
+    from the brute force otherwise; `culled` serves only the shadow rays,
+    as in the JAX package. Shadow rays are
     counted in `stats.rays`, not in `depth_alive`.
 
     Returns (radiance (B, 3), TraceStats)."""
@@ -432,6 +437,8 @@ def trace(
         if tri_pack is not None:
             hit = intersect_allpairs.closest_hit(
                 geom, tri_pack, o, d, t_min=RAY_EPS, attr_pack=attr_pack)
+        elif bvh is not None:
+            hit = bvh_closest_hit(geom, bvh, o, d, t_min=RAY_EPS)
         else:
             hit = closest_hit(geom, o, d, t_min=RAY_EPS)
         live = alive & hit.valid
@@ -505,6 +512,7 @@ def trace_wavefront(
     prim_ids: torch.Tensor | None = None,
     return_lane_steps: bool = False,
     tile_sync: int = 0,
+    bvh: BVH | None = None,
 ) -> tuple:
     """Persistent wavefront with same-pixel respawn.
 
@@ -537,6 +545,8 @@ def trace_wavefront(
             brute-force intersector.
         culled: a CulledScene (ops/intersect_culled.py); takes precedence
             over the packs.
+        bvh: a BVH (ops/bvh.py): hits by its traversal when neither
+            `culled` nor `tri_pack` is given.
         mode: SAMPLING_* constant; every mode but BSDF needs `cdfs`.
         mis_bsdf_fraction: the BSDF share of one-sample MIS.
         check_every: test for live lanes every this many iterations
@@ -630,7 +640,7 @@ def trace_wavefront(
             s["steps"] = s["steps"] + alive.to(torch.int64)
         d = s["d"]
         hit = _intersect(geom, s["o"], d, tri_pack, attr_pack, culled,
-                         camera_mask=alive & (depth == 0))
+                         camera_mask=alive & (depth == 0), bvh=bvh)
         live = alive & hit.valid
         emis_w = None
         if nee:

@@ -5,7 +5,9 @@ Counterpart: `tpu_pathtracer/render/radiosity.py`, the gather part
 `_pair_culling`, `analytic_form_factors`, `_occluded_dispatch`,
 `mc_form_factors_rows`, `mc_form_factors`, `radiosity_step`,
 `rebin_rows`, `rebin_radiosity_grid`, `RadiositySolution`,
-`solve_radiosity`). The matrix-free shooting solver is not ported yet.
+`solve_radiosity`) and the matrix-free shooting part (`_shoot_step`,
+`transport_stats`, `ambient_correction`, `solve_radiosity_shooting`,
+`refresh_grids`, `drive_shooting`).
 
 The Monte-Carlo draws are positional, as in the JAX package: receiver
 rows are cut into chunks of `row_chunk` (the last padded with row 0), and
@@ -20,7 +22,12 @@ Directional binning is a one-hot product (`torch.bmm`), as the JAX
 package's one-hot einsum: no `index_add_` or `scatter_add_`, whose atomics
 on CUDA would sum in an order that changes from run to run, so a solve is
 bitwise reproducible on the card. The f32 products must run in full f32
-(`torch.backends.cuda.matmul.allow_tf32` False); the solver checks it.
+(`torch.backends.cuda.matmul.allow_tf32` False); both solvers check it.
+
+Shooting picks each step's shooters as `jax.lax.top_k` does: the largest
+unshot powers, the lower primitive id first among equal powers (a stable
+descending sort), so the patches of a subdivided light, whose powers tie
+exactly, are shot in the JAX package's order.
 
 Visibility (`occlusion_packs`) is the brute-force `ops.intersect.occluded`
 (None), K3 on the all-pairs packs ((tri_pack, prim_ids), see
@@ -32,14 +39,22 @@ explicitly.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from ..core import rng
 from ..core.constants import GRID_RES, GRID_SIZE
-from ..core.math_utils import PI, acos_f32, atan2_f32, dot, length, to_local
+from ..core.math_utils import (
+    PI,
+    acos_f32,
+    atan2_f32,
+    dot,
+    length,
+    luminance,
+    to_local,
+)
 from ..ops import intersect_allpairs
 from ..ops.intersect import occluded
 from ..scene.mesh import Geometry
@@ -382,7 +397,7 @@ def rebin_radiosity_grid(geom: Geometry, ff: torch.Tensor,
 class RadiositySolution:
     """Solved per-primitive state (triangle.h:98-112), as tensors."""
 
-    form_factors: torch.Tensor   # (N, N)
+    form_factors: torch.Tensor   # (N, N); (0, 0) from the shooting solver
     radiosity: torch.Tensor      # (N, 3)
     unshot: torch.Tensor         # (N, 3)
     grid_counts: torch.Tensor    # (N, 256) visibility-count grid
@@ -415,6 +430,12 @@ def solution_from_arrays(arrays: dict, device: str | torch.device
     return RadiositySolution(**kw)
 
 
+def _check_full_f32(geom: Geometry) -> None:
+    if geom.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the solver's f32 products need full f32: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
 def solve_radiosity(
     geom: Geometry,
     key: rng.Key | None = None,
@@ -431,9 +452,7 @@ def solve_radiosity(
     application_state.h:688-777): form factors, then `num_iterations`
     gather + reflect + rebin steps, the grid filter `filter_fn`
     ((N, 256, 3) -> (N, 256, 3)) applied after each rebin."""
-    if geom.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the solver's f32 products need full f32: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    _check_full_f32(geom)
     if key is None:
         key = rng.base_key(12345)
     n = geom.num_prims
@@ -462,4 +481,199 @@ def solve_radiosity(
         form_factors=ff, radiosity=radiosity, unshot=unshot,
         grid_counts=grid_counts, rad_grid=rad_grid, history=history,
         history_index=h_idx, history_count=h_cnt,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free progressive shooting
+# ---------------------------------------------------------------------------
+
+
+def top_k_ids(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Ids of the k largest values, largest first and the lower id first
+    among equal values: `jax.lax.top_k`'s indices."""
+    order = torch.sort(values, descending=True, stable=True).indices
+    return order[:k]
+
+
+def _shoot_step(geom: Geometry, key: rng.Key, radiosity, unshot, rad_grid,
+                grid_counts, step_idx: int, *, k: int, n_samples: int,
+                row_chunk: int, occlusion_packs, estimator="reference",
+                sort_shooters=False):
+    """One batched shooting step: the k primitives of largest unshot power
+    (luminance x area) shoot; their (N, k) form-factor block comes from
+    the gather solver's MC estimator (draws from fold_in(key, step_idx)),
+    the receivers reflect with the per-channel energy clamp and bank the
+    reflection as unshot, and their directional grids accumulate the shot
+    radiance at the sample directions. With sort_shooters the k ids are
+    sorted ascending (spatially adjacent patches share a visibility
+    group). Returns (radiosity, unshot, rad_grid, grid_counts, stats)."""
+    n = geom.num_prims
+    shooters = top_k_ids(luminance(unshot) * geom.area, k)
+    if sort_shooters:
+        shooters = torch.sort(shooters).values
+    rc = min(row_chunk, n)
+    shot = unshot[shooters]                                   # (k, 3)
+    ff_blk, gcount, gradv = mc_form_factors_rows(
+        geom, rng.fold_in(key, step_idx), _padded_rows(n, rc, geom.device),
+        n_samples=n_samples, row_chunk=rc, occlusion_packs=occlusion_packs,
+        col_ids=shooters, col_weight=shot, estimator=estimator,
+    )
+    incident = ff_blk[:n] @ shot                              # (N, 3)
+    reflected = torch.minimum(geom.albedo * incident, incident)
+    radiosity = radiosity + reflected
+    # every shooter's unshot is delivered exactly once (the ids are
+    # distinct); receivers bank the reflection for a later shot
+    unshot = unshot.index_fill(0, shooters, 0.0) + reflected
+    rad_grid = rad_grid + gradv[:n]
+    grid_counts = grid_counts + gcount[:n]
+    stats = transport_stats(geom, shooters, shot, incident, reflected)
+    return radiosity, unshot, rad_grid, grid_counts, stats
+
+
+def transport_stats(geom: Geometry, shooters, shot, incident, reflected):
+    """(3 stats, 3 channels): the power shot, delivered anywhere and
+    re-banked by one step; they calibrate `ambient_correction`."""
+    a = geom.area[:, None]
+    return torch.stack([
+        (shot * geom.area[shooters][:, None]).sum(dim=0),
+        (incident * a).sum(dim=0),
+        (reflected * a).sum(dim=0),
+    ])
+
+
+def ambient_correction(geom: Geometry, unshot: torch.Tensor,
+                       stats: torch.Tensor | None = None) -> torch.Tensor:
+    """The (N, 3) ambient completion of the undelivered tail (Cohen et al.
+    1988). With `stats` (the solve's summed `transport_stats`) it uses
+    the measured delivery efficiency eta = delivered / shot and re-bank
+    ratio rho_eff = reflected / delivered: B_i += rho_i * eta * U /
+    (1 - rho_eff * eta) / sum A, per channel; without, the closed form
+    (eta = 1, rho_eff the area-weighted mean albedo)."""
+    a = geom.area
+    a_sum = a.sum()
+    u_pow = (unshot * a[:, None]).sum(dim=0)                   # (3,)
+    if stats is None:
+        rho_eff = (geom.albedo * a[:, None]).sum(dim=0) / a_sum
+        eta = torch.ones(3, device=a.device)
+    else:
+        shot_c, deliv_c, refl_c = stats
+        eta = deliv_c / shot_c.clamp(min=1e-12)
+        rho_eff = refl_c / deliv_c.clamp(min=1e-12)
+    amb = eta * u_pow / torch.clamp(1.0 - rho_eff * eta, min=1e-3) / a_sum
+    return geom.albedo * amb
+
+
+def solve_radiosity_shooting(
+    geom: Geometry,
+    key: rng.Key | None = None,
+    *,
+    steps: int = 64,
+    shooters_per_step: int = 128,
+    mc_samples: int = 4,
+    row_chunk: int | None = None,
+    occlusion_packs=None,
+    rel_tol: float = 1e-3,
+    check_every: int = 8,
+    ambient: bool = True,
+    estimator: str = "reference",
+    sort_shooters: bool = False,
+    grid_refresh: int = 0,
+    grid_refresh_samples: int = 16,
+) -> RadiositySolution:
+    """Matrix-free progressive-refinement shooting (Cohen-style): never
+    forms the (N, N) matrix, only each step's (N, k) block, so its memory
+    and rays per step are O(N k). Up to `steps` steps of
+    `shooters_per_step` shooters; stops once the unshot power falls below
+    rel_tol x the emitted power (tested every `check_every` steps, one
+    host fetch each; 0 never). `ambient` adds `ambient_correction` of the
+    remaining tail to the returned radiosity (`unshot` stays
+    uncorrected). `grid_refresh` > 0 replaces the sample-sparse shooting
+    grids by a dense rebin against the top `grid_refresh` primitives by
+    converged power (`refresh_grids`). The result's form_factors is
+    (0, 0)."""
+    _check_full_f32(geom)
+    if key is None:
+        key = rng.base_key(12345)
+    n = geom.num_prims
+    k = min(shooters_per_step, n)
+    if row_chunk is None:
+        # visibility batches of ~32k segments a chunk
+        row_chunk = max(16, 32768 // k)
+    rad_grid = torch.zeros((n, GRID_SIZE, 3), device=geom.device)
+    grid_counts = torch.zeros((n, GRID_SIZE), device=geom.device)
+
+    def step_fn(radiosity, unshot, rad_grid, grid_counts, step):
+        return _shoot_step(
+            geom, key, radiosity, unshot, rad_grid, grid_counts, step, k=k,
+            n_samples=mc_samples, row_chunk=row_chunk,
+            occlusion_packs=occlusion_packs, estimator=estimator,
+            sort_shooters=sort_shooters,
+        )
+
+    sol = drive_shooting(geom, step_fn, rad_grid, grid_counts, steps=steps,
+                         rel_tol=rel_tol, check_every=check_every,
+                         ambient=ambient)
+    if grid_refresh > 0:
+        sol = refresh_grids(geom, key, sol, top=grid_refresh,
+                            n_samples=grid_refresh_samples,
+                            occlusion_packs=occlusion_packs,
+                            estimator=estimator)
+    return sol
+
+
+def refresh_grids(geom: Geometry, key: rng.Key, sol: RadiositySolution, *,
+                  top: int = 128, n_samples: int = 16, occlusion_packs=None,
+                  estimator: str = "reference") -> RadiositySolution:
+    """The solution with rad_grid and grid_counts replaced by a dense MC
+    rebin against the `top` primitives of largest converged power
+    (luminance(B) x area), drawn from fold_in(stream_key(key,
+    FORMFACTOR), 0x47524944); radiosity and unshot are untouched."""
+    n = geom.num_prims
+    m = min(top, n)
+    cols = top_k_ids(luminance(sol.radiosity) * geom.area, m)
+    rc = min(max(16, 32768 // m), n)
+    rkey = rng.fold_in(rng.stream_key(key, rng.STREAM_FORMFACTOR),
+                       0x47524944)
+    _, gcount, gradv = mc_form_factors_rows(
+        geom, rkey, _padded_rows(n, rc, geom.device), n_samples=n_samples,
+        row_chunk=rc, occlusion_packs=occlusion_packs, col_ids=cols,
+        col_weight=sol.radiosity[cols], estimator=estimator,
+    )
+    return replace(sol, rad_grid=gradv[:n], grid_counts=gcount[:n])
+
+
+def drive_shooting(geom: Geometry, step_fn, rad_grid, grid_counts, *,
+                   steps: int, rel_tol: float, check_every: int,
+                   ambient: bool) -> RadiositySolution:
+    """The host driver of a shooting solve: the history ring, the summed
+    transport stats, the early exit and the ambient completion.
+    `step_fn(radiosity, unshot, rad_grid, grid_counts, step) ->
+    (radiosity, unshot, rad_grid, grid_counts, stats)` does the
+    transport."""
+    n = geom.num_prims
+    radiosity = unshot = geom.emission
+    p0 = (float((luminance(geom.emission) * geom.area).sum())
+          if check_every else 0.0)
+    history = torch.zeros((RADIOSITY_HISTORY, n, 3), device=geom.device)
+    h_idx = h_cnt = 0
+    stats = torch.zeros((3, 3), device=geom.device)
+    for step in range(steps):
+        history[h_idx] = radiosity
+        h_idx = (h_idx + 1) % RADIOSITY_HISTORY
+        h_cnt = min(h_cnt + 1, RADIOSITY_HISTORY)
+        radiosity, unshot, rad_grid, grid_counts, st = step_fn(
+            radiosity, unshot, rad_grid, grid_counts, step)
+        stats = stats + st
+        if check_every and (step + 1) % check_every == 0:
+            rem = float((luminance(unshot) * geom.area).sum())
+            if rem < rel_tol * p0:
+                break
+    if ambient:
+        radiosity = radiosity + ambient_correction(geom, unshot, stats)
+    return RadiositySolution(
+        form_factors=torch.zeros((0, 0), device=geom.device),
+        radiosity=radiosity, unshot=unshot, grid_counts=grid_counts,
+        rad_grid=rad_grid, history=history, history_index=h_idx,
+        history_count=h_cnt,
     )

@@ -130,7 +130,8 @@ def build_balance_assignment(lane_steps, swz_perm, npix: int, k: int,
 def probe_pass(geom: Geometry, camera: Camera, key: rng.Key,
                settings: RenderSettings, gids: torch.Tensor, *,
                cdfs: CDFPack | None = None, mis_bsdf_fraction: float = 0.5,
-               tri_pack=None, attr_pack=None, culled=None) -> torch.Tensor:
+               tri_pack=None, attr_pack=None, culled=None,
+               bvh=None) -> torch.Tensor:
     """Per-lane cost probe: one spp-1 wavefront pass (without NEE, as in
     the JAX package) over each row of gids (nruns, chunk) pixel ids,
     returning each lane's live-step count, (nruns, chunk)."""
@@ -141,7 +142,7 @@ def probe_pass(geom: Geometry, camera: Camera, key: rng.Key,
             geom, camera, lane_ids, key, width=s.width, height=s.height,
             spp=1, max_depth=s.max_depth, tri_pack=tri_pack,
             attr_pack=attr_pack, mode=s.sampling_mode, cdfs=cdfs,
-            mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
+            mis_bsdf_fraction=mis_bsdf_fraction, culled=culled, bvh=bvh,
             return_lane_steps=True)[3])
     return torch.stack(out)
 
@@ -159,10 +160,13 @@ def render_pass(
     culled=None,
     prim_ids: torch.Tensor | None = None,
     assignment=None,
+    bvh=None,
 ) -> tuple[torch.Tensor, int]:
     """Trace settings.spp_per_pass samples per pixel and add them into
     `film` (in place); guided modes sample by `cdfs`. With `culled` (a
-    CulledScene) batches are whole 1024-lane tiles in swizzled lane order.
+    CulledScene) batches are whole 1024-lane tiles in swizzled lane order;
+    with `bvh` (a BVH, when neither `culled` nor `tri_pack` is given) hits
+    come from its traversal.
     `prim_ids` (`pack_prim_ids`) sends NEE's shadow rays through K3 on
     the all-pairs packs. `assignment` (wavefront only) is the balanced
     lane queues of `build_balance_assignment` as device tensors: each
@@ -187,7 +191,7 @@ def render_pass(
             mode=s.sampling_mode, cdfs=cdfs,
             mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
             sort_rays=s.sort_rays, nee=s.nee, prim_ids=prim_ids,
-            tile_sync=tile_sync,
+            tile_sync=tile_sync, bvh=bvh,
         )
 
     if assignment is not None:
@@ -221,7 +225,7 @@ def render_pass(
         else:
             total, r, it = _scan_samples(
                 geom, camera, lane_ids, pass_key, s, tri_pack, attr_pack,
-                cdfs, mis_bsdf_fraction, culled, prim_ids)
+                cdfs, mis_bsdf_fraction, culled, prim_ids, bvh)
         radiance[start:start + lane_ids.shape[0]] = total
         rays += r
         iters += it
@@ -234,7 +238,7 @@ def render_pass(
 
 def _scan_samples(geom, camera, lane_ids, pass_key, s: RenderSettings,
                   tri_pack, attr_pack, cdfs, mis_bsdf_fraction, culled,
-                  prim_ids):
+                  prim_ids, bvh):
     """render_pass's scan branch for one batch: sample `samp` keys its
     camera jitter by stream_key(fold_in(pass_key, samp), STREAM_CAMERA)
     and its paths by ... STREAM_PATH, and `trace` runs max_depth bounces.
@@ -255,7 +259,7 @@ def _scan_samples(geom, camera, lane_ids, pass_key, s: RenderSettings,
             max_depth=s.max_depth, mode=s.sampling_mode, cdfs=cdfs,
             mis_bsdf_fraction=mis_bsdf_fraction, tri_pack=tri_pack,
             attr_pack=attr_pack, culled=culled, prim_ids=prim_ids,
-            lane_ids=lane_ids, nee=s.nee)
+            lane_ids=lane_ids, nee=s.nee, bvh=bvh)
         radiance = radiance + rad
         rays = rays + stats.rays
     return radiance, rays, s.spp_per_pass * s.max_depth
@@ -337,7 +341,8 @@ class ProgressiveRenderer:
     prim_table rows (renderer.py:457-471 of the JAX package), so K2 also
     delivers each lane's guided-sampling row; with NEE on that backend
     the prim-id pack (`prim_ids`, built here when not given) sends the
-    shadow rays through K3. With `balance_lanes` K > 1 the first pass
+    shadow rays through K3. `bvh` (a BVH) takes the hits where there are
+    no packs and no `culled`. With `balance_lanes` K > 1 the first pass
     probes the lanes' path costs once and later passes run on the dealt
     queues (`_build_assignment`).
     """
@@ -356,9 +361,11 @@ class ProgressiveRenderer:
         mis_bsdf_fraction: float = 0.5,
         culled=None,
         prim_ids: torch.Tensor | None = None,
+        bvh=None,
     ):
         self.device = torch.device(device)
         self.culled = culled
+        self.bvh = None if bvh is None else bvh.to(self.device)
         self.geom = geom.to(self.device)
         self.camera = camera.to(self.device)
         self.settings = settings
@@ -408,7 +415,7 @@ class ProgressiveRenderer:
             torch.from_numpy(perm.reshape(-1, pchunk)).to(self.device),
             cdfs=self.cdfs, mis_bsdf_fraction=self.mis_bsdf_fraction,
             tri_pack=self.tri_pack, attr_pack=self.attr_pack,
-            culled=self.culled,
+            culled=self.culled, bvh=self.bvh,
         )
         out = build_balance_assignment(
             steps.reshape(-1).cpu().numpy(),
@@ -429,7 +436,7 @@ class ProgressiveRenderer:
         rays, iters = render_pass(
             self.geom, self.camera, self.film, self.key, self.settings,
             self.tri_pack, self.attr_pack, self.cdfs, self.mis_bsdf_fraction,
-            self.culled, self.prim_ids, self._assignment,
+            self.culled, self.prim_ids, self._assignment, self.bvh,
         )
         self._rays += rays
         self.iterations += iters
