@@ -13,6 +13,18 @@ Phases, one line each (any failure raises and exits non-zero):
                (K7, K13) and csrc/row_closest.cu (K11) from the checkout into
                build/tpu_pathtracer_torch/, one nvcc per source, started
                together;
+  2b. profile  the profilers, in a child process before the long phases
+               (`chip_smoke.py --profile-child`; torch.profiler lost
+               kernel events late in this long process): kernel_profile
+               on 16,384 camera rays of the headline frame (K2), then
+               kernel_profile_traced of one headline pass (1024x1024,
+               depth 5, 16 spp, in one batch of 2**20 lanes, the same
+               film as 16 of 65,536): every csrc/ kernel in the trace
+               classified "intersection" and as many as the pass's
+               iterations, every int64 shift and xor kernel of the
+               threefry under "rng", the shares summing to 100%; then
+               `python -m tpu_pathtracer_torch.cli --profile
+               --kernel-profile` at 64x64 prints both tables;
   3. kernels   every kernel against its plain torch version on the card,
                bitwise: K1 and K2 on 65,536 camera and 65,536 bounce rays
                of four scenes (cbox, its mirror variant, and the box at
@@ -183,6 +195,25 @@ Phases, one line each (any failure raises and exits non-zero):
                device time on the same masks; two NEE passes through the
                walk (K12 and K13 must launch), timed in turns with two
                per-cluster passes, their film bitwise the per-cluster one.
+ 13. multi     tiling and sharding (parallel/sharding.py) over the mesh
+               [card 0, card 0], two real row bands on one card: the
+               headline frame tiled (K2 once per iteration), its first
+               pass bitwise phase headline's warm-up pass and timed
+               beside it, a second pass beside the untiled passes; the
+               stress100k culled frame (K4 and K6) and the cbox1024_nee
+               frame (K2 and K3) tiled, each first pass bitwise its
+               phase's; the sub-5 form factors sharded (K4 and K7),
+               matrix and counts bitwise phase solve's; the sub-6
+               shooting slice sharded (SHOOT_STEPS steps), radiosity,
+               unshot, grids and history bitwise phase shooting's; then
+               graft_entry.dryrun_multichip(2) on the same mesh;
+ 14. viewer    the browser viewer (viewer/server.py) on the card with its
+               render thread, served on 127.0.0.1 at an ephemeral port:
+               /state until the frame has samples, /frame.png, /orbit
+               (the accumulation restarts), /set?sampling_mode=mis,
+               /solve, /heatmap.png and /profiler/kernel; then the
+               thread stops and the server shuts down within
+               VIEWER_TIMEOUT.
 
 The second-to-last line is the kernel record (JSON; each kernel's
 launches are those of the phase that drives its path: K2 the headline,
@@ -190,7 +221,8 @@ K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
 passes, K5 the 1M-triangle pass, K7 the sub-5 solve, K8, K10 and K11 the
 sorted stress100k passes, K9 its own call, K12 and K13 the supercluster
 NEE passes; K1 is on no path of the App; K2, K3, K4, K6 and K7 also
-carry `nee_launches`, their launches in the timed cbox1024_nee and
+carry `multi_launches`, their launches in phase multi's tiled and
+sharded paths, and `nee_launches`, their launches in the timed cbox1024_nee and
 stress100k_nee passes, K3, K4, K6 and K7 `nee_shape_ms`, their time per
 launch at cbox1024_nee's 65,536 shadow rays (K3, with
 `nee_shape_device_ms`) or stress100k_nee's 16,384 lanes, and K4
@@ -232,6 +264,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -311,6 +344,8 @@ PEAK_BYTES = 3.35e12
 # min, max and the running max and min)
 PAIR_FLOPS = 40
 SLAB_FLOPS = 24
+# the int64 threefry's shift and xor kernels (core/rng.py) in a trace
+THREEFRY = re.compile(r"shift|xor", re.I)
 
 
 def phase(name: str, msg: str) -> None:
@@ -1700,7 +1735,7 @@ def solve_phase(dev, sol3, start, end):
           f"{img.shape}, mean {img.mean():.3f}, max {img.max()}")
     if img.shape != (1024, 1024, 3) or img.max() == 0:
         raise AssertionError("sub-5 radiosity view failed its checks")
-    return k7, k4
+    return k7, k4, sol
 
 
 def shooting_phase(dev, start, end):
@@ -1854,7 +1889,7 @@ def shooting_phase(dev, start, end):
     if not (ok and k7_app > 0 and k6 > 0 and img.max() > 0
             and tuple(s6.form_factors.shape) == (0, 0)):
         raise AssertionError("the App's sub-6 shooting path failed")
-    del app, view, s6, r, sol, k4_out, k7_out
+    del app, view, s6, r, k4_out, k7_out     # sol: phase multi's
 
     # sub 4: a few steps through K3, occluded_plain and the culled backend
     g4 = App(Config(**SHOOT4), device=dev).load_scene()
@@ -2041,7 +2076,7 @@ def shooting_phase(dev, start, end):
             and ulps <= BVH_T_ULP and ids_k2 <= 8):
         raise AssertionError("the BVH failed its checks")
     return {"K4": (k4, per_launch["K4"]), "K7": (k7, per_launch["K7"]),
-            "K3": (k3, k3_launch_ms)}
+            "K3": (k3, k3_launch_ms), "solution": sol, "ms": ms}
 
 
 def row_kernels(part, o, d, check_early_out):
@@ -2377,7 +2412,7 @@ def nee_phase(dev, start, end, headline, large):
     r = App(Config(spp=16 * (TIMED_PASSES + 1), nee=True, **HEADLINE),
             device=dev).renderer()
     r.step()                                   # warm-up pass
-    first = r.film.accum.clone()
+    cbox_first = r.film.accum.clone()
     ms, rays, ok = timed(r)
     k2, k3 = ap.closest_record.launches, ap.occluded.launches
     head_rays, head_ms = headline
@@ -2393,7 +2428,7 @@ def nee_phase(dev, start, end, headline, large):
     big = App(Config(spp=16, nee=True, **{**HEADLINE, "ray_chunk": 1 << 20}),
               device=dev).renderer()
     _, ms_big = time_once(big.step)
-    same = torch.equal(big.film.accum, first)
+    same = torch.equal(big.film.accum, cbox_first)
     phase("nee", f"cbox1024_nee at ray_chunk 2**20: first pass "
           f"{big.total_rays} rays in {ms_big:.3f} ms; film bitwise equal to "
           f"ray_chunk 2**16: {same}")
@@ -2499,7 +2534,7 @@ def nee_phase(dev, start, end, headline, large):
             "K4 ms": per_launch["K4 segments"],
             "K6 ms": per_launch["K6"], "K7 ms": per_launch["K7"],
             "K3 ms": k3_ms, "K3 device ms": k3_dev, "K3 open": k3_open,
-            "K6 nee": k6_nee}
+            "K6 nee": k6_nee, "cbox first": cbox_first}
 
 
 def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
@@ -2632,6 +2667,316 @@ def supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start, end, err,
     return {k: launches[k] for k in ("K12", "K13")}, facts
 
 
+VIEWER = dict(scene="cbox_quads", width=256, height=256, spp_per_pass=4,
+              max_depth=5, mc_samples=16, radiosity_iterations=5)
+VIEWER_TIMEOUT = 120   # seconds any viewer request or thread join may take
+PROFILE_TIMEOUT = 300  # seconds the profile phase's child process may take
+
+
+def launch_counts() -> dict:
+    """The launch counts of the kernels phase multi drives."""
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+
+    return {"K2": ap.closest_record.launches, "K3": ap.occluded.launches,
+            "K4": ic.prepass_dense.launches,
+            "K6": ic.closest_grouped.launches,
+            "K7": ic.occluded_grouped.launches}
+
+
+def tiled_of(app, mesh):
+    """A TiledRenderer over `mesh` of the App's frame, through the App's
+    backend (its packs with the prim-id pack for NEE, or its culled
+    scene)."""
+    from tpu_pathtracer_torch.parallel.sharding import TiledRenderer
+
+    r = app.renderer()
+    return TiledRenderer(
+        app.geom, r.camera, r.settings, mesh=mesh, seed=app.config.seed,
+        tri_pack=r.tri_pack, attr_pack=r.attr_pack, cdfs=r.cdfs,
+        mis_bsdf_fraction=r.mis_bsdf_fraction, culled=r.culled,
+        prim_ids=r.prim_ids, bvh=r.bvh)
+
+
+def multi_phase(dev, start, end, refs) -> dict:
+    """Phase 13: multi-device tiling at full width over the mesh [card 0,
+    card 0] (two real bands on one card): the headline frame, the
+    stress100k culled frame and the cbox1024_nee frame tiled, each first
+    pass bitwise the single-device first pass of its phase (the headline's
+    timed beside the untiled one); the sub-5 form-factor matrix sharded,
+    bitwise phase solve's; the sub-6 shooting slice sharded, bitwise phase
+    shooting's; then graft_entry.dryrun_multichip(2) on the same mesh.
+    Returns the launches of K2, K3, K4, K6 and K7 in the tiled and
+    sharded paths (counts zeroed just before them, read just after)."""
+    from tpu_pathtracer_torch import graft_entry
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.core import rng
+    from tpu_pathtracer_torch.parallel import sharding as sh
+    from tpu_pathtracer_torch.utils.config import Config
+
+    mesh = [dev, dev]
+    first_headline, untiled_first_ms, headline_ms = refs["headline"]
+    zero_counts()
+    before = launch_counts()
+
+    def used():
+        nonlocal before
+        now = launch_counts()
+        out = {k: now[k] - before[k] for k in now}
+        before = now
+        return out
+
+    t = tiled_of(App(Config(spp=32, **HEADLINE), device=dev), mesh)
+    first_ms = time_once(lambda: t.step(block=False))[1]
+    same = torch.equal(t.film.accum, first_headline)
+    second_ms = time_once(lambda: t.step(block=False))[1]
+    n = used()
+    bands = [f.height for f in t.films]
+    phase("multi", f"headline tiled over {len(mesh)} bands of rows {bands} "
+          f"on {dev}: first pass {first_ms:.3f} ms (untiled first pass "
+          f"{untiled_first_ms:.3f} ms), second pass {second_ms:.3f} ms "
+          f"(untiled mean of phase headline's timed passes "
+          f"{headline_ms / TIMED_PASSES:.3f} ms); {t.iterations} iterations, "
+          f"K2 launches {n['K2']}; first-pass film bitwise the untiled "
+          f"one {same}")
+    if not (same and n["K2"] == t.iterations > 0):
+        raise AssertionError("the tiled headline failed its checks")
+    del t
+
+    t = tiled_of(App(Config(spp=8, **LARGE), device=dev), mesh)
+    ms = time_once(lambda: t.step(block=False))[1]
+    same = torch.equal(t.film.accum, refs["large"])
+    n = used()
+    phase("multi", f"stress100k culled, 2 bands: first pass {ms:.3f} ms, "
+          f"{t.iterations} iterations, K4 launches {n['K4']}, K6 "
+          f"{n['K6']}; film bitwise phase large's first pass {same}")
+    if not (same and n["K4"] == n["K6"] == t.iterations > 0):
+        raise AssertionError("the tiled stress100k pass failed its checks")
+    del t
+
+    t = tiled_of(App(Config(spp=16, nee=True, **HEADLINE), device=dev), mesh)
+    ms = time_once(lambda: t.step(block=False))[1]
+    same = torch.equal(t.film.accum, refs["nee"])
+    n = used()
+    phase("multi", f"cbox1024_nee, 2 bands: first pass {ms:.3f} ms, "
+          f"{t.iterations} iterations, K2 launches {n['K2']}, K3 {n['K3']}; "
+          f"film bitwise phase nee's first pass {same}")
+    if not (same and n["K2"] == n["K3"] == t.iterations > 0):
+        raise AssertionError("the tiled NEE pass failed its checks")
+    del t
+
+    app5 = App(Config(**SOLVE5), device=dev)
+    g5 = app5.load_scene()
+    (ff, gc, _), ms = time_once(lambda: sh.mc_form_factors_sharded(
+        g5, rng.base_key(app5.config.seed + 12345), mesh=mesh,
+        n_samples=SOLVE5["mc_samples"], occlusion_packs=app5.culled,
+        estimator=app5.config.ff_estimator))
+    same = (torch.equal(ff.cpu(), refs["solve"][0])
+            and torch.equal(gc.cpu(), refs["solve"][1]))
+    n = used()
+    phase("multi", f"cbox sub 5 form factors sharded over 2 bands: "
+          f"{ms:.3f} ms, K4 launches {n['K4']}, K7 {n['K7']}; matrix and "
+          f"counts bitwise phase solve's {same}")
+    if not (same and n["K4"] == n["K7"] > 0):
+        raise AssertionError("the sharded sub-5 form factors failed")
+    del ff, gc, app5, g5
+
+    app6 = App(Config(**SHOOT6), device=dev)
+    g6 = app6.load_scene()
+    sol, ms = time_once(lambda: sh.solve_radiosity_shooting_sharded(
+        g6, rng.base_key(12345), mesh=mesh, steps=SHOOT_STEPS,
+        shooters_per_step=128, mc_samples=4, occlusion_packs=app6.culled,
+        check_every=0))
+    ref = refs["shooting"]
+    same = all(torch.equal(getattr(sol, f), getattr(ref[0], f)) for f in (
+        "radiosity", "unshot", "rad_grid", "grid_counts", "history"))
+    n = used()
+    phase("multi", f"cbox sub 6 shooting sharded over 2 bands, "
+          f"{SHOOT_STEPS} steps: {ms:.3f} ms = {ms / 1e3 / SHOOT_STEPS:.6f} "
+          f"s a step (untiled {ref[1] / 1e3 / SHOOT_STEPS:.6f}), K4 "
+          f"launches {n['K4']}, K7 {n['K7']}; radiosity, unshot, grids and "
+          f"history bitwise phase shooting's {same}")
+    if not (same and n["K4"] == n["K7"] > 0):
+        raise AssertionError("the sharded sub-6 shooting slice failed")
+    del sol, app6, g6
+    launches = launch_counts()
+
+    _, ms = time_once(lambda: graft_entry.dryrun_multichip(
+        2, devices=mesh))
+    phase("multi", f"graft_entry.dryrun_multichip(2) on {mesh}: "
+          f"{ms:.3f} ms")
+    return launches
+
+
+def profile_child(dev=None) -> int:
+    """The profile phase's work, in a process of its own (run as
+    `chip_smoke.py --profile-child`): torch.profiler lost kernel events
+    late in the long chip_smoke process. Prints phase lines and, last,
+    the result as JSON."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.utils import kernel_profile as kp
+    from tpu_pathtracer_torch.utils.config import Config
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    # the headline pass in one batch (its film is the 65,536-lane one's)
+    app = App(Config(spp=16, **{**HEADLINE, "ray_chunk": 1 << 20}),
+              device=dev)
+    r = app.renderer()
+    cfg = app.config
+    n = min(1 << 14, cfg.width * cfg.height)
+    pix = torch.arange(n, device=dev)
+    o, d = r.camera.get_rays(((pix % cfg.width).float() + 0.5) / cfg.width,
+                             ((pix // cfg.width).float() + 0.5) / cfg.height)
+    iso = kp.kernel_profile(app.geom, o, d, tri_pack=r.tri_pack,
+                            attr_pack=r.attr_pack)
+    phase("profile", f"kernel_profile, {n} camera rays (K2):\n"
+          + kp.format_profile(iso))
+    iters = []
+
+    def step():
+        r.step(block=False)
+        iters.append(r.iterations)
+
+    ap.closest_record.launches = 0
+    rows = kp.traced_ops(step, device=dev)
+    prof = kp.summarize(rows)
+    k2 = ap.closest_record.launches
+    ours = [(nm, kp.classify_op(nm, sc)) for *_, nm, sc in rows
+            if kp.is_port_kernel(nm)]
+    threefry = [kp.classify_op(nm, sc) for *_, nm, sc in rows
+                if THREEFRY.search(nm)]
+    share = sum(prof["percent"].values())
+    phase("profile", f"kernel_profile_traced of one headline pass "
+          f"(1024x1024, 16 spp, depth 5, one batch of 2**20 lanes): "
+          f"{prof['ops']} device ops, {prof['device_total'] * 1e3:.3f} ms "
+          f"of device time; shares " + ", ".join(
+              f"{k} {v:.2f}%" for k, v in sorted(
+                  prof["percent"].items(), key=lambda kv: -kv[1]))
+          + f" (sum {share:.6f}%); csrc kernels in the trace {len(ours)} "
+          f"(K2 launches in the traced pass {iters[1] - iters[0]}, in both "
+          f"passes {k2}), classified {sorted(set(c for _, c in ours))}; "
+          f"int64 shift/xor kernels {len(threefry)}, classified "
+          f"{sorted(set(threefry))}")
+    for top in prof["top_ops"][:10]:
+        phase("profile", f"  {top['ms']:10.3f} ms {top['count']:6d} x "
+              f"{top['name'][:110]} [{top['long_name'][:40]}]")
+    ok = (ours and {c for _, c in ours} == {"intersection"}
+          and len(ours) == iters[1] - iters[0]
+          and threefry and set(threefry) == {"rng"}
+          and abs(share - 100.0) < 1e-6)
+    if not ok:
+        raise AssertionError("the traced profile failed its checks")
+
+    res = subprocess.run(
+        [sys.executable, "-m", "tpu_pathtracer_torch.cli", "--device",
+         "cuda", "--width", "64", "--height", "64", "--spp", "4",
+         "--profile", "--kernel-profile", "--out",
+         os.path.join(HERE, "build", "cli_profile.png")],
+        cwd=HERE, capture_output=True, text=True, timeout=PROFILE_TIMEOUT)
+    out = res.stdout
+    phase("profile", f"cli --profile --kernel-profile (64x64, 4 spp): rc "
+          f"{res.returncode}\n{out.strip()}")
+    if not (res.returncode == 0 and "avg ms" in out and "Render" in out
+            and "intersection" in out and "bsdf_sampling" in out):
+        raise AssertionError(f"the CLI's profile flags failed:\n"
+                             f"{res.stderr[-2000:]}")
+    print(json.dumps({"percent": prof["percent"],
+                      "device_ms": prof["device_total"] * 1e3,
+                      "ops": prof["ops"]}), flush=True)
+    return 0
+
+
+def profile_phase() -> dict:
+    """Phase 2b: the profilers, in a child process before the long
+    phases (see profile_child). Returns its result."""
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-child"],
+        cwd=HERE, capture_output=True, text=True, timeout=PROFILE_TIMEOUT)
+    lines = res.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"the profile phase failed (rc "
+                             f"{res.returncode}):\n{res.stdout[-4000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def viewer_phase(dev) -> None:
+    """Phase 14: the viewer on the card with its render thread, served on
+    127.0.0.1 at an ephemeral port: /state until the frame has samples,
+    /frame.png, /orbit (the accumulation restarts), /set of the sampling
+    mode, /solve, /heatmap.png and /profiler/kernel; then the thread
+    stops and the server shuts down, each within VIEWER_TIMEOUT."""
+    import threading
+    import time
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from tpu_pathtracer_torch.utils.config import Config
+    from tpu_pathtracer_torch.viewer.server import ViewerState, make_handler
+
+    state = ViewerState(Config(spp=1 << 30, **VIEWER), dev)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    serve = threading.Thread(target=srv.serve_forever, daemon=True)
+    port = srv.server_address[1]
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=VIEWER_TIMEOUT) as r:
+            return r.status, r.read()
+
+    def spp():
+        return json.loads(get("/state")[1])["render"]["spp"]
+
+    def wait_for_samples():
+        deadline = time.monotonic() + VIEWER_TIMEOUT
+        while spp() == 0:
+            if time.monotonic() > deadline:
+                raise AssertionError("the viewer rendered no frame")
+            time.sleep(0.05)
+
+    serve.start()
+    state.start()
+    try:
+        t0 = time.perf_counter()
+        wait_for_samples()
+        first_s = time.perf_counter() - t0
+        png = get("/frame.png")[1]
+        before = state.app._renderer
+        get("/orbit?yaw=5")
+        restarted = state.app._renderer is not before
+        wait_for_samples()
+        get("/set?sampling_mode=mis")
+        get("/solve")
+        wait_for_samples()
+        _, heat = get("/heatmap.png?prim=3")
+        _, body = get("/profiler/kernel")
+        prof = json.loads(body)
+        mode = state.app.config.sampling_mode
+        ok = (png[:8] == b"\x89PNG\r\n\x1a\n" and heat[:4] == b"\x89PNG"
+              and restarted and mode == "mis" and state.app.cdfs is not None
+              and abs(sum(prof["percent"].values()) - 100.0) < 1e-6)
+    finally:
+        stopped = state.stop(VIEWER_TIMEOUT)
+        srv.shutdown()
+        srv.server_close()
+        serve.join(VIEWER_TIMEOUT)
+    phase("viewer", f"ViewerState on {dev} at 127.0.0.1:{port}: first frame "
+          f"after {first_s:.3f} s, /frame.png {len(png)} bytes, /orbit "
+          f"restarted the accumulation {restarted}, sampling mode {mode} "
+          f"after /set and /solve, /heatmap.png {len(heat)} bytes, "
+          f"/profiler/kernel {prof['ops']} device ops ("
+          + ", ".join(f"{k} {v:.1f}%" for k, v in sorted(
+              prof["percent"].items(), key=lambda kv: -kv[1]))
+          + f"); {state.app.profiler.stages['Render'].count} frames, "
+          f"thread stopped {stopped}, server thread stopped "
+          f"{not serve.is_alive()}")
+    if not (ok and stopped and not serve.is_alive()):
+        raise AssertionError("the viewer failed its checks")
+
+
 def main() -> int:
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2676,6 +3021,9 @@ def main() -> int:
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln:
                 phase("build", ln.strip())
+
+    # 2b. profile: the profilers, in a child process ----------------------
+    profile_phase()
 
     # 3. kernels vs plain ---------------------------------------------------
     cam = CameraController.default().build(dev)
@@ -3010,7 +3358,11 @@ def main() -> int:
     # 7. headline ----------------------------------------------------------
     cfg = Config(spp=16 * (TIMED_PASSES + 1), **HEADLINE)
     r = App(cfg, device=dev).renderer()
+    start.record()
     r.step()                                   # warm-up pass
+    end.record()
+    end.synchronize()
+    headline_first = (r.film.accum.clone(), start.elapsed_time(end))
     r.reset_stats()
     zero_counts()
     start.record()
@@ -3056,7 +3408,11 @@ def main() -> int:
     large, first_large, large_ms = large_phase(dev, path1m, start, end)
 
     # 9. solve: the sub-5 gather solve through K7 ---------------------------
-    k7_launches, k4_solve = solve_phase(dev, sol, start, end)
+    k7_launches, k4_solve, sol5 = solve_phase(dev, sol, start, end)
+    # phase multi's reference, on the host: the device memory the later
+    # phases measure stays as it was
+    ff5 = (sol5.form_factors.cpu(), sol5.grid_counts.cpu())
+    del sol5
 
     # 10. shooting: the shooting solver, OBJ scenes, the BVH ----------------
     shoot = shooting_phase(dev, start, end)
@@ -3070,6 +3426,16 @@ def main() -> int:
                     (first_large, large_ms))
     sc, sc_facts = supercluster_phase(dev, path1m, g1m, cs1m, cam1m, start,
                                       end, err, times, bounds)
+
+    # 13. multi: tiling and sharding over two bands of the card ------------
+    multi = multi_phase(dev, start, end, {
+        "headline": (*headline_first, headline_ms), "large": first_large,
+        "nee": nee.pop("cbox first"), "solve": ff5,
+        "shooting": (shoot.pop("solution"), shoot.pop("ms"))})
+    del ff5
+
+    # 14. viewer: the browser viewer with its render thread ----------------
+    viewer_phase(dev)
 
     def entry(name, key, source, replaces, n_launches,
               module="intersect_pallas.py"):
@@ -3089,7 +3455,7 @@ def main() -> int:
                  launches["K1"]), **facts["K1"]},
         {**entry("K2 closest_record (_kernel_full)", "K2", "closest_hit.cu",
                  240, launches["K2"]), **facts["K2"],
-         "nee_launches": nee["K2"]},
+         "nee_launches": nee["K2"], "multi_launches": multi["K2"]},
         {**entry("K2-guide closest_record, 27 rows (_kernel_full)",
                  "K2-guide", "closest_hit.cu", 240, guide_launches),
          **facts["K2-guide"]},
@@ -3099,7 +3465,7 @@ def main() -> int:
          "nee_shape_device_ms": nee["K3 device ms"],
          "nee_shape_open": nee["K3 open"],
          "shooting_launches": shoot["K3"][0],
-         "shooting_ms": shoot["K3"][1]},
+         "shooting_ms": shoot["K3"][1], "multi_launches": multi["K3"]},
         {**entry("K4 prepass_dense (_kernel_prepass_groups)", "K4",
                  "cluster_prepass.cu", 1023, large["K4"]), **facts["K4"],
          "solve_launches": k4_solve, "nee_launches": nee["K4"],
@@ -3109,19 +3475,19 @@ def main() -> int:
          "segments_bound_by": bounds["K4 segments"][1],
          "nee_shape_ms": nee["K4 ms"],
          "shooting_launches": shoot["K4"][0],
-         "shooting_ms": shoot["K4"][1]},
+         "shooting_ms": shoot["K4"][1], "multi_launches": multi["K4"]},
         {**entry("K5 prepass_gated (_kernel_prepass_groups_fused)", "K5",
                  "cluster_prepass.cu", 1149, large["K5"]), **facts["K5"]},
         {**entry("K6 closest_grouped (_kernel_grouped_dma)", "K6",
                  "grouped_closest.cu", 1723, large["K6"]), **facts["K6"],
          "nee_launches": nee["K6"], "nee_shape_ms": nee["K6 ms"],
-         **nee["K6 nee"]},
+         **nee["K6 nee"], "multi_launches": multi["K6"]},
         {**entry("K7 occluded_grouped (_kernel_grouped_anyhit_dma)", "K7",
                  "grouped_anyhit.cu", 2219, k7_launches),
          "nee_launches": nee["K7"], "nee_shape_ms": nee["K7 ms"],
          "shadow_1m_device_ms": sc_facts["K13"]["k7_device_ms"],
          "shooting_launches": shoot["K7"][0],
-         "shooting_ms": shoot["K7"][1]},
+         "shooting_ms": shoot["K7"][1], "multi_launches": multi["K7"]},
         {**entry("K8 prepass_probe (_kernel_prepass_probe)", "K8",
                  "cluster_prepass.cu", 45, rows["K8"], legacy),
          **facts["K8"]},
@@ -3148,4 +3514,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--profile-child"]:
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.path.insert(0, HERE)
+        sys.exit(profile_child())
     sys.exit(main())

@@ -88,10 +88,20 @@ in the turns baseline, this, this, baseline:
     4 MC samples, through "auto": K4 in segment mode and K7) on this
     checkout's build only (no A/B: until a change to K4 or K7 at these
     shapes): ms a step, then two steps under torch.profiler (device time
-    by kernel, the K4 and K7 shares, the busy share).
+    by kernel, the K4 and K7 shares, the busy share);
+  - tiling on one card, this checkout alone: products shaped as the
+    solves' (ff (R, k) @ shot (k, 3): 64 x 16 in 8 row bands, 1,024 x 16
+    in 3, 65,536 x 128 in 2, 16,384 x 16,384 in 2) from numpy draws, and
+    how many bands of rows cuBLAS rounds apart from the same rows of the
+    whole product (why a sharded shooting step joins its bands' blocks
+    for one product); then the headline frame (chip_smoke.HEADLINE)
+    untiled and as a TiledRenderer over [cuda:0, cuda:0], one warm-up
+    pass each, then TILE_ROUNDS rounds of passes in the turns untiled,
+    tiled, tiled, untiled (CUDA events), the films bitwise equal after
+    every round: the median pass of each and their ratio.
 The sections, in this order (--cases picks some): segments (the sub-5
 segments), stress100k, 1m, k2, renders, solve, k6, k3, prepass, k9, sc,
-sweep, shoot.
+sweep, shoot, tile.
 Prints a line per case and,
 last, one JSON object with every number (also written to FILE, default
 chiprun_out/kernel_ab.json, after every section). Imports nothing of jax.
@@ -105,6 +115,7 @@ import ctypes
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -119,9 +130,13 @@ SOURCES = ("cluster_prepass.cu", "grouped_anyhit.cu", "row_closest.cu",
            "closest_hit.cu", "grouped_closest.cu", "any_hit.cu")
 SIDES = ("baseline", "this", "this", "baseline")
 CASES = ("segments", "stress100k", "1m", "k2", "renders", "solve", "k6",
-         "k3", "prepass", "k9", "sc", "sweep", "shoot")
+         "k3", "prepass", "k9", "sc", "sweep", "shoot", "tile")
 SHOOT_TIMED = 4       # sub-6 shooting steps a turn
 SHOOT_PROFILED = 2    # sub-6 shooting steps under torch.profiler
+TILE_ROUNDS = 3       # rounds of untiled and tiled headline passes
+# (rows, k, bands) of the products ff (R, k) @ shot (k, 3) split by rows
+GEMM_BANDS = ((64, 16, 8), (1024, 16, 3), (65536, 128, 2),
+              (16384, 16384, 2))
 # the sweep's variants of this checkout's sources: the line that picks a
 # launch parameter, its replacement, and the values forced
 SWEEPS = {
@@ -598,6 +613,61 @@ def shoot_profile(out: dict) -> None:
              f"busy share {rec['busy_share']:.4f}; K4 {rec['K4']}, K7 "
              f"{rec['K7']}; top {rec['top']}")
     out["shoot"] = rec
+
+
+def gemm_bands(dev) -> list:
+    """[{shape, bands, band_rows, parted}] for GEMM_BANDS: the bands of
+    rows whose product is not bitwise the whole product's rows."""
+    g = np.random.default_rng(0)
+    rows = []
+    for r, k, nb in GEMM_BANDS:
+        ff = g.random((r, k), np.float32) * (g.random((r, k)) < 0.3)
+        ff = torch.from_numpy(ff.astype(np.float32)).to(dev)
+        shot = torch.from_numpy(g.random((k, 3), np.float32)).to(dev)
+        band = -(-r // nb)
+        whole = ff @ shot
+        parted = sum(not torch.equal(ff[i:i + band] @ shot,
+                                     whole[i:i + band])
+                     for i in range(0, r, band))
+        rows.append({"shape": [r, k], "bands": nb, "band_rows": band,
+                     "parted": parted})
+        cs.phase("ab", f"{r} x {k} @ {k} x 3 in {nb} bands of {band} rows:"
+                 f" {parted} bands parted from the whole product")
+    return rows
+
+
+def tile_ab(dev, out: dict) -> None:
+    """Untiled and tiled headline passes in turns (see the module
+    docstring), after the GEMM-band check."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.utils.config import Config
+
+    spp = 16 * (1 + 2 * TILE_ROUNDS)
+    untiled = App(Config(spp=spp, **cs.HEADLINE), device=dev).renderer()
+    tiled = cs.tiled_of(App(Config(spp=spp, **cs.HEADLINE), device=dev),
+                        [dev, dev])
+    pair = (("untiled", untiled), ("tiled", tiled))
+    ms = {"untiled": [], "tiled": []}
+    warm = {name: cs.time_once(lambda r=r: r.step(block=False))[1]
+            for name, r in pair}
+    same = [torch.equal(untiled.film.accum, tiled.film.accum)]
+    for _ in range(TILE_ROUNDS):
+        for name, r in (*pair, *pair[::-1]):
+            ms[name].append(cs.time_once(lambda r=r: r.step(block=False))[1])
+        same.append(torch.equal(untiled.film.accum, tiled.film.accum))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    rec = {"gemm": gemm_bands(dev), "warm_up_ms": warm, "pass_ms": ms,
+           "median_ms": med, "ratio": med["tiled"] / med["untiled"],
+           "bitwise": all(same), "band_rows": [f.height for f in tiled.films]}
+    cs.phase("ab", f"headline {cs.HEADLINE['width']}x"
+             f"{cs.HEADLINE['height']}, 16 spp a pass, bands "
+             f"{rec['band_rows']} on {dev}: warm-up passes {warm} ms; "
+             f"{TILE_ROUNDS} rounds in turns untiled, tiled, tiled, "
+             f"untiled: {ms} ms; medians {med}, tiled {rec['ratio']:.4f}x;"
+             f" films bitwise equal after every round {rec['bitwise']}")
+    if not rec["bitwise"]:
+        raise AssertionError("the tiled film differs from the untiled one")
+    out["tile"] = rec
 
 
 def solve3_ab(libs: dict, out: dict) -> None:
@@ -1109,6 +1179,10 @@ def main() -> int:
 
     if "shoot" in cases:          # steps of the sub-6 shooting solve
         shoot_profile(out)
+        save()
+
+    if "tile" in cases:           # two row bands of one card
+        tile_ab(dev, out)
         save()
     print(json.dumps(out), flush=True)
     return 0

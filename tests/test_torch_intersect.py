@@ -179,6 +179,34 @@ def test_brute_closest_hit_vs_jax(case):
                                rtol=1e-5, atol=1e-5)
 
 
+def test_trace_primary_and_sphere_samples_vs_jax(case):
+    """The leftovers: `trace_primary` is the brute-force closest hit (the
+    JAX function's), and `uniform_sample_sphere` equals the JAX one to
+    the ulps of sin/cos (unit vectors, atol 2e-6)."""
+    from tpu_pathtracer.core import math_utils as jmath
+    from tpu_pathtracer.render import integrator as jintegrator
+    from tpu_pathtracer_torch.core import math_utils as tmath
+    from tpu_pathtracer_torch.render import integrator as tintegrator
+
+    _, jg, tg, o, d = case
+    want = jintegrator.trace_primary(jg, jnp.asarray(o), jnp.asarray(d))
+    got = tintegrator.trace_primary(tg, torch.from_numpy(o),
+                                    torch.from_numpy(d))
+    brute = tintersect.closest_hit(tg, torch.from_numpy(o),
+                                   torch.from_numpy(d))
+    for f in ("valid", "t", "prim"):
+        assert torch.equal(getattr(got, f), getattr(brute, f)), f
+    np.testing.assert_array_equal(got.prim.numpy(), np.asarray(want.prim))
+    u, v = np.random.default_rng(4).random((2, 4096), np.float32)
+    u[:2], v[:2] = (0.0, 1.0), (0.0, 0.5)
+    ws = np.asarray(jmath.uniform_sample_sphere(jnp.asarray(u),
+                                                jnp.asarray(v)))
+    ts = tmath.uniform_sample_sphere(torch.from_numpy(u),
+                                     torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(ts, ws, atol=2e-6)
+    np.testing.assert_allclose(np.linalg.norm(ts, axis=1), 1.0, atol=1e-6)
+
+
 @pytest.mark.parametrize("with_attrs", [True, False])
 def test_allpairs_closest_hit_matches_brute(case, with_attrs):
     """The port's two backends on the same rays. The brute form computes

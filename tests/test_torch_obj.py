@@ -141,3 +141,26 @@ def test_obj_mirror_scene_passes_the_cbox_mirror_golden():
         want = z["image"].astype(np.float64)
     scale = float(np.sqrt(np.mean(want ** 2)))
     assert rmse(got, want) / scale < 0.01
+
+
+@pytest.mark.parametrize("variant,mirror", [("quads", True), ("tris", False)])
+def test_port_write_obj_matches_jax(tmp_path, variant, mirror):
+    """The port's write_obj writes the JAX package's OBJ and MTL bytes;
+    both packages' loaders read the file back to the same primitives."""
+    out = {}
+    for name, mod in (("jax", jbuiltin), ("torch", tbuiltin)):
+        d = tmp_path / name
+        d.mkdir()
+        mod.write_obj(mod.cornell_box(variant, mirror_tall_box=mirror),
+                      str(d / "box.obj"))
+        out[name] = d
+    for f in ("box.obj", "box.mtl"):
+        assert (out["torch"] / f).read_bytes() == (out["jax"] / f).read_bytes()
+    back = tobj._load_obj_py(str(out["torch"] / "box.obj"))
+    want = jobj._load_obj_py(str(out["torch"] / "box.obj"))
+    for f in PRIM_FIELDS:
+        np.testing.assert_array_equal(getattr(back, f), getattr(want, f))
+    prims = tbuiltin.cornell_box(variant, mirror_tall_box=mirror)
+    np.testing.assert_allclose(back.corners, prims.corners, rtol=0,
+                               atol=TEXT_ATOL)
+    np.testing.assert_array_equal(back.material, prims.material)

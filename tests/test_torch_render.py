@@ -1,6 +1,7 @@
 """The port's paths end to end on the CPU: goldens (path tracing, guided
 MIS and the radiosity view), layout invariances, the film and checkpoint
-formats, the App's options, and those it does not port yet."""
+formats, the App's options (tiling and the profilers among them) and the
+CLI."""
 
 import dataclasses
 import os
@@ -227,12 +228,23 @@ def test_cosine_sample_matches_jax():
         np.asarray(jmath.reflect(jd, jnp.asarray(n))), atol=4e-6)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(num_tiles=2),
-])
-def test_unported_config_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*21"):
-        App(Config(**kw), device="cpu")
+def test_app_num_tiles_renders_the_untiled_film():
+    """num_tiles=3 on the CPU: three row bands of a 24x20 frame through
+    the App's "pallas" backend (NEE's shadow rays through the prim-id
+    pack), the gathered image, film and ray count those of num_tiles=1,
+    and the tiled film saved and restored by the checkpoint."""
+    kw = dict(width=24, height=20, spp=4, spp_per_pass=2, max_depth=3,
+              backend="pallas", nee=True)
+    one, three = (App(Config(num_tiles=n, **kw), device="cpu")
+                  for n in (1, 3))
+    img1, img3 = one.render(), three.render()
+    r = three.renderer()
+    assert r.n_tiles == 3 and [f.height for f in r.films] == [7, 7, 6]
+    assert r._scene["prim_ids"][0] is not None
+    np.testing.assert_array_equal(img3, img1)
+    assert torch.equal(r.film.accum, one.renderer().film.accum)
+    assert r.total_rays == one.renderer().total_rays
+    assert three.profiler.stages["Render"].count == 1
 
 
 _TINY_SHOOT = dict(shooting_steps=3, shooters_per_step=8,
@@ -491,10 +503,34 @@ def test_pbrt_scene_loads():
     assert app.config.camera_origin == (0.0, 1.2, 4.2)
 
 
-@pytest.mark.parametrize("flag", [["--kernel-profile"], ["--profile"]])
-def test_unported_cli_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(["--device", "cpu", *flag])
+@pytest.mark.parametrize("flag,header,rows,n_values", [
+    ("--profile", ["stage", "last", "ms", "avg", "ms", "min", "ms", "max",
+                   "ms", "count"],
+     ["Scene Load", "Radiosity Solve", "CDF Build", "Render"], 5),
+    ("--kernel-profile", ["phase", "ms", "%"],
+     ["intersection", "rng", "bsdf_sampling", "grid_sampling"], 2),
+])
+def test_cli_profile_flags_print(flag, header, rows, n_values, tmp_path,
+                                 capsys):
+    """--profile prints the stage profiler's table (the JAX App's stages),
+    --kernel-profile the phase table of the bounce phases."""
+    out = tmp_path / "p.png"
+    assert cli_main([*_CLI_SMALL, "--sampling-mode", "mis", flag, "--out",
+                     str(out)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    i = next(k for k, ln in enumerate(lines) if ln.split() == header)
+    table = [ln.rsplit(None, n_values) for ln in lines[i + 1:]]
+    assert [t[0] for t in table] == rows
+    assert all(float(v) >= 0 for t in table for v in t[1:])
+    assert read_png(str(out)).shape == (12, 16, 3)
+
+
+def test_cli_num_tiles_writes_the_untiled_png(tmp_path):
+    outs = [tmp_path / f"t{n}.png" for n in (1, 2)]
+    for n, out in zip((1, 2), outs):
+        assert cli_main([*_CLI_SMALL, "--num-tiles", str(n), "--out",
+                         str(out)]) == 0
+    assert outs[0].read_bytes() == outs[1].read_bytes()
 
 
 _CLI_SMALL = ["--device", "cpu", "--width", "16", "--height", "12",
@@ -584,11 +620,14 @@ def test_package_imports_without_jax():
         "ops.bvh", "ops.cluster_layout", "ops.filters", "ops.guiding",
         "ops.intersect", "ops.intersect_allpairs", "ops.intersect_culled",
         "ops.intersect_culled_legacy", "ops.tonemap",
+        "graft_entry", "parallel.sharding",
         "render.camera", "render.film", "render.integrator",
         "render.radiosity", "render.renderer", "scene.builtin", "scene.mesh",
         "scene.obj_loader", "scene.pbrt_loader",
-        "utils.config", "utils.cuda_build", "utils.logger", "utils.native",
-        "utils.png",
+        "utils.config", "utils.cuda_build", "utils.kernel_profile",
+        "utils.logger", "utils.native", "utils.png", "utils.profiler",
+        "utils.trace_scope", "viewer.heatmap", "viewer.profgraph",
+        "viewer.server",
     )]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)

@@ -120,3 +120,25 @@ def test_uniform_with_tensor_keys_draws_per_key():
             jax.random.fold_in(jax.random.fold_in(jk, c), 5), (4, 2, 9)))
         np.testing.assert_array_equal(got[i].numpy(), want)
         assert trng.fold_in(tk, c) == (int(keys[0][i]), int(keys[1][i]))
+
+
+@pytest.mark.parametrize("shape,n", [((), 6), ((4, 3), 2), ((1000,), 1)])
+def test_uniforms_pixel_and_bounce_keys_match_jax(shape, n):
+    """`uniforms` bitwise `jax.random.uniform(key, shape + (n,))` under
+    the keys `pixel_key` and `bounce_key` derive (integer and tensor
+    pixel indices), as the JAX package's helpers compute them."""
+    jk = jrng.bounce_key(jrng.pixel_key(jrng.base_key(9), 4097, 3), 2)
+    tk = trng.bounce_key(trng.pixel_key(trng.base_key(9), 4097, 3), 2)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(jk)),
+                                  np.asarray(tk, np.uint32))
+    want = np.asarray(jrng.uniforms(jk, n, shape))
+    got = trng.uniforms(tk, n, shape, "cpu").numpy()
+    assert got.shape == want.shape == shape + (n,)
+    np.testing.assert_array_equal(got, want)
+    pix = np.arange(0, 70000, 997, dtype=np.int32)
+    tkeys = trng.pixel_key(trng.base_key(9), torch.from_numpy(pix), 5)
+    for i in (0, 17, len(pix) - 1):
+        jki = jrng.pixel_key(jrng.base_key(9), int(pix[i]), 5)
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.key_data(jki)),
+            np.asarray([int(tkeys[0][i]), int(tkeys[1][i])], np.uint32))

@@ -4,9 +4,10 @@ image, checkpoints.
 Counterpart: `tpu_pathtracer/app.py` (`load_prims`, `App.load_scene`,
 `_select_backend`, `run_solver`, `precompute_cdfs`,
 `_effective_cdf_source`, `prepare`, `renderer`, `render`,
-`render_history_delta`, `pick`, `save_png`, `save_checkpoint`,
-`load_checkpoint`). `App(cfg, device=...)` runs on the device it is
-given; a `Config` JSON and a checkpoint npz load in both packages.
+`render_history_delta`, `pick`, `orbit`, `save_png`, `save_checkpoint`,
+`load_checkpoint`, and the `profiler` with the JAX App's five stages).
+`App(cfg, device=...)` runs on the device it is given; a `Config` JSON
+and a checkpoint npz load in both packages.
 
 Backends: "pallas" selects the hand-written all-pairs kernels
 (ops/intersect_allpairs.py: K2 for hits, K3 for form-factor visibility
@@ -25,9 +26,15 @@ App, `sort_rays` is the integrator's lane sort on any backend, `nee` the
 integrator's next-event estimation and `balance_lanes` the renderer's
 balanced lane queues (the JAX CLI has no flags for the last two: a
 `--config-json` carries them); the App's `CulledScene` keeps its
-defaults. Scenes are the builtins, `.obj` and `.pbrt` files. Multi-device
-tiling is not ported yet and raises NotImplementedError naming the
-ROADMAP item that will port it.
+defaults. Scenes are the builtins, `.obj` and `.pbrt` files.
+
+`num_tiles` > 1 renders through `parallel.sharding.TiledRenderer`: row
+bands on `num_tiles` cards from the App's own (`make_mesh`) on CUDA, on
+`["cpu"] * num_tiles` on the CPU. Unlike the JAX App, which tiles on its
+brute-force path, every band runs the App's backend (its packs, `culled`
+or `bvh`), so on the card the bands run the kernels. The film that
+`render`, `save_checkpoint` and `load_checkpoint` see is the gathered
+frame.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from .ops.intersect_allpairs import (
     pack_triangles,
 )
 from .ops.intersect_culled import CulledScene
+from .parallel.sharding import TiledRenderer, indexed_device, make_mesh
 from .render.camera import CameraController
 from .render.film import Film
 from .render.radiosity import (
@@ -80,6 +88,7 @@ from .scene.mesh import (
 )
 from .utils.config import Config
 from .utils.logger import get_logger
+from .utils.profiler import Profiler
 
 log = get_logger("App")
 
@@ -97,17 +106,9 @@ _SOLUTION_KEYS = ("radiosity", "unshot", "rad_grid", "grid_counts",
                   "form_factors")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what}")
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise NotImplementedError for a Config option outside the port (and
-    ValueError for an unknown sampling mode)."""
+def check_config(cfg: Config) -> None:
+    """Raise ValueError for an unknown sampling mode, backend or solver."""
     _ = cfg.sampling_mode_id
-    if cfg.num_tiles > 1:
-        raise _not_ported("num_tiles (multi-device tiling) is ROADMAP "
-                          "Queue 1 item 21")
     if cfg.backend not in ("auto", "brute", "pallas", "culled", "bvh"):
         raise ValueError(f"unknown backend '{cfg.backend}'")
     if cfg.radiosity_solver not in ("auto", "gather", "shooting"):
@@ -158,8 +159,9 @@ class App:
     def __init__(self, config: Config | None = None, *,
                  device: str | torch.device):
         self.config = config or Config()
-        check_ported(self.config)
+        check_config(self.config)
         self.device = resolve_device(device)
+        self.profiler = Profiler(self.device)
         self.prims: PrimList | None = None
         self.geom: Geometry | None = None
         self.tri_pack = None
@@ -171,12 +173,13 @@ class App:
         self.filtered_formfactor = None   # (N, 256) filtered float PDFs
         self.filtered_radiosity = None
         self.camera_ctrl: CameraController | None = None
-        self._renderer: ProgressiveRenderer | None = None
+        self._renderer = None   # a ProgressiveRenderer or TiledRenderer
 
     def load_scene(self) -> Geometry:
         cfg = self.config
-        self.prims = load_prims(cfg)
-        self.geom = self.prims.build(self.device)
+        with self.profiler.stage("Scene Load"):
+            self.prims = load_prims(cfg)
+            self.geom = self.prims.build(self.device)
         log.info(
             "Scene '%s': %d primitives, %d triangles",
             cfg.scene, self.geom.num_prims, self.geom.num_tris,
@@ -225,10 +228,6 @@ class App:
 
     # ---------------- radiosity ----------------
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def run_solver(self) -> RadiositySolution:
         """RadiosityState::runSolver: the gather solve, with in-loop grid
         filtering when enable_grid_filtering, or the shooting solve
@@ -256,38 +255,38 @@ class App:
             solver = "shooting" if self.geom.num_prims > 16384 else "gather"
         key = rng.base_key(cfg.seed + 12345)
         t0 = time.perf_counter()
-        if solver == "shooting":
-            if filter_fn is not None:
-                log.warning(
-                    "enable_grid_filtering is ignored by the shooting "
-                    "solver; use cdf_source='filtered_radiosity' to filter "
-                    "before the CDF build")
-            if not cfg.use_monte_carlo:
-                log.warning(
-                    "use_monte_carlo=False (analytic form factors) is a "
-                    "gather-solver feature; the shooting solver is MC-only "
-                    "(set radiosity_solver='gather' to force it, if the "
-                    "(N, N) matrix fits)")
-            self.solution = solve_radiosity_shooting(
-                self.geom, key,
-                steps=cfg.shooting_steps,
-                shooters_per_step=cfg.shooters_per_step,
-                mc_samples=cfg.shooting_mc_samples,
-                occlusion_packs=occlusion_packs,
-                grid_refresh=cfg.grid_refresh,
-                estimator=cfg.ff_estimator,
-            )
-        else:
-            self.solution = solve_radiosity(
-                self.geom, key,
-                num_iterations=cfg.radiosity_iterations,
-                use_monte_carlo=cfg.use_monte_carlo,
-                mc_samples=cfg.mc_samples,
-                filter_fn=filter_fn,
-                occlusion_packs=occlusion_packs,
-                estimator=cfg.ff_estimator,
-            )
-        self._sync()
+        with self.profiler.stage("Radiosity Solve"):
+            if solver == "shooting":
+                if filter_fn is not None:
+                    log.warning(
+                        "enable_grid_filtering is ignored by the shooting "
+                        "solver; use cdf_source='filtered_radiosity' to "
+                        "filter before the CDF build")
+                if not cfg.use_monte_carlo:
+                    log.warning(
+                        "use_monte_carlo=False (analytic form factors) is a "
+                        "gather-solver feature; the shooting solver is "
+                        "MC-only (set radiosity_solver='gather' to force "
+                        "it, if the (N, N) matrix fits)")
+                self.solution = solve_radiosity_shooting(
+                    self.geom, key,
+                    steps=cfg.shooting_steps,
+                    shooters_per_step=cfg.shooters_per_step,
+                    mc_samples=cfg.shooting_mc_samples,
+                    occlusion_packs=occlusion_packs,
+                    grid_refresh=cfg.grid_refresh,
+                    estimator=cfg.ff_estimator,
+                )
+            else:
+                self.solution = solve_radiosity(
+                    self.geom, key,
+                    num_iterations=cfg.radiosity_iterations,
+                    use_monte_carlo=cfg.use_monte_carlo,
+                    mc_samples=cfg.mc_samples,
+                    filter_fn=filter_fn,
+                    occlusion_packs=occlusion_packs,
+                    estimator=cfg.ff_estimator,
+                )
         log.info("Radiosity solved (%s): %d prims, %.1f ms", solver,
                  self.geom.num_prims, (time.perf_counter() - t0) * 1e3)
         return self.solution
@@ -302,13 +301,15 @@ class App:
             self.run_solver()
         src = cfg.cdf_source
         if src.startswith("filtered"):
-            self.filtered_formfactor, self.filtered_radiosity = filter_pdfs(
-                self.solution.grid_counts,
-                self.solution.rad_grid,
-                use_bilateral=cfg.use_bilateral,
-                sigma_spatial=cfg.sigma_spatial,
-                sigma_range=cfg.sigma_range,
-            )
+            with self.profiler.stage("Grid Filter"):
+                self.filtered_formfactor, self.filtered_radiosity = \
+                    filter_pdfs(
+                        self.solution.grid_counts,
+                        self.solution.rad_grid,
+                        use_bilateral=cfg.use_bilateral,
+                        sigma_spatial=cfg.sigma_spatial,
+                        sigma_range=cfg.sigma_range,
+                    )
             pdf = (self.filtered_formfactor if src == "filtered_formfactor"
                    else self.filtered_radiosity)
         elif src == "formfactor":
@@ -319,7 +320,8 @@ class App:
             raise ValueError(f"unknown cdf_source '{src}'")
         if cfg.sampling_mode_id == SAMPLING_TOPK and cfg.top_k > 0:
             pdf = top_k_mask(pdf, cfg.top_k)
-        self.cdfs = build_cdfs(pdf)
+        with self.profiler.stage("CDF Build"):
+            self.cdfs = build_cdfs(pdf)
         log.info("CDFs built from '%s': %d/%d primitives valid", src,
                  int(self.cdfs.valid.sum()), self.geom.num_prims)
         return self.cdfs
@@ -349,7 +351,9 @@ class App:
             self._effective_cdf_source()
             self.precompute_cdfs()
 
-    def renderer(self) -> ProgressiveRenderer:
+    def renderer(self):
+        """The progressive renderer of the current config: a
+        ProgressiveRenderer, or with num_tiles > 1 a TiledRenderer."""
         cfg = self.config
         self.prepare()
         if self._renderer is None:
@@ -370,11 +374,7 @@ class App:
                 balance_lanes=cfg.balance_lanes,
                 nee=cfg.nee,
             )
-            self._renderer = ProgressiveRenderer(
-                self.geom,
-                self.camera_ctrl.build(self.device),
-                settings,
-                device=self.device,
+            backend = dict(
                 seed=cfg.seed,
                 tri_pack=self.tri_pack,
                 attr_pack=self.attr_pack,
@@ -385,6 +385,18 @@ class App:
                           if cfg.nee and self.tri_pack is not None else None),
                 bvh=self.bvh,
             )
+            camera = self.camera_ctrl.build(self.device)
+            if cfg.num_tiles > 1:
+                mesh = (make_mesh(cfg.num_tiles,
+                                  first=indexed_device(self.device).index)
+                        if self.device.type == "cuda"
+                        else make_mesh(devices=[self.device] * cfg.num_tiles))
+                self._renderer = TiledRenderer(self.geom, camera, settings,
+                                               mesh=mesh, **backend)
+            else:
+                self._renderer = ProgressiveRenderer(
+                    self.geom, camera, settings, device=self.device,
+                    **backend)
         return self._renderer
 
     def _view_settings(self) -> RenderSettings:
@@ -399,21 +411,23 @@ class App:
         cfg = self.config
         if cfg.integrator == "radiosity":
             self.prepare()
-            img = render_radiosity_view(
-                self.geom, self.solution.radiosity,
-                self.camera_ctrl.build(self.device),
-                rng.base_key(cfg.seed), self._view_settings(),
-                culled=self.culled,
-            )
+            with self.profiler.stage("Render"):
+                img = render_radiosity_view(
+                    self.geom, self.solution.radiosity,
+                    self.camera_ctrl.build(self.device),
+                    rng.base_key(cfg.seed), self._view_settings(),
+                    culled=self.culled,
+                )
             return img.cpu().numpy()[::-1]
         r = self.renderer()
-        r.render(cfg.spp)
+        with self.profiler.stage("Render"):
+            film = r.render(cfg.spp)
         log.info(
             "Rendered %dx%d @ %d spp on %s: %.1f Mrays/s (%d rays, %.2fs)",
-            cfg.width, cfg.height, r.film.spp, self.device,
+            cfg.width, cfg.height, film.spp, self.device,
             r.mrays_per_sec, r.total_rays, r.render_seconds,
         )
-        return r.film.to_image()
+        return film.to_image()
 
     def render_history_delta(self, step1: int, step2: int,
                              boost: float = 1.0) -> np.ndarray:
@@ -436,6 +450,12 @@ class App:
         """Primitive under the screen point (callbacks.h:22-86)."""
         return pick_primitive(self.geom, self.camera_ctrl.build(self.device),
                               u, v)
+
+    def orbit(self, d_yaw=0.0, d_pitch=0.0, d_radius=0.0) -> None:
+        """Orbit the camera (callbacks.h:95-150) and restart the
+        accumulation: the next renderer() starts a new film."""
+        self.camera_ctrl.orbit(d_yaw, d_pitch, d_radius)
+        self._renderer = None
 
     def save_png(self, path: str, image: np.ndarray | None = None) -> None:
         if image is None:

@@ -1,9 +1,11 @@
 """Command-line interface.
 
 Counterpart: `tpu_pathtracer/cli.py`: every Config field is a flag, with
-`--out`, `--checkpoint`, `--resume`, `--history-delta` and
-`--config-json`, plus `--device` (default cuda). Flags of actions this
-package does not port yet are accepted and raise NotImplementedError.
+`--out`, `--checkpoint`, `--resume`, `--history-delta`, `--profile`
+(the stage profiler's table), `--kernel-profile` (the bounce phases
+timed on min(2**14, W*H) camera rays) and `--config-json`, plus
+`--device` (default cuda). `--num-tiles N` renders N row bands: on the
+first N cards, or N bands on the CPU with `--device cpu`.
 
 Examples:
     python -m tpu_pathtracer_torch.cli --scene cbox_quads --width 512 \
@@ -43,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default="",
                    help="resume from a checkpoint npz")
     p.add_argument("--profile", action="store_true",
-                   help="stage-profiler summary (not ported yet)")
+                   help="print the stage-profiler summary")
     p.add_argument("--history-delta", type=int, nargs=2, metavar=("S1", "S2"),
                    default=None,
                    help="render the radiosity-history delta image "
@@ -51,24 +53,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--delta-boost", type=float, default=1.0,
                    help="brightness boost for --history-delta")
     p.add_argument("--kernel-profile", action="store_true",
-                   help="per-phase bounce timing (not ported yet)")
+                   help="print the per-phase bounce timing breakdown "
+                        "(the reference's KernelProfileData panel)")
     p.add_argument("--config-json", type=str, default="",
                    help="load Config from a JSON file (flags override)")
     p.add_argument("--verbose", action="store_true")
     return p
 
 
-_UNPORTED_FLAGS = {
-    "profile": "--profile (the stage profiler) is ROADMAP Queue 1 item 19",
-    "kernel_profile": "--kernel-profile is ROADMAP Queue 1 item 19",
-}
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for name, what in _UNPORTED_FLAGS.items():
-        if getattr(args, name) not in (None, False, ""):
-            raise NotImplementedError(f"not ported yet: {what}")
     if args.verbose:
         import logging
 
@@ -103,6 +97,25 @@ def main(argv=None) -> int:
     app.save_png(args.out, image)
     if args.checkpoint:
         app.save_checkpoint(args.checkpoint)
+    if args.profile:
+        print(app.profiler.summary())
+    if args.kernel_profile:
+        import torch
+
+        from .utils.kernel_profile import format_profile, kernel_profile
+
+        cam = app.camera_ctrl.build(app.device)
+        n = min(1 << 14, cfg.width * cfg.height)
+        pix = torch.arange(n, device=app.device)
+        x = (pix % cfg.width).to(torch.float32)
+        y = (pix // cfg.width).to(torch.float32)
+        o, d = cam.get_rays((x + 0.5) / cfg.width, (y + 0.5) / cfg.height)
+        prof = kernel_profile(
+            app.geom, o, d, cdfs=app.cdfs, bvh=app.bvh,
+            tri_pack=app.tri_pack, attr_pack=app.attr_pack,
+            culled=app.culled,
+        )
+        print(format_profile(prof))
     return 0
 
 

@@ -1,7 +1,6 @@
 """Vector math, frames and the cosine hemisphere warp on torch tensors.
 
-Counterpart: `tpu_pathtracer/core/math_utils.py` (all but `cross` and
-`uniform_sample_sphere`).
+Counterpart: `tpu_pathtracer/core/math_utils.py` (all but `cross`).
 Every function takes arbitrary leading batch dimensions with a trailing
 axis of size 3. Three-term sums are written out as `(x0 + x1) + x2` so
 the rounding is the same on every device (a reduction kernel may add in
@@ -129,6 +128,15 @@ def cosine_sample_hemisphere(
 def cosine_pdf(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """PDF of cosine-weighted hemisphere sampling (grid.h:276-278)."""
     return dot(d, n).clamp(min=0.0) / PI
+
+
+def uniform_sample_sphere(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere (math_utils.h:94-110):
+    z = 1 - 2u, phi = 2 pi v."""
+    z = 1.0 - 2.0 * u
+    r = torch.sqrt((1.0 - z * z).clamp(min=0.0))
+    phi = TWO_PI * v
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

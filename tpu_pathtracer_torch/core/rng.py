@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from ..utils.trace_scope import scope, scoped
+
 Key = tuple[int, int]   # or a pair of int64 tensors of one shape
 
 # Stream identifiers so distinct consumers of randomness never collide.
@@ -68,13 +70,37 @@ def fold_in(key: Key, data) -> Key:
     integer tensor, giving one key per element."""
     if not isinstance(data, torch.Tensor):
         data = int(data)
-    return threefry2x32(key, 0, data & _M32)
+        if not isinstance(key[0], torch.Tensor):
+            return threefry2x32(key, 0, data & _M32)
+    else:
+        data = data.to(torch.int64)
+    with scope("rng"):
+        return threefry2x32(key, 0, data & _M32)
 
 
 def stream_key(key: Key, stream: int) -> Key:
     return fold_in(key, stream)
 
 
+def pixel_key(key: Key, pixel_index, sample_index) -> Key:
+    """Key of one (pixel, spp sample) pair: fold_in(fold_in(key, pixel),
+    sample); either index may be an integer tensor."""
+    return fold_in(fold_in(key, pixel_index), sample_index)
+
+
+def bounce_key(key: Key, depth) -> Key:
+    """Key of one path vertex."""
+    return fold_in(key, depth)
+
+
+def uniforms(key: Key, n: int, shape: tuple[int, ...] = (),
+             device: str | torch.device | None = None) -> torch.Tensor:
+    """n independent uniforms in [0, 1) with the given batch shape:
+    `uniform(key, shape + (n,))`."""
+    return uniform(key, tuple(shape) + (n,), device)
+
+
+@scoped("rng")
 def lane_uniforms(
     key: Key,
     lane_ids: torch.Tensor,
@@ -102,6 +128,7 @@ def lane_uniforms(
     return _unit_float(bits)
 
 
+@scoped("rng")
 def uniform(key: Key, shape: tuple[int, ...],
             device: str | torch.device | None = None) -> torch.Tensor:
     """Bit for bit `jax.random.uniform(key, shape)` (float32 in [0, 1))

@@ -41,6 +41,7 @@ from ..core.math_utils import (
     spherical_to_local,
     world_to_spherical,
 )
+from ..utils.trace_scope import scoped
 
 
 @dataclass(frozen=True)
@@ -183,6 +184,7 @@ def _hemisphere_bins(direction, normal):
             phi_idx.clamp(0, GRID_RES - 1), theta > PI * 0.5)
 
 
+@scoped("grid_sampling")
 def sample_grid(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, row16=None):
     """Sample a direction from each ray's hit-primitive grid (Grid::sample,
     grid.h:141-188). prim (B,), normal (B, 3) shading normals, xi*/j* (B,)
@@ -205,6 +207,7 @@ def sample_grid(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, row16=None):
     return d, _cell_pdf_math(cell, total, theta_idx)
 
 
+@scoped("grid_sampling")
 def grid_pdf(cdfs: CDFPack, prim, direction, normal):
     """Grid::computePDF (grid.h:200-216): the primitive's grid density of
     a world direction; 0 below the horizon."""
@@ -215,6 +218,7 @@ def grid_pdf(cdfs: CDFPack, prim, direction, normal):
     return torch.where(below, 0.0, pdf)
 
 
+@scoped("grid_sampling")
 def sample_grid_mis(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, d_b,
                     row16=None, d_b_bins=None):
     """A grid sample and this grid's density of a second (BSDF-sampled)

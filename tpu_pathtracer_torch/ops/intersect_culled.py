@@ -74,6 +74,7 @@ packing and the bricked attribute fetch.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 
@@ -783,6 +784,13 @@ def occluded_dma_grouped(tri_pack, cluster_min, cluster_max, o, d, maxd,
     return walk(tri_pack, gmask, o, d, maxd, ex_a, ex_b)[:b]
 
 
+def _on(t: torch.Tensor, device) -> bool:
+    """Whether t lies on `device` (a CUDA device without an index matches
+    any card)."""
+    dev = torch.device(device)
+    return t.device.type == dev.type and dev.index in (None, t.device.index)
+
+
 class CulledPart:
     """One pack of a CulledScene: tri_pack (Tpad, 16), cluster_min /
     cluster_max (C, 3), attr_table (Tpad, 16) shading rows in pack order
@@ -805,6 +813,18 @@ class CulledPart:
         cmax = self.cluster_max.cpu().numpy()
         self.lo = torch.from_numpy(np.nanmin(cmin, axis=0)).to(geom.device)
         self.hi = torch.from_numpy(np.nanmax(cmax, axis=0)).to(geom.device)
+
+    _TENSORS = ("tri_pack", "cluster_min", "cluster_max", "attr_table",
+                "lo", "hi")
+
+    def to(self, device: str | torch.device) -> "CulledPart":
+        """The part with its tensors on `device` (itself when there)."""
+        if _on(self.tri_pack, device):
+            return self
+        part = copy.copy(self)
+        for name in self._TENSORS:
+            setattr(part, name, getattr(self, name).to(device))
+        return part
 
     def may_hit(self, o, d, t_min, maxd=None):
         """Conservative ray-vs-part-box slab test (B,) bool, the prepass's
@@ -864,6 +884,15 @@ class CulledScene:
         rank = np.empty(n, np.int64)
         rank[self.order] = np.arange(n) % cap
         self.rank = torch.from_numpy(rank).to(geom.device)
+
+    def to(self, device: str | torch.device) -> "CulledScene":
+        """The scene with its packs on `device` (itself when there)."""
+        if _on(self.rank, device):
+            return self
+        scene = copy.copy(self)
+        scene.parts = [p.to(device) for p in self.parts]
+        scene.rank = self.rank.to(device)
+        return scene
 
     @property
     def num_clusters(self) -> int:

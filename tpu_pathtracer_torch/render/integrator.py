@@ -5,7 +5,7 @@ next-event estimation.
 Counterpart: `tpu_pathtracer/render/integrator.py` (`TraceStats`,
 `_sample_pure_grid`, `_sample_mis`, `_num_draws`, `MAX_NEE_LIGHTS`,
 `build_nee_pack`, `_nee_term`, `nee_hit_weight`, `_shade`, `_intersect`,
-`trace`, `_morton30`, `trace_wavefront` with its `sort_rays` lane sort,
+`trace_primary`, `trace`, `_morton30`, `trace_wavefront` with its `sort_rays` lane sort,
 pixel queues, `tile_sync` and `return_lane_steps`). The estimator is the
 reference's: per bounce, intersect with t_min = 1e-4, L += beta * Le,
 Russian roulette for depth > 2 with p = min(max(beta), 0.95), beta *=
@@ -78,6 +78,7 @@ from ..ops.guiding import (
 from ..ops.intersect import Hit, closest_hit, occluded
 from ..ops.intersect_culled_legacy import octant
 from ..scene.mesh import Geometry
+from ..utils.trace_scope import scope
 from .camera import Camera
 from .radiosity import sample_on_corners
 
@@ -238,7 +239,8 @@ def _nee_term(pack, occl_fn, hit: Hit, sn, beta, active, u3, fwd_pdf):
     the diffuse BRDF albedo/pi; emitters are double-sided, as on the hit
     side. occl_fn(o, d, maxd, ex_a, ex_b) is the backend's any hit."""
     s = nee_shadow_rays(pack, hit, sn, active, u3)
-    blocked = occl_fn(s.o, s.d, s.maxd, s.ex_a, s.ex_b)
+    with scope("intersection"):
+        blocked = occl_fn(s.o, s.d, s.maxd, s.ex_a, s.ex_b)
     ok = s.ok & ~blocked
     pdf_l = s.pdf_a * s.r * s.r / s.cos_y.clamp(min=1e-8)
     w = power_heuristic(pdf_l, fwd_pdf(s.d, s.cos_x))
@@ -344,8 +346,21 @@ def _shade(hit: Hit, d, beta, live, draws, do_rr, mode=SAMPLING_BSDF,
     return o_next, nd, beta, live, contribution, pdf_b
 
 
+def trace_primary(geom: Geometry, origins, directions) -> Hit:
+    """Primary-hit query of the radiosity view (render_radiosity,
+    integrator.h:460-504) and of picking: the brute-force closest hit."""
+    return closest_hit(geom, origins, directions, t_min=RAY_EPS)
+
+
 def _intersect(geom: Geometry, o, d, tri_pack, attr_pack, culled=None,
                camera_mask=None, bvh: BVH | None = None) -> Hit:
+    with scope("intersection"):
+        return _intersect_backend(geom, o, d, tri_pack, attr_pack, culled,
+                                  camera_mask, bvh)
+
+
+def _intersect_backend(geom, o, d, tri_pack, attr_pack, culled, camera_mask,
+                       bvh) -> Hit:
     if culled is not None:
         return culled.closest_hit(geom, o, d, t_min=RAY_EPS,
                                   camera_mask=camera_mask)

@@ -29,6 +29,15 @@ unshot powers, the lower primitive id first among equal powers (a stable
 descending sort), so the patches of a subdivided light, whose powers tie
 exactly, are shot in the JAX package's order.
 
+A solve may split its receiver rows into bands over several devices
+(`replicas`: the scene and its visibility backend on each; built by
+parallel/sharding.py). A band holds whole row chunks (whole passes of
+them when it holds one), so every chunk draws and every pass computes
+what it does on one device; a shooting step joins the bands' (R, k)
+blocks on the first device for the one (N, k) @ (k, 3) product, whose
+reduction a BLAS may split differently for a band of rows. Without
+`replicas` a solve is the one band of all rows on geom's device.
+
 Visibility (`occlusion_packs`) is the brute-force `ops.intersect.occluded`
 (None), K3 on the all-pairs packs ((tri_pack, prim_ids), see
 ops/intersect_allpairs.py), K7 through a CulledScene (anything with an
@@ -58,6 +67,7 @@ from ..core.math_utils import (
 from ..ops import intersect_allpairs
 from ..ops.intersect import occluded
 from ..scene.mesh import Geometry
+from ..utils.trace_scope import scope, scoped
 
 RADIOSITY_HISTORY = 10   # reference ring-buffer depth (application_state.h:47)
 PAIRS_PER_PASS = 1 << 20  # (receiver, source) pairs computed per tensor pass
@@ -255,13 +265,14 @@ def _mc_rows_pass(geom, fkey, chunk_ids, rows, cols, w_cols, n_samples,
 
         # Direction-binned accumulation onto receiver i's grid
         # (form_factors.h:313-323): counts and emission-weighted geometry.
-        gw = ct_i * ct_j / (r * r).clamp(min=1e-12)
-        contrib = w_cols[None, :, :] * (gw * area_c)[..., None]
-        vals = torch.cat([torch.where(ok[..., None], contrib, 0.0),
-                          okf[..., None]], dim=-1)
-        binned = _bin_cells(direction_to_cell(sd, ni), vals)
-        gradv = gradv + binned[..., :3]
-        gcount = gcount + binned[..., 3]
+        with scope("binning"):
+            gw = ct_i * ct_j / (r * r).clamp(min=1e-12)
+            contrib = w_cols[None, :, :] * (gw * area_c)[..., None]
+            vals = torch.cat([torch.where(ok[..., None], contrib, 0.0),
+                              okf[..., None]], dim=-1)
+            binned = _bin_cells(direction_to_cell(sd, ni), vals)
+            gradv = gradv + binned[..., :3]
+            gcount = gcount + binned[..., 3]
 
     if estimator == "unbiased":
         ff = d_s / actual.clamp(min=1).to(torch.float32) * area_c / PI
@@ -273,6 +284,12 @@ def _mc_rows_pass(geom, fkey, chunk_ids, rows, cols, w_cols, n_samples,
             PI * (avg_d * avg_d).clamp(min=1e-12))
     ff = torch.where(nv > 0, ff.clamp(0.0, 1.0), 0.0)
     return ff, gcount, gradv
+
+
+def chunks_per_pass(row_chunk: int, n_cols: int) -> int:
+    """Row chunks `mc_form_factors_rows` computes in one tensor pass:
+    about PAIRS_PER_PASS (receiver, source) pairs."""
+    return max(1, PAIRS_PER_PASS // (row_chunk * max(n_cols, 1)))
 
 
 def mc_form_factors_rows(
@@ -303,7 +320,7 @@ def mc_form_factors_rows(
     w_cols = geom.emission[cols] if col_weight is None else col_weight
     fkey = rng.stream_key(key, rng.STREAM_FORMFACTOR)
     n_chunks = row_ids.shape[0] // rc
-    group = max(1, PAIRS_PER_PASS // (rc * max(cols.shape[0], 1)))
+    group = chunks_per_pass(rc, cols.shape[0])
     parts = []
     for g0 in range(0, n_chunks, group):
         g1 = min(g0 + group, n_chunks)
@@ -322,6 +339,83 @@ def _padded_rows(n: int, rc: int, device) -> torch.Tensor:
     return torch.where(ar < n, ar, 0)
 
 
+@dataclass(frozen=True)
+class Replicas:
+    """The scene and its visibility backend on each device of a mesh,
+    one band of receiver rows a device (a device may repeat)."""
+
+    geoms: list
+    packs: list
+
+
+def _chunk_bands(n_chunks: int, n_dev: int,
+                 per_pass: int) -> list[tuple[int, int]]:
+    """Chunk ranges [c0, c1) of the bands: ceil(n_chunks / n_dev) chunks
+    each, rounded up to whole passes of `per_pass` chunks when a band
+    holds at least one; the last band shorter."""
+    per = -(-n_chunks // n_dev)
+    if per >= per_pass:
+        per = -(-per // per_pass) * per_pass
+    return [(c0, min(n_chunks, c0 + per)) for c0 in range(0, n_chunks, per)]
+
+
+class RowBands:
+    """The receiver rows 0..N-1 in chunks of rc, split into bands over
+    `replicas`' devices (`_chunk_bands`; devices past the last chunk
+    idle). Band i has rows (R_i,) (the padded row list's), its first
+    chunk and row, and its real row count."""
+
+    def __init__(self, replicas: Replicas, n: int, rc: int, n_cols: int):
+        ranges = _chunk_bands(-(-n // rc), len(replicas.geoms),
+                              chunks_per_pass(rc, n_cols))
+        self.rc = rc
+        self.geoms = replicas.geoms[:len(ranges)]
+        self.packs = replicas.packs[:len(ranges)]
+        self.devices = [g.device for g in self.geoms]
+        self.rows = [_padded_rows(n, rc, g.device)[c0 * rc:c1 * rc]
+                     for (c0, c1), g in zip(ranges, self.geoms)]
+        self.chunk0 = [c0 for c0, _ in ranges]
+        self.row0 = [c0 * rc for c0, _ in ranges]
+        self.real = [min(n, c1 * rc) - c0 * rc for c0, c1 in ranges]
+
+    def scatter(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """x on each band's device, one copy per distinct device."""
+        copies = {d: x.to(d) for d in dict.fromkeys(self.devices)}
+        return [copies[d] for d in self.devices]
+
+    def gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The bands' parts (real rows each) joined on the first device."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.devices[0]) for p in parts])
+
+    def form_factors(self, key: rng.Key, n_samples: int, estimator: str,
+                     col_ids=None, col_weight=None) -> list[tuple]:
+        """Per band, `mc_form_factors_rows` of its rows on its device
+        (chunk keys from its first chunk): (ff, grid_counts, rad_grid) of
+        its real rows."""
+        cols = [None] * len(self.geoms) if col_ids is None else (
+            self.scatter(col_ids))
+        weights = [None] * len(self.geoms) if col_weight is None else (
+            self.scatter(col_weight))
+        return [tuple(x[:real] for x in mc_form_factors_rows(
+            g, key, rows, n_samples=n_samples, row_chunk=self.rc,
+            occlusion_packs=packs, col_ids=c, col_weight=w,
+            chunk_offset=c0, estimator=estimator))
+            for g, packs, rows, c0, real, c, w in zip(
+                self.geoms, self.packs, self.rows, self.chunk0, self.real,
+                cols, weights)]
+
+
+def _bands(geom: Geometry, occlusion_packs, replicas: Replicas | None,
+           rc: int, n_cols: int) -> RowBands:
+    if replicas is None:
+        replicas = Replicas([geom], [occlusion_packs])
+    for g in dict.fromkeys(replicas.geoms):
+        _check_full_f32(g)
+    return RowBands(replicas, geom.num_prims, rc, n_cols)
+
+
 def mc_form_factors(
     geom: Geometry,
     key: rng.Key,
@@ -329,6 +423,7 @@ def mc_form_factors(
     row_chunk: int = 16,
     occlusion_packs=None,
     estimator: str = "reference",
+    replicas: Replicas | None = None,
 ):
     """Full (N, N) Monte-Carlo form factors and guiding grids
     (calculate_form_factors_mc_kernel, form_factors.h:220-352).
@@ -337,12 +432,9 @@ def mc_form_factors(
     sample counts per direction cell, rad_grid (N, 256, 3) the
     emission-weighted geometry accumulation)."""
     n = geom.num_prims
-    rc = min(row_chunk, n)
-    ff, gc, gv = mc_form_factors_rows(
-        geom, key, _padded_rows(n, rc, geom.device), n_samples=n_samples,
-        row_chunk=rc, occlusion_packs=occlusion_packs, estimator=estimator,
-    )
-    return ff[:n], gc[:n], gv[:n]
+    bands = _bands(geom, occlusion_packs, replicas, min(row_chunk, n), n)
+    parts = bands.form_factors(key, n_samples, estimator)
+    return tuple(bands.gather(list(x)) for x in zip(*parts))
 
 
 # ---------------------------------------------------------------------------
@@ -355,11 +447,16 @@ def radiosity_step(geom: Geometry, ff: torch.Tensor, radiosity: torch.Tensor,
     """One progressive-refinement iteration (radiosity_iteration_kernel,
     form_factors.h:444-467): gather, reflect with the per-channel energy
     clamp, accumulate. Returns (radiosity, reflected)."""
-    incident = ff @ unshot
-    reflected = torch.minimum(geom.albedo * incident, incident)
+    reflected = reflect(geom.albedo, ff @ unshot)
     return radiosity + reflected, reflected
 
 
+def reflect(albedo: torch.Tensor, incident: torch.Tensor) -> torch.Tensor:
+    """The reflected radiance with the per-channel energy clamp."""
+    return torch.minimum(albedo * incident, incident)
+
+
+@scoped("binning")
 def rebin_rows(geom: Geometry, ff_rows: torch.Tensor, rows: torch.Tensor,
                radiosity: torch.Tensor) -> torch.Tensor:
     """Directional grids (R, 256, 3) of receiver rows `rows` from their FF
@@ -376,15 +473,19 @@ def rebin_rows(geom: Geometry, ff_rows: torch.Tensor, rows: torch.Tensor,
 
 
 def rebin_radiosity_grid(geom: Geometry, ff: torch.Tensor,
-                         radiosity: torch.Tensor) -> torch.Tensor:
-    """The (N, 256, 3) directional radiosity grids of the current
-    solution, in passes of receiver rows."""
+                         radiosity: torch.Tensor,
+                         row0: int = 0) -> torch.Tensor:
+    """The (R, 256, 3) directional radiosity grids of the current
+    solution for the receiver rows row0 .. row0 + R of ff (R, N) (all N
+    by default), in passes of receiver rows."""
     n = geom.num_prims
+    r_n = ff.shape[0]
     rows_per_pass = max(1, PAIRS_PER_PASS // max(n, 1))
     parts = []
-    for r0 in range(0, n, rows_per_pass):
-        rows = torch.arange(r0, min(n, r0 + rows_per_pass), device=ff.device)
-        parts.append(rebin_rows(geom, ff[rows], rows, radiosity))
+    for r0 in range(0, r_n, rows_per_pass):
+        r1 = min(r_n, r0 + rows_per_pass)
+        rows = torch.arange(row0 + r0, row0 + r1, device=ff.device)
+        parts.append(rebin_rows(geom, ff[r0:r1], rows, radiosity))
     return torch.cat(parts)
 
 
@@ -447,24 +548,30 @@ def solve_radiosity(
     row_chunk: int = 16,
     occlusion_packs=None,
     estimator: str = "reference",
+    replicas: Replicas | None = None,
 ) -> RadiositySolution:
     """The gather solver (RadiosityState::runSolver,
     application_state.h:688-777): form factors, then `num_iterations`
     gather + reflect + rebin steps, the grid filter `filter_fn`
-    ((N, 256, 3) -> (N, 256, 3)) applied after each rebin."""
-    _check_full_f32(geom)
+    ((R, 256, 3) -> (R, 256, 3)) applied after each rebin. Over
+    `replicas` each band keeps its rows of the form-factor matrix and
+    gathers, reflects and rebins them on its device; the reflection joins
+    on the first."""
     if key is None:
         key = rng.base_key(12345)
     n = geom.num_prims
+    bands = _bands(geom, occlusion_packs, replicas, min(row_chunk, n), n)
     if use_monte_carlo:
-        ff, grid_counts, rad_grid = mc_form_factors(
-            geom, key, n_samples=mc_samples, row_chunk=row_chunk,
-            occlusion_packs=occlusion_packs, estimator=estimator,
-        )
+        ff, counts, grids = (list(x) for x in zip(
+            *bands.form_factors(key, mc_samples, estimator)))
+        grid_counts = bands.gather(counts)
     else:
-        ff = analytic_form_factors(geom, occlusion_packs=occlusion_packs)
+        if len(bands.geoms) > 1:
+            raise ValueError("analytic form factors are computed on one "
+                             "device")
+        ff = [analytic_form_factors(geom, occlusion_packs=occlusion_packs)]
         grid_counts = torch.zeros((n, GRID_SIZE), device=geom.device)
-        rad_grid = torch.zeros((n, GRID_SIZE, 3), device=geom.device)
+        grids = [torch.zeros((n, GRID_SIZE, 3), device=geom.device)]
 
     radiosity = unshot = geom.emission
     history = torch.zeros((RADIOSITY_HISTORY, n, 3), device=geom.device)
@@ -473,14 +580,19 @@ def solve_radiosity(
         history[h_idx] = radiosity
         h_idx = (h_idx + 1) % RADIOSITY_HISTORY
         h_cnt = min(h_cnt + 1, RADIOSITY_HISTORY)
-        radiosity, unshot = radiosity_step(geom, ff, radiosity, unshot)
-        rad_grid = rebin_radiosity_grid(geom, ff, radiosity)
+        unshot = bands.gather([
+            reflect(g.albedo[r0:r0 + f.shape[0]], f @ u)
+            for g, f, u, r0 in zip(bands.geoms, ff, bands.scatter(unshot),
+                                   bands.row0)])
+        radiosity = radiosity + unshot
+        grids = [rebin_radiosity_grid(g, f, b, row0=r0) for g, f, b, r0 in
+                 zip(bands.geoms, ff, bands.scatter(radiosity), bands.row0)]
         if filter_fn is not None:
-            rad_grid = filter_fn(rad_grid)
+            grids = [filter_fn(x) for x in grids]
     return RadiositySolution(
-        form_factors=ff, radiosity=radiosity, unshot=unshot,
-        grid_counts=grid_counts, rad_grid=rad_grid, history=history,
-        history_index=h_idx, history_count=h_cnt,
+        form_factors=bands.gather(ff), radiosity=radiosity, unshot=unshot,
+        grid_counts=grid_counts, rad_grid=bands.gather(grids),
+        history=history, history_index=h_idx, history_count=h_cnt,
     )
 
 
@@ -499,7 +611,7 @@ def top_k_ids(values: torch.Tensor, k: int) -> torch.Tensor:
 def _shoot_step(geom: Geometry, key: rng.Key, radiosity, unshot, rad_grid,
                 grid_counts, step_idx: int, *, k: int, n_samples: int,
                 row_chunk: int, occlusion_packs, estimator="reference",
-                sort_shooters=False):
+                sort_shooters=False, bands: RowBands | None = None):
     """One batched shooting step: the k primitives of largest unshot power
     (luminance x area) shoot; their (N, k) form-factor block comes from
     the gather solver's MC estimator (draws from fold_in(key, step_idx)),
@@ -507,27 +619,32 @@ def _shoot_step(geom: Geometry, key: rng.Key, radiosity, unshot, rad_grid,
     reflection as unshot, and their directional grids accumulate the shot
     radiance at the sample directions. With sort_shooters the k ids are
     sorted ascending (spatially adjacent patches share a visibility
-    group). Returns (radiosity, unshot, rad_grid, grid_counts, stats)."""
-    n = geom.num_prims
+    group). With `bands` each band estimates its rows' block on its
+    device and keeps its grids there (rad_grid and grid_counts are lists
+    of the bands'); the blocks join on geom's device, the first band's.
+    Returns (radiosity, unshot, rad_grid, grid_counts, stats)."""
+    one = bands is None
+    if one:
+        bands = _bands(geom, occlusion_packs, None,
+                       min(row_chunk, geom.num_prims), k)
+        rad_grid, grid_counts = [rad_grid], [grid_counts]
     shooters = top_k_ids(luminance(unshot) * geom.area, k)
     if sort_shooters:
         shooters = torch.sort(shooters).values
-    rc = min(row_chunk, n)
     shot = unshot[shooters]                                   # (k, 3)
-    ff_blk, gcount, gradv = mc_form_factors_rows(
-        geom, rng.fold_in(key, step_idx), _padded_rows(n, rc, geom.device),
-        n_samples=n_samples, row_chunk=rc, occlusion_packs=occlusion_packs,
-        col_ids=shooters, col_weight=shot, estimator=estimator,
-    )
-    incident = ff_blk[:n] @ shot                              # (N, 3)
-    reflected = torch.minimum(geom.albedo * incident, incident)
+    parts = bands.form_factors(rng.fold_in(key, step_idx), n_samples,
+                               estimator, col_ids=shooters, col_weight=shot)
+    incident = bands.gather([p[0] for p in parts]) @ shot     # (N, 3)
+    reflected = reflect(geom.albedo, incident)
     radiosity = radiosity + reflected
     # every shooter's unshot is delivered exactly once (the ids are
     # distinct); receivers bank the reflection for a later shot
     unshot = unshot.index_fill(0, shooters, 0.0) + reflected
-    rad_grid = rad_grid + gradv[:n]
-    grid_counts = grid_counts + gcount[:n]
+    rad_grid = [g + p[2] for g, p in zip(rad_grid, parts)]
+    grid_counts = [c + p[1] for c, p in zip(grid_counts, parts)]
     stats = transport_stats(geom, shooters, shot, incident, reflected)
+    if one:
+        rad_grid, grid_counts = rad_grid[0], grid_counts[0]
     return radiosity, unshot, rad_grid, grid_counts, stats
 
 
@@ -580,6 +697,7 @@ def solve_radiosity_shooting(
     sort_shooters: bool = False,
     grid_refresh: int = 0,
     grid_refresh_samples: int = 16,
+    replicas: Replicas | None = None,
 ) -> RadiositySolution:
     """Matrix-free progressive-refinement shooting (Cohen-style): never
     forms the (N, N) matrix, only each step's (N, k) block, so its memory
@@ -591,8 +709,8 @@ def solve_radiosity_shooting(
     uncorrected). `grid_refresh` > 0 replaces the sample-sparse shooting
     grids by a dense rebin against the top `grid_refresh` primitives by
     converged power (`refresh_grids`). The result's form_factors is
-    (0, 0)."""
-    _check_full_f32(geom)
+    (0, 0). Over `replicas` the bands' grids stay on their devices until
+    the end."""
     if key is None:
         key = rng.base_key(12345)
     n = geom.num_prims
@@ -600,31 +718,37 @@ def solve_radiosity_shooting(
     if row_chunk is None:
         # visibility batches of ~32k segments a chunk
         row_chunk = max(16, 32768 // k)
-    rad_grid = torch.zeros((n, GRID_SIZE, 3), device=geom.device)
-    grid_counts = torch.zeros((n, GRID_SIZE), device=geom.device)
+    bands = _bands(geom, occlusion_packs, replicas, min(row_chunk, n), k)
+    rad_grid = [torch.zeros((r, GRID_SIZE, 3), device=d)
+                for r, d in zip(bands.real, bands.devices)]
+    grid_counts = [torch.zeros((r, GRID_SIZE), device=d)
+                   for r, d in zip(bands.real, bands.devices)]
 
     def step_fn(radiosity, unshot, rad_grid, grid_counts, step):
         return _shoot_step(
             geom, key, radiosity, unshot, rad_grid, grid_counts, step, k=k,
             n_samples=mc_samples, row_chunk=row_chunk,
             occlusion_packs=occlusion_packs, estimator=estimator,
-            sort_shooters=sort_shooters,
+            sort_shooters=sort_shooters, bands=bands,
         )
 
     sol = drive_shooting(geom, step_fn, rad_grid, grid_counts, steps=steps,
                          rel_tol=rel_tol, check_every=check_every,
                          ambient=ambient)
+    sol = replace(sol, rad_grid=bands.gather(sol.rad_grid),
+                  grid_counts=bands.gather(sol.grid_counts))
     if grid_refresh > 0:
         sol = refresh_grids(geom, key, sol, top=grid_refresh,
                             n_samples=grid_refresh_samples,
                             occlusion_packs=occlusion_packs,
-                            estimator=estimator)
+                            estimator=estimator, replicas=replicas)
     return sol
 
 
 def refresh_grids(geom: Geometry, key: rng.Key, sol: RadiositySolution, *,
                   top: int = 128, n_samples: int = 16, occlusion_packs=None,
-                  estimator: str = "reference") -> RadiositySolution:
+                  estimator: str = "reference",
+                  replicas: Replicas | None = None) -> RadiositySolution:
     """The solution with rad_grid and grid_counts replaced by a dense MC
     rebin against the `top` primitives of largest converged power
     (luminance(B) x area), drawn from fold_in(stream_key(key,
@@ -632,15 +756,14 @@ def refresh_grids(geom: Geometry, key: rng.Key, sol: RadiositySolution, *,
     n = geom.num_prims
     m = min(top, n)
     cols = top_k_ids(luminance(sol.radiosity) * geom.area, m)
-    rc = min(max(16, 32768 // m), n)
+    bands = _bands(geom, occlusion_packs, replicas,
+                   min(max(16, 32768 // m), n), m)
     rkey = rng.fold_in(rng.stream_key(key, rng.STREAM_FORMFACTOR),
                        0x47524944)
-    _, gcount, gradv = mc_form_factors_rows(
-        geom, rkey, _padded_rows(n, rc, geom.device), n_samples=n_samples,
-        row_chunk=rc, occlusion_packs=occlusion_packs, col_ids=cols,
-        col_weight=sol.radiosity[cols], estimator=estimator,
-    )
-    return replace(sol, rad_grid=gradv[:n], grid_counts=gcount[:n])
+    parts = bands.form_factors(rkey, n_samples, estimator, col_ids=cols,
+                               col_weight=sol.radiosity[cols])
+    return replace(sol, rad_grid=bands.gather([p[2] for p in parts]),
+                   grid_counts=bands.gather([p[1] for p in parts]))
 
 
 def drive_shooting(geom: Geometry, step_fn, rad_grid, grid_counts, *,

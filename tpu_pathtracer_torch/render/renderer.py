@@ -161,6 +161,8 @@ def render_pass(
     prim_ids: torch.Tensor | None = None,
     assignment=None,
     bvh=None,
+    pixel_offset: int = 0,
+    view_size: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Trace settings.spp_per_pass samples per pixel and add them into
     `film` (in place); guided modes sample by `cdfs`. With `culled` (a
@@ -173,9 +175,17 @@ def render_pass(
     batch is a row of gids (chunk, K), and per-pixel radiance is bitwise
     that of assignment=None.
 
+    A row band of a larger view (parallel/sharding.py) renders rows
+    [y0, y0 + settings.height) of a view_size = (W, H) frame with
+    pixel_offset = y0 * W: its lanes trace global pixel ids against the
+    full view's uv mapping and RNG, so each pixel's radiance is bitwise
+    that of an untiled pass (on the culled backend the tile swizzle is of
+    the band's own rows; the pixel-keyed draws leave that unchanged too).
+
     Returns (rays traced as an int64 device scalar, iterations run over
     all batches: one intersection each)."""
     s = settings
+    vw, vh = view_size if view_size is not None else (s.width, s.height)
     dev = film.accum.device
     npix = s.num_pixels
     pass_key = rng.fold_in(key, film.passes)
@@ -186,7 +196,7 @@ def render_pass(
     def wavefront(lane_ids, tile_sync=0):
         return trace_wavefront(
             geom, camera, lane_ids, path_key,
-            width=s.width, height=s.height, spp=s.spp_per_pass,
+            width=vw, height=vh, spp=s.spp_per_pass,
             max_depth=s.max_depth, tri_pack=tri_pack, attr_pack=attr_pack,
             mode=s.sampling_mode, cdfs=cdfs,
             mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
@@ -216,7 +226,7 @@ def render_pass(
         chunk = max(1024, (chunk // 1024) * 1024)
         swz = _tile_swizzle(s.width, s.height, npix)
     pix = (torch.arange(npix, device=dev) if swz is None
-           else torch.from_numpy(swz[0]).to(dev))
+           else torch.from_numpy(swz[0]).to(dev)) + pixel_offset
     radiance = torch.empty((npix, 3), dtype=torch.float32, device=dev)
     for start in range(0, npix, chunk):
         lane_ids = pix[start:start + chunk]
@@ -224,8 +234,8 @@ def render_pass(
             total, r, it = wavefront(lane_ids)
         else:
             total, r, it = _scan_samples(
-                geom, camera, lane_ids, pass_key, s, tri_pack, attr_pack,
-                cdfs, mis_bsdf_fraction, culled, prim_ids, bvh)
+                geom, camera, lane_ids, pass_key, s, vw, vh, tri_pack,
+                attr_pack, cdfs, mis_bsdf_fraction, culled, prim_ids, bvh)
         radiance[start:start + lane_ids.shape[0]] = total
         rays += r
         iters += it
@@ -237,14 +247,15 @@ def render_pass(
 
 
 def _scan_samples(geom, camera, lane_ids, pass_key, s: RenderSettings,
-                  tri_pack, attr_pack, cdfs, mis_bsdf_fraction, culled,
-                  prim_ids, bvh):
-    """render_pass's scan branch for one batch: sample `samp` keys its
-    camera jitter by stream_key(fold_in(pass_key, samp), STREAM_CAMERA)
-    and its paths by ... STREAM_PATH, and `trace` runs max_depth bounces.
-    Returns (radiance sum, rays, intersections)."""
-    x = (lane_ids % s.width).to(torch.float32)
-    y = (lane_ids // s.width).to(torch.float32)
+                  vw: int, vh: int, tri_pack, attr_pack, cdfs,
+                  mis_bsdf_fraction, culled, prim_ids, bvh):
+    """render_pass's scan branch for one batch of global pixel ids of a
+    (vw, vh) view: sample `samp` keys its camera jitter by
+    stream_key(fold_in(pass_key, samp), STREAM_CAMERA) and its paths by
+    ... STREAM_PATH, and `trace` runs max_depth bounces. Returns
+    (radiance sum, rays, intersections)."""
+    x = (lane_ids % vw).to(torch.float32)
+    y = (lane_ids // vw).to(torch.float32)
     radiance = torch.zeros((lane_ids.shape[0], 3), dtype=torch.float32,
                            device=lane_ids.device)
     rays = torch.zeros((), dtype=torch.int64, device=lane_ids.device)
@@ -252,8 +263,8 @@ def _scan_samples(geom, camera, lane_ids, pass_key, s: RenderSettings,
         skey = rng.fold_in(pass_key, samp)
         jit2 = rng.lane_uniforms(rng.stream_key(skey, rng.STREAM_CAMERA),
                                  lane_ids, 2)
-        o, d = camera.get_rays((x + jit2[:, 0]) / s.width,
-                               (y + jit2[:, 1]) / s.height)
+        o, d = camera.get_rays((x + jit2[:, 0]) / vw,
+                               (y + jit2[:, 1]) / vh)
         rad, stats = trace(
             geom, o, d, rng.stream_key(skey, rng.STREAM_PATH),
             max_depth=s.max_depth, mode=s.sampling_mode, cdfs=cdfs,
@@ -331,6 +342,21 @@ def pick_primitive(geom: Geometry, camera: Camera, u: float, v: float) -> int:
     return int(hit.prim[0]) if bool(hit.valid[0]) else -1
 
 
+def render_packs(geom: Geometry, settings: RenderSettings, tri_pack,
+                 attr_pack, cdfs: CDFPack | None, prim_ids):
+    """(attr_pack, prim_ids) a renderer of `settings` uses: in a guided
+    mode the 11-row attribute pack is rebuilt with the CDFs' prim_table
+    rows (renderer.py:457-471 of the JAX package), and with NEE on the
+    all-pairs packs the prim-id pack is built when not given."""
+    if (cdfs is not None and attr_pack is not None
+            and settings.sampling_mode != SAMPLING_BSDF
+            and attr_pack.shape[0] == ATTR_COLS):
+        attr_pack = pack_attributes(geom, guide_table=cdfs.prim_table)
+    if settings.nee and tri_pack is not None and prim_ids is None:
+        prim_ids = pack_prim_ids(geom)
+    return attr_pack, prim_ids
+
+
 class ProgressiveRenderer:
     """Host-side progressive render loop with throughput accounting.
 
@@ -344,7 +370,8 @@ class ProgressiveRenderer:
     shadow rays through K3. `bvh` (a BVH) takes the hits where there are
     no packs and no `culled`. With `balance_lanes` K > 1 the first pass
     probes the lanes' path costs once and later passes run on the dealt
-    queues (`_build_assignment`).
+    queues (`_build_assignment`). `pixel_offset` and `view_size` make it
+    render a row band of a larger view (see render_pass).
     """
 
     def __init__(
@@ -362,8 +389,12 @@ class ProgressiveRenderer:
         culled=None,
         prim_ids: torch.Tensor | None = None,
         bvh=None,
+        pixel_offset: int = 0,
+        view_size: tuple[int, int] | None = None,
     ):
         self.device = torch.device(device)
+        self.pixel_offset = pixel_offset
+        self.view_size = view_size
         self.culled = culled
         self.bvh = None if bvh is None else bvh.to(self.device)
         self.geom = geom.to(self.device)
@@ -372,15 +403,10 @@ class ProgressiveRenderer:
         self.cdfs = None if cdfs is None else cdfs.to(self.device)
         self.mis_bsdf_fraction = mis_bsdf_fraction
         self.tri_pack = None if tri_pack is None else tri_pack.to(self.device)
-        if (self.cdfs is not None and attr_pack is not None
-                and settings.sampling_mode != SAMPLING_BSDF
-                and attr_pack.shape[0] == ATTR_COLS):
-            attr_pack = pack_attributes(self.geom,
-                                        guide_table=self.cdfs.prim_table)
+        attr_pack, prim_ids = render_packs(self.geom, settings, self.tri_pack,
+                                           attr_pack, self.cdfs, prim_ids)
         self.attr_pack = (None if attr_pack is None
                           else attr_pack.to(self.device))
-        if settings.nee and self.tri_pack is not None and prim_ids is None:
-            prim_ids = pack_prim_ids(self.geom)
         self.prim_ids = None if prim_ids is None else prim_ids.to(self.device)
         self.key = rng.base_key(seed)
         self.film = Film.create(settings.width, settings.height, self.device)
@@ -437,6 +463,7 @@ class ProgressiveRenderer:
             self.geom, self.camera, self.film, self.key, self.settings,
             self.tri_pack, self.attr_pack, self.cdfs, self.mis_bsdf_fraction,
             self.culled, self.prim_ids, self._assignment, self.bvh,
+            self.pixel_offset, self.view_size,
         )
         self._rays += rays
         self.iterations += iters

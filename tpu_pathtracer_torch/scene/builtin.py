@@ -155,3 +155,51 @@ def cornell_box(
     elif variant != "quads":
         raise ValueError(f"unknown cornell variant: {variant}")
     return prims
+
+
+def write_obj(prims: PrimList, obj_path: str, mtl_name: str | None = None):
+    """Export a PrimList as OBJ + MTL, as the OBJ loader reads it back:
+    one material per distinct (Kd, Ke, material) to 6 decimals, mirrors
+    as `Ks` with `illum 5`, corners to 6 decimals, one face a
+    primitive."""
+    import os
+
+    if mtl_name is None:
+        mtl_name = os.path.splitext(os.path.basename(obj_path))[0] + ".mtl"
+    mtl_path = os.path.join(os.path.dirname(obj_path), mtl_name)
+
+    mats: dict[tuple, str] = {}
+    mat_of_prim: list[str] = []
+    for i in range(prims.num_prims):
+        sig = (
+            tuple(np.round(prims.albedo[i], 6)),
+            tuple(np.round(prims.emission[i], 6)),
+            int(prims.material[i]),
+        )
+        if sig not in mats:
+            mats[sig] = f"mat{len(mats)}"
+        mat_of_prim.append(mats[sig])
+
+    with open(mtl_path, "w") as f:
+        f.write("# generated by tpu_pathtracer\n")
+        for (kd, ke, kind), name in mats.items():
+            f.write(f"\nnewmtl {name}\n")
+            f.write(f"Kd {kd[0]} {kd[1]} {kd[2]}\n")
+            if max(ke) > 0:
+                f.write(f"Ke {ke[0]} {ke[1]} {ke[2]}\n")
+            if kind == MATERIAL_MIRROR:
+                f.write(f"Ks {kd[0]} {kd[1]} {kd[2]}\nillum 5\n")
+
+    with open(obj_path, "w") as f:
+        f.write("# generated by tpu_pathtracer\n")
+        f.write(f"mtllib {mtl_name}\n")
+        vert_idx = 1
+        for i in range(prims.num_prims):
+            c = prims.corners[i]
+            n = 4 if prims.is_quad[i] else 3
+            for k in range(n):
+                f.write(f"v {c[k][0]:.6f} {c[k][1]:.6f} {c[k][2]:.6f}\n")
+            f.write(f"usemtl {mat_of_prim[i]}\n")
+            idx = " ".join(str(vert_idx + k) for k in range(n))
+            f.write(f"f {idx}\n")
+            vert_idx += n
