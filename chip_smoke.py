@@ -13,6 +13,18 @@ Phases, one line each (any failure raises and exits non-zero):
                (K7, K13) and csrc/row_closest.cu (K11) from the checkout into
                build/tpu_pathtracer_torch/, one nvcc per source, started
                together;
+  2a. rng      the threefry kernel (csrc/threefry.cu, built with the
+               others) against the eager threefry2x32 path, bitwise, at
+               the cells' shapes: the camera jitter (65,536 lanes x 2
+               draws, sub ids the samples), the MIS path draws (65,536 x
+               6, sub ids the (sample, depth) counters), the solve's form
+               factors (uniform over 64 chunk keys x (4, 16, 1,024)) and
+               its keys (fold_in of 64 chunk ids, then of the chunk keys
+               with a sample); timed in turns eager, kernel, kernel,
+               eager with CUDA events, and by device time (device_ms: a
+               CUDA graph of the calls), against its bound: the larger
+               of its hashes' uint32 ops at PEAK_INT32 and its bytes at
+               PEAK_BYTES;
   2b. profile  the profilers, in a child process before the long phases
                (`chip_smoke.py --profile-child`; torch.profiler lost
                kernel events late in this long process): kernel_profile
@@ -21,8 +33,9 @@ Phases, one line each (any failure raises and exits non-zero):
                depth 5, 16 spp, in one batch of 2**20 lanes, the same
                film as 16 of 65,536): every csrc/ kernel in the trace
                classified "intersection" and as many as the pass's
-               iterations, every int64 shift and xor kernel of the
-               threefry under "rng", the shares summing to 100%; then
+               iterations, every threefry kernel (the fused
+               threefry_kernel, or the eager path's int64 shift and xor
+               kernels) under "rng", the shares summing to 100%; then
                `python -m tpu_pathtracer_torch.cli --profile
                --kernel-profile` at 64x64 prints both tables;
   3. kernels   every kernel against its plain torch version on the card,
@@ -215,7 +228,10 @@ Phases, one line each (any failure raises and exits non-zero):
                thread stops and the server shuts down within
                VIEWER_TIMEOUT.
 
-The second-to-last line is the kernel record (JSON; each kernel's
+The second-to-last line is the kernel record (JSON; its "rng" entry
+is phase 2a's record of the threefry kernel, with its launches by entry
+point in the headline, guided, sub-3 solve and stress100k phases; each
+kernel's
 launches are those of the phase that drives its path: K2 the headline,
 K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
 passes, K5 the 1M-triangle pass, K7 the sub-5 solve, K8, K10 and K11 the
@@ -344,8 +360,15 @@ PEAK_BYTES = 3.35e12
 # min, max and the running max and min)
 PAIR_FLOPS = 40
 SLAB_FLOPS = 24
-# the int64 threefry's shift and xor kernels (core/rng.py) in a trace
-THREEFRY = re.compile(r"shift|xor", re.I)
+# the threefry RNG's kernels (core/rng.py) in a trace: the fused
+# threefry_kernel, or the eager path's int64 shift and xor kernels
+THREEFRY = re.compile(r"shift|xor|threefry", re.I)
+# uint32 ops of one threefry-2x32 hash (2 + 20 rounds x 3 + 5 injections
+# x 3) and the H100 SXM's int32 rate, the white paper's 33.5 TOPS: 132 SMs
+# x 4 schedulers x 32 lanes x 1.98 GHz, what an SM dispatches (the compiler
+# puts adds on the FMA pipe beside the 64 INT32 lanes)
+HASH_OPS = 77
+PEAK_INT32 = 132 * 4 * 32 * 1.98e9
 
 
 def phase(name: str, msg: str) -> None:
@@ -1213,6 +1236,7 @@ def keep_third_calls(step, fns) -> dict:
 
 def zero_counts() -> None:
     """Set every kernel's launch count to 0."""
+    from tpu_pathtracer_torch.core import rng
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
@@ -1223,6 +1247,15 @@ def zero_counts() -> None:
     ap.occluded.launches = 0
     ic.zero_launch_counts()
     lg.zero_launch_counts()
+    rng.zero_launch_counts()
+
+
+def rng_launches() -> dict:
+    """The threefry kernel's launches since zero_counts, by entry point."""
+    from tpu_pathtracer_torch.core import rng
+
+    return {"lane_uniforms": rng.lane_uniforms.launches,
+            "uniform": rng.uniform.launches, "fold_in": rng.fold_in.launches}
 
 
 def swizzled_camera_rays(cam, size: int, seed: int, dev):
@@ -1618,7 +1651,7 @@ def large_phase(dev, path1m, start, end):
     end.record()
     end.synchronize()
     launches = {"K4": ic.prepass_dense.launches,
-                "K6": ic.closest_grouped.launches}
+                "K6": ic.closest_grouped.launches, "rng": rng_launches()}
     ms = large_ms = start.elapsed_time(end)
     rays = r.total_rays
     accum = r.film.accum
@@ -1628,9 +1661,11 @@ def large_phase(dev, path1m, start, end):
           f"{TIMED_PASSES} passes x 8 spp: {rays} rays in {ms:.3f} ms (CUDA "
           f"events) = {rays / (ms / 1e3) / 1e6:.3f} Mrays/s; {r.iterations} "
           f"intersect calls, K4 launches {launches['K4']}, K6 "
-          f"{launches['K6']}; film finite {finite}, mean {mean:.6f}")
+          f"{launches['K6']}, threefry {launches['rng']}; film finite "
+          f"{finite}, mean {mean:.6f}")
     if not (finite and mean > 0 and launches["K6"] == r.iterations
-            and launches["K4"] == r.iterations):
+            and launches["K4"] == r.iterations
+            and launches["rng"]["lane_uniforms"]):
         raise AssertionError("stress100k render failed its checks")
     for chunk in (1 << 20, 1 << 14):
         other = App(Config(spp=8, **{**LARGE, "ray_chunk": chunk}),
@@ -2808,6 +2843,75 @@ def multi_phase(dev, start, end, refs) -> dict:
     return launches
 
 
+def rng_phase(dev) -> dict:
+    """Phase 2a: the threefry kernel against the eager path at the cells'
+    shapes (bitwise), timed in turns and by device time. Returns its
+    record."""
+    from tpu_pathtracer_torch.core import rng
+
+    def lanes_case(n, sub_of):
+        key = rng.fold_in(rng.base_key(2024), 7)
+        ids = torch.arange(3 * 65_536, 4 * 65_536, device=dev)
+        sub = sub_of(ids)
+        return (
+            lambda: rng._lane_uniforms_fused(key, ids, n, sub),
+            lambda: rng._lane_uniforms_eager(key, ids, n, sub),
+            65_536 * ((n + 1) // 2),
+            65_536 * (4 * n + 16),
+        )
+
+    fkey = rng.stream_key(rng.base_key(2024), rng.STREAM_FORMFACTOR)
+    chunks = torch.arange(64, device=dev)
+    ckey = rng.fold_in(fkey, chunks)
+    skey = rng.fold_in(ckey, 5)
+    solve_shape = (4, 16, 1024)
+    n_solve = 4 * 16 * 1024
+    cases = {
+        "spawn 65,536 x 2": lanes_case(
+            2, lambda ids: torch.zeros_like(ids) + 3),
+        "mis 65,536 x 6": lanes_case(
+            6, lambda ids: (ids % 4) * 6 + 2),
+        "solve (64, 4, 16, 1024)": (
+            lambda: rng._uniform_fused(skey, solve_shape, n_solve, dev),
+            lambda: rng._uniform_eager(skey, solve_shape, n_solve, dev),
+            64 * n_solve, 64 * (n_solve * 4 + 16)),
+        "solve keys fold_in 64 x 2": (
+            lambda: rng._fold_in_fused(rng._fold_in_fused(fkey, chunks), 5),
+            lambda: rng.threefry2x32(
+                rng.threefry2x32(fkey, 0, chunks & 0xFFFFFFFF), 0, 5),
+            128, 64 * (8 + 16 + 16 + 16)),
+    }
+    out = {}
+    for name, (fused, eager, hashes, nbytes) in cases.items():
+        a, b = fused(), eager()
+        torch.cuda.synchronize()
+        if isinstance(a, tuple):
+            same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        else:
+            same = bool(torch.equal(a.view(torch.int32),
+                                    b.view(torch.int32)))
+        if not same:
+            raise AssertionError(f"the threefry kernel differs from the "
+                                 f"eager path at {name}")
+        plain_ms, ms = time_pair(eager, fused)
+        plain_dev, dev_ms = device_pair(eager, fused)
+        ops_s = hashes * HASH_OPS / PEAK_INT32
+        bytes_s = nbytes / PEAK_BYTES
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        by = "ops" if ops_s >= bytes_s else "bytes"
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                     "plain_device_ms": plain_dev, "bound_ms": bound_ms,
+                     "bound_by": by, "hashes": hashes, "bytes": nbytes}
+        phase("rng", f"{name}: bitwise; kernel {ms:.4f} ms (eager "
+              f"{plain_ms:.4f}), device {dev_ms:.5f} ms (eager "
+              f"{plain_dev:.5f}); bound {bound_ms:.5f} ms ({by}), "
+              f"{100 * bound_ms / dev_ms:.1f}% of device")
+    return {"name": "RNG threefry (no TPU kernel: jax.random threefry)",
+            "route": "cuda",
+            "source": "tpu_pathtracer_torch/csrc/threefry.cu",
+            "replaces": None, "library_ms": None, "cases": out}
+
+
 def profile_child(dev=None) -> int:
     """The profile phase's work, in a process of its own (run as
     `chip_smoke.py --profile-child`): torch.profiler lost kernel events
@@ -2856,7 +2960,7 @@ def profile_child(dev=None) -> int:
           + f" (sum {share:.6f}%); csrc kernels in the trace {len(ours)} "
           f"(K2 launches in the traced pass {iters[1] - iters[0]}, in both "
           f"passes {k2}), classified {sorted(set(c for _, c in ours))}; "
-          f"int64 shift/xor kernels {len(threefry)}, classified "
+          f"threefry kernels {len(threefry)}, classified "
           f"{sorted(set(threefry))}")
     for top in prof["top_ops"][:10]:
         phase("profile", f"  {top['ms']:10.3f} ms {top['count']:6d} x "
@@ -3012,7 +3116,8 @@ def main() -> int:
     print(smi, flush=True)
 
     # 2. build --------------------------------------------------------------
-    sources = (*ap.KERNEL_SOURCES, *ic.KERNEL_SOURCES, *lg.KERNEL_SOURCES)
+    sources = (*ap.KERNEL_SOURCES, *ic.KERNEL_SOURCES, *lg.KERNEL_SOURCES,
+               rng.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build, sources))
     for src, res in zip(sources, built):
@@ -3021,6 +3126,9 @@ def main() -> int:
         for ln in res.log.splitlines():
             if "registers" in ln or "spill" in ln:
                 phase("build", ln.strip())
+
+    # 2a. rng: the threefry kernel against the eager path -----------------
+    rng_record = rng_phase(dev)
 
     # 2b. profile: the profilers, in a child process ----------------------
     profile_phase()
@@ -3258,6 +3366,7 @@ def main() -> int:
     end.synchronize()
     solve_ms = start.elapsed_time(end)
     k3_launches = ap.occluded.launches
+    rng_solve = rng_launches()
     cfg = app.config
     n = app.geom.num_prims
     npad = ((n + 15) // 16) * 16
@@ -3268,7 +3377,8 @@ def main() -> int:
     phase("radiosity", f"cbox sub 3 ({n} prims, {app.geom.num_tris} tris) "
           f"gather solve, {cfg.mc_samples} MC samples, "
           f"{cfg.radiosity_iterations} iterations: {solve_ms:.3f} ms (CUDA "
-          f"events); K3 launches {k3_launches}, {segments} segments, "
+          f"events); K3 launches {k3_launches}, threefry {rng_solve}, "
+          f"{segments} segments, "
           f"{pair_tests} segment-triangle pairs = "
           f"{pair_tests / (solve_ms / 1e3) / 1e9:.3f} G pairs/s of solve "
           f"time; finite {finite}; radiosity sum "
@@ -3282,7 +3392,7 @@ def main() -> int:
     same = solutions_equal(sol, sol2)
     phase("radiosity", f"second solve {start.elapsed_time(end):.3f} ms, "
           f"bitwise equal to the first: {same}")
-    if not (finite and same and k3_launches > 0):
+    if not (finite and same and k3_launches > 0 and rng_solve["uniform"]):
         raise AssertionError("the sub-3 solve failed its checks")
 
     g2 = scenes["cbox_sub2"]
@@ -3309,6 +3419,7 @@ def main() -> int:
     end.record()
     end.synchronize()
     guide_launches = ap.closest_record.guide_launches
+    rng_guided = rng_launches()
     ms = start.elapsed_time(end)
     rays = r.total_rays
     accum = r.film.accum
@@ -3317,11 +3428,13 @@ def main() -> int:
     phase("guided", f"cbox sub 3 MIS 1024x1024 depth 5, 16 spp: {rays} rays "
           f"in {ms:.3f} ms (CUDA events) = {rays / (ms / 1e3) / 1e6:.3f} "
           f"Mrays/s; {r.iterations} intersect calls, K2-guide launches "
-          f"{guide_launches}, K2 {ap.closest_record.launches}; film finite "
+          f"{guide_launches}, K2 {ap.closest_record.launches}, threefry "
+          f"{rng_guided}; film finite "
           f"{finite}, mean {mean:.6f}")
     if not (finite and mean > 0 and guide_launches > 0
             and guide_launches == r.iterations
-            and ap.closest_record.launches == 0):
+            and ap.closest_record.launches == 0
+            and rng_guided["lane_uniforms"]):
         raise AssertionError("guided pass failed its checks")
 
     big = App(Config(spp=32, **{**GUIDED, "ray_chunk": 1 << 20}),
@@ -3371,7 +3484,7 @@ def main() -> int:
     end.record()
     end.synchronize()
     launches = {"K1": ap.closest_tuv.launches,
-                "K2": ap.closest_record.launches}
+                "K2": ap.closest_record.launches, "rng": rng_launches()}
     ms = headline_ms = start.elapsed_time(end)
     rays = headline_rays = r.total_rays
     accum = r.film.accum
@@ -3381,9 +3494,11 @@ def main() -> int:
     phase("headline", f"cbox 1024x1024 depth 5, {TIMED_PASSES} passes x 16 "
           f"spp: {rays} rays in {ms:.3f} ms (CUDA events) = {mrays:.3f} "
           f"Mrays/s; {r.iterations} intersect calls, K2 launches "
-          f"{launches['K2']}; film finite {finite}, mean {mean:.6f}")
+          f"{launches['K2']}, threefry {launches['rng']}; film finite "
+          f"{finite}, mean {mean:.6f}")
     if not (finite and mean > 0 and launches["K2"] > 0
-            and launches["K2"] == r.iterations):
+            and launches["K2"] == r.iterations
+            and launches["rng"]["lane_uniforms"]):
         raise AssertionError("headline render failed its checks")
 
     # the same frame in batches of 2**20 lanes: bitwise the same film
@@ -3406,6 +3521,8 @@ def main() -> int:
 
     # 8. large: the culled path -------------------------------------------
     large, first_large, large_ms = large_phase(dev, path1m, start, end)
+    rng_main_path = {"headline": launches["rng"], "guided": rng_guided,
+                     "solve sub 3": rng_solve, "stress100k": large["rng"]}
 
     # 9. solve: the sub-5 gather solve through K7 ---------------------------
     k7_launches, k4_solve, sol5 = solve_phase(dev, sol, start, end)
@@ -3505,7 +3622,7 @@ def main() -> int:
         {**entry("K13 occluded_grouped_sc (_kernel_grouped_anyhit_dma_sc)",
                  "K13", "grouped_anyhit.cu", 222, sc["K13"], lab),
          **sc_facts["K13"]},
-    ]}
+    ], "rng": {**rng_record, "launches": rng_main_path}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -137,6 +137,15 @@ def test_classify_op_by_name_and_scope():
     assert not tkp.is_port_kernel("void at::native::tile_kernel_x<1>()")
 
 
+def test_threefry_kernel_takes_its_rng_scope():
+    """The RNG's kernel is no intersection kernel: its launches take the
+    `rng` scope, as the eager draws' kernels do."""
+    assert "threefry_kernel" not in tkp.port_kernels()
+    name = "void (anonymous namespace)::threefry_kernel<1>(Args, long long)"
+    assert not tkp.is_port_kernel(name)
+    assert tkp.classify_op(name, "pass/rng") == "rng"
+
+
 @pytest.fixture(scope="module")
 def traced():
     app = App(Config(width=16, height=16, spp=2, max_depth=3,

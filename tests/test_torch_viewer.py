@@ -247,6 +247,7 @@ def test_frame_orbit_heatmap_and_kernel_profile(server, tmp_path):
     assert sum(prof["percent"].values()) == pytest.approx(100.0)
     assert prof["seconds"]["rng"] > 0 and prof["ops"] > 0
     assert prof["host_syncs"]["live_check"] > 0
+    assert prof["rng_calls"]["eager"] > 0 and "fused" not in prof["rng_calls"]
     assert 0 < prof["lane_occupancy"] <= 100
 
 

@@ -16,9 +16,10 @@ Phases come from names, never from module keywords: a kernel of the
 port's `csrc/` is "intersection" by its own name; any other op takes the
 innermost phase scope (`utils/trace_scope.py`) enclosing its launch on
 the host thread, the counterpart of the op_name metadata the JAX
-classifier reads (the int64 threefry's elementwise kernels so fall
-under "rng"); outside every scope a sort is "sort", a copy, memcpy or
-memset "dma/copy", anything else "shading/other".
+classifier reads (the threefry kernel, `csrc/threefry.cu`, and the eager
+RNG's int64 elementwise kernels so fall under "rng"); outside every
+scope a sort is "sort", a copy, memcpy or memset "dma/copy", anything
+else "shading/other".
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ import torch
 from ..core import rng
 from ..core.constants import SAMPLING_BSDF
 from ..core.math_utils import cosine_sample_hemisphere
+from ..ops import intersect_allpairs as ap
+from ..ops import intersect_culled as ic
+from ..ops import intersect_culled_legacy as lg
 from ..ops.guiding import sample_grid
 from ..render.integrator import _intersect
 from . import trace_scope
@@ -147,11 +151,13 @@ def format_profile(prof: dict) -> str:
 
 @functools.lru_cache(maxsize=1)
 def port_kernels() -> tuple[str, ...]:
-    """The names of the `__global__` functions under csrc/."""
+    """The names of the `__global__` functions of the intersection
+    kernels: those of the intersection modules' `KERNEL_SOURCES`."""
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                      r"(\w+)\s*\(")
-    return tuple(sorted({m for src in _CSRC.glob("*.cu")
-                         for m in pat.findall(src.read_text())}))
+    return tuple(sorted({m for mod in (ap, ic, lg)
+                         for src in mod.KERNEL_SOURCES
+                         for m in pat.findall((_CSRC / src).read_text())}))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -353,15 +359,17 @@ def kernel_profile_traced(step_fn, *args, device=None, log_dir=None) -> dict:
 
     Returns {"seconds": {phase: s}, "percent": {...}, "ops": count,
     "device_total": s, "top_ops": [{name, ms, count, calls_ms,
-    long_name}, ...], "host_syncs": {site: n}, "lane_occupancy": %}
-    (long_name: the enclosing scopes; host_syncs: the traced step's
-    waits for the device by call site; lane_occupancy: its live wavefront
+    long_name}, ...], "host_syncs": {site: n}, "rng_calls": {path: n},
+    "lane_occupancy": %} (long_name: the enclosing scopes; host_syncs: the
+    traced step's waits for the device by call site; rng_calls: its tensor
+    draws by path, "fused" or "eager"; lane_occupancy: its live wavefront
     lane-iterations over lanes x iterations run, None without any)."""
     prof = summarize(traced_ops(step_fn, *args, device=device,
                                 log_dir=log_dir))
     c = trace_scope.counters()
     slots = c.get("lane_slots", 0)
     prof["host_syncs"] = c.get("host_syncs", {})
+    prof["rng_calls"] = c.get("rng_calls", {})
     prof["lane_occupancy"] = (100.0 * c.get("lanes_live", 0) / slots
                               if slots else None)
     return prof

@@ -11,7 +11,8 @@ The render path adds the spans `pass` (`ProgressiveRenderer.step`) and
 the device (`sync(site)`, counted in `host_syncs` by site), and the
 wavefront's lane counters `lane_slots` (lanes x iterations run, host
 arithmetic) and `lanes_live` (live lane-iterations, from the
-integrator's device tally).
+integrator's device tally). `core/rng.py` counts its tensor draws in
+`rng_calls` by path, `fused` (the CUDA kernel) or `eager`.
 
 Off, the default, `scope` and `sync` return one shared
 `contextlib.nullcontext` and `count` and `tally` return at once, after
@@ -135,16 +136,21 @@ def sync(site: str):
     `torch.cuda.set_sync_debug_mode("error")` only an uncounted sync
     raises. Else a no-op."""
     if _active:
-        n = _counts.setdefault("host_syncs", {})
-        n[site] = n.get(site, 0) + 1
+        count("host_syncs", key=site)
         return _Span("sync", site)
     return _NULL
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add `n` to the counter `name` while recording."""
+def count(name: str, n: int = 1, key: str | None = None) -> None:
+    """Add `n` to the counter `name`, or to its entry `key` for a counter
+    kept by key (`host_syncs` by site, `rng_calls` by path), while
+    recording."""
     if _active:
-        _counts[name] = _counts.get(name, 0) + int(n)
+        if key is None:
+            _counts[name] = _counts.get(name, 0) + int(n)
+        else:
+            d = _counts.setdefault(name, {})
+            d[key] = d.get(key, 0) + int(n)
 
 
 def tally(name: str, value: torch.Tensor) -> None:
@@ -161,8 +167,8 @@ def spans() -> list:
 
 
 def counters() -> dict:
-    """The last recording's counters: `host_syncs` {site: n}, the lane
-    counters and any other `count`/`tally` name."""
+    """The last recording's counters: `host_syncs` {site: n}, `rng_calls`
+    {path: n}, the lane counters and any other `count`/`tally` name."""
     for name, value in _tallies:
         _counts[name] = _counts.get(name, 0) + int(value.item())
     _tallies.clear()

@@ -21,7 +21,7 @@ Endpoints:
   GET /profiler/reset | /profiler/enable?on=0|1
   GET /profiler/kernel  phase split of one live render pass, traced by
         utils.kernel_profile.kernel_profile_traced, with the pass's host
-        syncs by site and lane occupancy (JSON)
+        syncs by site, RNG draws by path and lane occupancy (JSON)
   GET /scenes      loadable scenes: builtins + scenes/*.obj|*.pbrt
   GET /orbit?yaw=5&pitch=0&zoom=0
   GET /set?mode=mis&spp=64  (any Config field)
@@ -300,6 +300,8 @@ function kprof(){
     $('kproftxt').textContent=txt.join(' | ')
       +' | device '+(p.device_total*1e3).toFixed(2)+' ms'
       +' | host syncs '+Object.values(p.host_syncs).reduce((a,b)=>a+b,0)
+      +' | rng calls fused '+(p.rng_calls.fused||0)+' eager '
+        +(p.rng_calls.eager||0)
       +(p.lane_occupancy==null?'':' | lanes live '
         +p.lane_occupancy.toFixed(1)+'%');
   }).catch(e=>{$('kproftxt').textContent='trace failed: '+e});
