@@ -7,7 +7,10 @@ the harness counted (the warm-up's and the window's), and in "frame"
 units the 8-bit image the last frame copied out. Solve units: the
 radiosity and the directional radiosity grid of the window's last solve
 and of one drawn from the seed, each against the reference at its own
-key (the k-th solve of a run is keyed by the seed plus k). The harness
+key (the k-th solve of a run is keyed by the seed plus k). A solve's
+reference, in both, is the one of the solver that the App runs: gather
+or shooting, "auto" resolved by the reference scene's primitive count as
+App.run_solver resolves it (`reference.SOLVERS`). The harness
 adds the work it counted itself, each with the limit 0: passes and
 samples a pixel the film lacks, and solves that repeat the one before.
 
@@ -27,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import reference
 from .reference import render as ref_render
 from .reference import scene as ref_scene
 from .reference import solve as ref_solve
@@ -46,8 +50,7 @@ def reference_film(cfg, pixels: np.ndarray, passes: int, device,
     scene, cam = ref_scene.load(cfg.scene, cfg.subdivision, device)
     cdfs = None
     if cfg.sampling_mode == "mis":
-        sol = ref_solve.solve(scene, cfg.seed, cfg.radiosity_iterations,
-                              cfg.mc_samples, tf32=control == "tf32")
+        sol = solve_scene(scene, cfg, cfg.seed, control)
         cdfs = ref_solve.build_cdfs(sol["rad_grid"])
     settings = dict(width=cfg.width, height=cfg.height,
                     spp_per_pass=cfg.spp_per_pass, max_depth=cfg.max_depth,
@@ -59,12 +62,19 @@ def reference_film(cfg, pixels: np.ndarray, passes: int, device,
         control="bf16" if control == "bf16" else None)
 
 
+def solve_scene(scene, cfg, seed: int, control: str | None = None) -> dict:
+    """The reference solve of `scene` by the solver that the App runs on
+    it (`reference.solver`: the setting, or "auto" by the scene's own
+    primitive count); control "tf32" runs its products in TF32."""
+    mod = reference.solver(cfg, scene["corners"].shape[0])
+    return mod.solve(scene, cfg, seed, tf32=control == "tf32")
+
+
 def reference_solve(cfg, device, control: str | None = None,
                     seed: int | None = None) -> dict:
     scene, _ = ref_scene.load(cfg.scene, cfg.subdivision, device)
-    return ref_solve.solve(scene, cfg.seed if seed is None else seed,
-                           cfg.radiosity_iterations, cfg.mc_samples,
-                           tf32=control == "tf32")
+    return solve_scene(scene, cfg, cfg.seed if seed is None else seed,
+                       control)
 
 
 def film_numbers(film: torch.Tensor, ref: torch.Tensor) -> dict:

@@ -31,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import trace
+from . import reference, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -409,7 +409,7 @@ def layer_context(events, unit, cfg, sizes) -> dict:
             idle_gaps=trace.idle_gaps(events, merged, t0, t1)),
         triangles=sizes["triangles"], attr_rows=sizes["attr_rows"],
         lanes=npix / -(-npix // chunk),
-        segments=(0 if unit != "solve"
-                  else sizes["prims"] ** 2 * cfg.mc_samples),
+        segments=(0 if unit != "solve" else reference.solver(
+            cfg, sizes["prims"]).segments(cfg, sizes["prims"])),
     )
 

@@ -10,7 +10,9 @@ reflection and a rebin of the grid by centroid directions. Draws are
 keyed as in the solver under test: receiver rows in chunks of 16, sample
 s of chunk c drawing uniform(fold_in(fold_in(fold_in(key, 2), c), s),
 (4, 16, N)). The directional binning is a one-hot product, as there, so
-that both sum in one order.
+that both sum in one order. The Monte-Carlo pass (`form_factors`) also
+estimates the shooting reference's blocks (shooting.py), and both
+solvers build their CDFs here (`build_cdfs`).
 
 `tf32=True` runs the products in TF32: the reference in the next
 precision below the configuration's float32 with TF32 off.
@@ -98,16 +100,16 @@ def _bin(cell, vals):
     return torch.bmm(vals.transpose(1, 2), onehot).transpose(1, 2)
 
 
-def form_factors(scene, key, n_samples: int):
-    """(ff (N, N), grid_counts (N, 256), rad_grid (N, 256, 3)) of the
-    Monte-Carlo pass over all receiver rows at once."""
+def form_factors(scene, fkey, chunk_ids, rows, cols, w_cols, n_samples: int,
+                 occluded_fn=occluded):
+    """(ff (R, C), grid_counts (R, 256), rad_grid (R, 256, 3)) of the
+    Monte-Carlo pass over receiver rows (R,) in len(chunk_ids) chunks of
+    equal size, chunk g drawing from fold_in(fkey, chunk_ids[g]), against
+    source columns cols (C,) whose unblocked samples bin w_cols (C, 3).
+    `occluded_fn` (the brute force by default) has `occluded`'s form."""
     dev = scene["tri"].device
-    n = scene["corners"].shape[0]
-    if n % ROW_CHUNK:
-        raise ValueError("the reference solve takes whole 16-row chunks")
-    rows = torch.arange(n, device=dev)
-    cols = rows
-    w_cols = scene["emission"]
+    r_n, c_n = rows.shape[0], cols.shape[0]
+    rc = r_n // chunk_ids.shape[0]
     d = scene["centroid"][cols][None] - scene["centroid"][rows][:, None]
     dist = length(d)
     dn = d / dist.clamp(min=1e-20)[..., None]
@@ -124,21 +126,20 @@ def form_factors(scene, key, n_samples: int):
     actual = torch.where(approx < 0.001, max(1, n_samples // 4), actual)
     actual = torch.where(facing, actual, 0)
 
-    fkey = rng.fold_in(key, rng.STREAM_FORMFACTOR)
-    ckey = rng.fold_in(fkey, torch.arange(n // ROW_CHUNK, device=dev))
+    ckey = rng.fold_in(fkey, chunk_ids)
     corners_i = scene["corners"][rows][:, None]
     corners_j = scene["corners"][cols][None]
     offset = ni * 1e-4
-    ex_a = rows[:, None].expand(n, n).reshape(-1)
-    ex_b = cols[None, :].expand(n, n).reshape(-1)
+    ex_a = rows[:, None].expand(r_n, c_n).reshape(-1)
+    ex_b = cols[None, :].expand(r_n, c_n).reshape(-1)
     z = torch.zeros_like(dist)
     vis, ci_s, cj_s, d_s = z, z, z, z
     nv = torch.zeros(dist.shape, dtype=torch.int32, device=dev)
-    gcount = torch.zeros((n, GRID_SIZE), device=dev)
-    gradv = torch.zeros((n, GRID_SIZE, 3), device=dev)
+    gcount = torch.zeros((r_n, GRID_SIZE), device=dev)
+    gradv = torch.zeros((r_n, GRID_SIZE, 3), device=dev)
     for s in range(n_samples):
-        u = rng.uniform(rng.fold_in(ckey, s), (4, ROW_CHUNK, n))
-        u = u.transpose(0, 1).reshape(4, n, n)
+        u = rng.uniform(rng.fold_in(ckey, s), (4, rc, c_n))
+        u = u.transpose(0, 1).reshape(4, r_n, c_n)
         p_i = sample_on_corners(corners_i, u[0], u[1])
         p_j = sample_on_corners(corners_j, u[2], u[3])
         seg = p_j - p_i
@@ -147,10 +148,10 @@ def form_factors(scene, key, n_samples: int):
         ct_i = dot(ni, sd)
         ct_j = -dot(nj, sd)
         active = (s < actual) & (r >= 1e-6) & (ct_i > 0.0) & (ct_j > 0.0)
-        blocked = occluded(scene, (p_i + offset).reshape(-1, 3),
-                           sd.reshape(-1, 3),
-                           torch.where(active, r - 2e-4, 0.0).reshape(-1),
-                           ex_a, ex_b).reshape(r.shape)
+        blocked = occluded_fn(scene, (p_i + offset).reshape(-1, 3),
+                              sd.reshape(-1, 3),
+                              torch.where(active, r - 2e-4, 0.0).reshape(-1),
+                              ex_a, ex_b).reshape(r.shape)
         ok = active & ~blocked
         okf = ok.to(torch.float32)
         vis = vis + okf
@@ -187,18 +188,36 @@ def rebin(scene, ff, radiosity):
     return _bin(cell, radiosity[None, :, :] * w[..., None])
 
 
-def solve(scene, seed: int, iterations: int, mc_samples: int,
-          tf32: bool = False) -> dict:
-    """The gather solve of a scene, keyed by base_key(seed + 12345):
-    {radiosity (N, 3), rad_grid (N, 256, 3), grid_counts (N, 256)}."""
+def segments(cfg, prims: int) -> int:
+    """The solve's visibility work by its settings: every ordered pair of
+    primitives at every sample (the adaptive count's bound)."""
+    return prims ** 2 * cfg.mc_samples
+
+
+def solve(scene, cfg, seed: int, tf32: bool = False) -> dict:
+    """The gather solve of a scene at cfg's radiosity_iterations and
+    mc_samples, keyed by base_key(seed + 12345): {radiosity (N, 3),
+    rad_grid (N, 256, 3), grid_counts (N, 256)}."""
+    if (cfg.enable_grid_filtering or not cfg.use_monte_carlo
+            or cfg.ff_estimator != "reference"):
+        raise ValueError("the reference gather solve takes Monte-Carlo "
+                         "form factors by the reference estimator, with no "
+                         "grid filtering")
+    n = scene["corners"].shape[0]
+    if n % ROW_CHUNK:
+        raise ValueError("the reference solve takes whole 16-row chunks")
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         key = rng.base_key(seed + 12345)
-        ff, counts, grid = form_factors(scene, key, mc_samples)
+        rows = torch.arange(n, device=scene["tri"].device)
+        ff, counts, grid = form_factors(
+            scene, rng.fold_in(key, rng.STREAM_FORMFACTOR),
+            torch.arange(n // ROW_CHUNK, device=rows.device), rows, rows,
+            scene["emission"], cfg.mc_samples)
         radiosity = unshot = scene["emission"]
         albedo = scene["albedo"]
-        for _ in range(iterations):
+        for _ in range(cfg.radiosity_iterations):
             incident = ff @ unshot
             unshot = torch.minimum(albedo * incident, incident)
             radiosity = radiosity + unshot

@@ -1,5 +1,6 @@
 """The import guard, and the command's refusal without a card."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,28 @@ def test_harness_loads_no_jax():
             "import tpu_pathtracer_torch.app; "
             "from portbench import guard; "
             "print(guard.forbidden_loaded())" % str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_shooting_reference_imports_no_program():
+    """The shooting reference imports neither JAX nor the port: by its
+    own import statements, and by what importing it loads."""
+    path = ROOT / "portbench" / "reference" / "shooting.py"
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    assert names <= {"__future__", "math", "torch"}, names
+    code = ("import sys; sys.path.insert(0, %r); "
+            "import portbench.reference.shooting; "
+            "print(sorted({n.split('.')[0] for n in sys.modules} & "
+            "{'jax', 'jaxlib', 'flax', 'tpu_pathtracer', "
+            "'tpu_pathtracer_torch'}))" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
