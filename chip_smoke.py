@@ -146,13 +146,14 @@ Phases, one line each (any failure raises and exits non-zero):
                the box at subdivision 4 (8,192 triangles), 3 shooting
                steps through K3 and occluded_plain (bitwise equal), and
                for each of SHOOT4_KEYS through the culled backend, its K4
-               and K7 calls against their plain versions (bitwise) and
-               K3 on the same segments: bitwise equal to K3's solve where
-               no active segment's visibility parts from K3's, else at
-               most SHOOT_FLIPS such flips, each a knife edge (K3's
-               blockers' cluster boxes fail the prepass by at most
-               FLIP_WIDTHS widths; the brute force's answer printed) and
-               radiosity within SHOOT_FLIP_REL;
+               and K7 calls (on the segment boxes) against their plain
+               versions (bitwise) and K3 on the same segments: no active
+               segment's visibility may part from K3's (a flip; each one
+               found is printed with its knife-edge widths and the brute
+               force's answer) and the solve must equal K3's bitwise; the
+               sub-6 solve through the culled backend beside K3 on every
+               segment at SHOOT6_FLIP_STEPS steps: no flip, and the
+               48-step solve bitwise the App's;
                scenes/cbox.obj and scenes/cbox_mirror.obj
                through "auto" (K2) in the cbox_mirror golden's config
                against the builtin boxes (corners within 1e-5, relative
@@ -337,16 +338,13 @@ SHOOT6_STEPS = 48      # the App's sub-6 solve, cut from the default 192
 SHOOT6_FRAME = dict(width=512, height=512, spp=16, max_depth=5)
 SHOOT4 = dict(scene="cbox_quads", subdivision=4)   # 8,192 triangles: K3
 SHOOT4_KEYS = (12345, 2024)
-# K3 takes t from the affine pack (inv o - inv v0), the culled prepass
-# culls by box entry: a segment that grazes a plane near its end may be
-# blocked for one and not the other (a knife-edge visibility flip). A flip
-# passes where each of K3's blockers has a cluster box that fails the
-# prepass by at most FLIP_WIDTHS widths (see knife_edge_widths); at most
-# SHOOT_FLIPS of them, and radiosity within SHOOT_FLIP_REL of K3's (one
-# flip moved it by 1.068e-11 on the H100)
-FLIP_WIDTHS = 4.0
-SHOOT_FLIPS = 16
-SHOOT_FLIP_REL = 1e-9
+# K3 takes t from the affine pack (inv o - inv v0); the culled segment
+# route grows each cluster box by a pad that covers that rounding
+# (intersect_culled.segment_boxes), so on every segment it answers as K3
+# does: no visibility flip, and solves bitwise K3's. A flip found is
+# printed with its knife-edge widths (knife_edge_widths)
+SHOOT6_FLIP_STEPS = (24, 48)   # the cell's steps and README.md's
+SHOOT6_SEED = 2023             # the App's default seed, as phase shooting's
 BVH3 = dict(scene="cbox_quads", subdivision=3, width=256, height=256, spp=4,
             spp_per_pass=4, max_depth=5)
 BVH_T_ULP = 1024       # BVH t against K2's, in ulp of max(1, t)
@@ -387,8 +385,9 @@ def bound(flops, *tensors) -> tuple[float, str]:
 
 def set_bits(x: torch.Tensor) -> int:
     """Set bits of an int32 tensor."""
-    shift = torch.arange(32, device=x.device, dtype=torch.int32)
-    return int(((x[..., None] >> shift) & 1).sum())
+    from tpu_pathtracer_torch.ops.intersect_culled import _set_bits
+
+    return int(_set_bits(x))
 
 
 def anyhit_pairs(scheduled, maxd, blocked) -> int:
@@ -1191,6 +1190,81 @@ def knife_edge_widths(geom, tri_pack, prim_ids, part, rank, o, d, maxd,
     return out
 
 
+def shoot6_flips(dev, seed: int, steps: int) -> dict:
+    """The sub-6 box's shooting solve as the App runs it (128 shooters, 4
+    samples, keyed by base_key(seed + 12345)) through the culled backend,
+    with K3 on every call's segments beside it. Returns {"solution": the
+    culled route's, "flips": active segments whose visibility parts from
+    K3's, "line": a summary}: active segments, the (group, cluster) pairs
+    the prepass kept on the segment boxes and on the plain cluster boxes,
+    the flips' knife-edge widths (up to 4 printed), the solve's time
+    beside K3 and alone (whose solution must be the same, bitwise)."""
+    from tpu_pathtracer_torch.app import App
+    from tpu_pathtracer_torch.core import rng
+    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops.intersect import occluded
+    from tpu_pathtracer_torch.render import radiosity as rad
+    from tpu_pathtracer_torch.utils import trace_scope
+    from tpu_pathtracer_torch.utils.config import Config
+
+    app = App(Config(**SHOOT6), device=dev)
+    g = app.load_scene()
+    cs = app.culled
+    (part,) = cs.parts
+    tp, pp = ap.pack_triangles(g), ap.pack_prim_ids(g)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    stat = dict(flips=0, segments=0, active=zero, old_kept=zero)
+    examples = []
+
+    def beside(o, d, m, a, b):
+        a, b = a.to(torch.int32), b.to(torch.int32)
+        blocked = cs.occluded(o, d, m, a, b)
+        other = ap.occluded(tp, pp, o, d, m, a, b)
+        flip = (blocked != other) & (m > 0)
+        n = int(flip.sum())
+        stat["flips"] += n
+        stat["segments"] += o.shape[0]
+        stat["active"] = stat["active"] + (m > 0).sum()
+        po, pd, pm = ic._pad_rays(ic._tiled(o.shape[0]), (o, torch.nan),
+                                  (d, 1.0), (m, 0.0))
+        gm = ic.prepass_groups(part.cluster_min, part.cluster_max, po, pd,
+                               1e-5, pm)[0]
+        stat["old_kept"] = stat["old_kept"] + ic._set_bits(gm)
+        for j in torch.nonzero(flip).flatten()[:max(0, 4 - len(examples))]:
+            i = slice(int(j), int(j) + 1)
+            examples.append(dict(
+                k3=bool(other[j]), brute=bool(occluded(
+                    g, o[i], d[i], m[i], a[i], b[i])[0]),
+                widths=knife_edge_widths(g, tp, pp, part, cs.rank, o[i],
+                                         d[i], m[i], a[i], b[i])))
+        return blocked
+
+    kw = dict(steps=steps, shooters_per_step=128, mc_samples=4,
+              estimator="reference")
+    key = rng.base_key(seed + 12345)
+    with trace_scope.recording():
+        sol, both_ms = time_once(lambda: rad.solve_radiosity_shooting(
+            g, key, occlusion_packs=beside, **kw))
+    c = trace_scope.counters()
+    alone, alone_ms = time_once(lambda: rad.solve_radiosity_shooting(
+        g, key, occlusion_packs=cs, **kw))
+    same = all(torch.equal(getattr(sol, f), getattr(alone, f)) for f in (
+        "radiosity", "unshot", "rad_grid", "grid_counts", "history"))
+    tested = c.get("prepass_groups", 0)
+    line = (f"{c.get('shooting_steps')} steps, {stat['segments']} "
+            f"segments ({int(stat['active'])} active); flips {stat['flips']}"
+            f" {examples}; (group, cluster) pairs kept on the segment boxes "
+            f"{c.get('prepass_groups_kept')} of {tested} "
+            f"({100.0 * c.get('prepass_groups_kept', 0) / max(tested, 1):.4f}"
+            f"%), on the plain boxes {int(stat['old_kept'])}; beside K3 "
+            f"{both_ms:.1f} ms, alone {alone_ms:.1f} ms, bitwise the same "
+            f"{same}")
+    if not same:
+        raise AssertionError("the culled solve beside K3 and alone differ")
+    return dict(solution=sol, flips=stat["flips"], line=line)
+
+
 def solutions_equal(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
         "form_factors", "radiosity", "unshot", "grid_counts", "rad_grid",
@@ -1380,7 +1454,8 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
         bounds["K6"] = bound(set_bits(k4[0]) * 8 * 128 * PAIR_FLOPS, tri,
                              k4[0], o, d, *k6)
 
-    # K4 in segment mode and K7 on form-factor and random segments
+    # K4 in segment mode and K7 on form-factor and random segments, on the
+    # segment route's grown boxes (CulledScene.occluded's inputs)
     g5 = subdivide(cornell_box("quads"), 5).build(dev)
     cs3 = ic.CulledScene(scenes["cbox_sub3"])
     cs5 = ic.CulledScene(g5)
@@ -1390,8 +1465,9 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
     for cname, cs, seg in seg_cases:
         o, d, maxd, ea, eb = seg
         p = cs.parts[0]
-        k4 = ic.prepass_dense(p.cluster_min, p.cluster_max, o, d, 1e-5, maxd)
-        p4 = ic.prepass_plain(p.cluster_min, p.cluster_max, o, d, 1e-5, maxd)
+        smin, smax = p.seg_min, p.seg_max
+        k4 = ic.prepass_dense(smin, smax, o, d, 1e-5, maxd)
+        p4 = ic.prepass_plain(smin, smax, o, d, 1e-5, maxd)
         k7 = ic.occluded_grouped(p.tri_pack, k4[0], o, d, maxd, ea, eb)
         p7 = ic.occluded_grouped_plain(p.tri_pack, k4[0], o, d, maxd, ea, eb)
         torch.cuda.synchronize()
@@ -1413,15 +1489,14 @@ def culled_kernels(dev, cam, scenes, k3_cases, err, times, bounds,
                 lambda: ic.occluded_grouped(p.tri_pack, k4[0], o, d, maxd, ea,
                                             eb), reps=2)
             times["K4 segments"] = t_seg = time_pair(
-                lambda: ic.prepass_plain(p.cluster_min, p.cluster_max, o, d,
-                                         1e-5, maxd),
-                lambda: ic.prepass_dense(p.cluster_min, p.cluster_max, o, d,
-                                         1e-5, maxd), reps=3)
+                lambda: ic.prepass_plain(smin, smax, o, d, 1e-5, maxd),
+                lambda: ic.prepass_dense(smin, smax, o, d, 1e-5, maxd),
+                reps=3)
             # the slab tests of the segments that can enter a box
-            c_real = int(torch.isfinite(p.cluster_min[:, 0]).sum())
+            c_real = int(torch.isfinite(smin[:, 0]).sum())
             bounds["K4 segments"] = bound(
-                int((maxd > 0).sum()) * c_real * SLAB_FLOPS, p.cluster_min,
-                p.cluster_max, o, d, maxd, *k4)
+                int((maxd > 0).sum()) * c_real * SLAB_FLOPS, smin, smax, o,
+                d, maxd, *k4)
             visits = int((k4[0] != 0).sum())
             bits = set_bits(k4[0])
             phase("kernels", f"at {cname} ({g5.num_tris} tris): K7 "
@@ -1924,7 +1999,7 @@ def shooting_phase(dev, start, end):
     if not (ok and k7_app > 0 and k6 > 0 and img.max() > 0
             and tuple(s6.form_factors.shape) == (0, 0)):
         raise AssertionError("the App's sub-6 shooting path failed")
-    del app, view, s6, r, k4_out, k7_out     # sol: phase multi's
+    del app, view, r, k4_out, k7_out     # sol: phase multi's; s6 below
 
     # sub 4: a few steps through K3, occluded_plain and the culled backend
     g4 = App(Config(**SHOOT4), device=dev).load_scene()
@@ -1963,8 +2038,8 @@ def shooting_phase(dev, start, end):
 
     # the culled route answers each call. Beside it, its K4 and K7 calls
     # again against their plain versions (bitwise), and K3 on the same
-    # segments: each active segment they part on (a flip) must be a knife
-    # edge, and the brute force's answer on it is printed
+    # segments: no active segment may part (a flip; one found is printed
+    # with its knife-edge widths and the brute force's answer)
     cs4 = ic.CulledScene(g4)
     (part4,) = cs4.parts
     for seed in SHOOT4_KEYS:
@@ -1978,7 +2053,7 @@ def shooting_phase(dev, start, end):
             po, pd, pm, pa, pb = ic._pad_rays(
                 ic._tiled(n), (o, torch.nan), (d, 1.0), (m, 0.0), (a, -1),
                 (b, -1))
-            box = (part4.cluster_min, part4.cluster_max, po, pd, 1e-5, pm)
+            box = (part4.seg_min, part4.seg_max, po, pd, 1e-5, pm)
             k4, p4 = ic.prepass_dense(*box), ic.prepass_plain(*box)
             k7 = ic.occluded_grouped(part4.tri_pack, k4[0], po, pd, pm, pa,
                                      pb)
@@ -1988,7 +2063,7 @@ def shooting_phase(dev, start, end):
                                and torch.equal(blocked, k7[:n]))
             other = ap.occluded(tp4, pp4, o, d, m, a, b)
             for j in torch.nonzero((blocked != other) & (m > 0)).flatten()[
-                    :SHOOT_FLIPS + 1].tolist():
+                    :16].tolist():
                 i = slice(j, j + 1)
                 flips.append(dict(
                     k3=bool(other[j]), culled=bool(blocked[j]),
@@ -2002,30 +2077,29 @@ def shooting_phase(dev, start, end):
         via_culled, culled_ms = time_once(lambda: rad.solve_radiosity_shooting(
             g4, key, occlusion_packs=culled_beside_k3, **kw4))
         same_culled = fields_equal(k3_sol, via_culled)
-        rk, rc = k3_sol.radiosity, via_culled.radiosity
-        rel_culled = float((rc - rk).norm() / rk.norm())
-        # a knife edge: K3 blocks, the culled route does not (it tests a
-        # subset of K3's pairs in K3's arithmetic), and each of K3's
-        # blockers has a cluster box that fails the prepass by at most
-        # FLIP_WIDTHS widths
-        knife = all(f["k3"] and not f["culled"] and f["blockers"] and all(
-            0.0 < x <= FLIP_WIDTHS for _, x in f["blockers"]) for f in flips)
         phase("shooting", f"cbox sub {SHOOT4['subdivision']}, key {seed}, "
               f"the same 3 steps through the culled backend {culled_ms:.3f} "
               f"ms: K4 and K7 bitwise equal to their plain versions on "
               f"every call {all(plain_equal)} ({len(plain_equal)} calls); "
               f"{len(flips)} active segments whose visibility parts from "
-              f"K3's ({flips}; knife edges within {FLIP_WIDTHS} widths "
-              f"{knife}), solution bitwise equal to K3's {same_culled}, "
-              f"radiosity relative L2 {rel_culled:.3e} (bar: bitwise without "
-              f"a flip, else {SHOOT_FLIP_REL} and at most {SHOOT_FLIPS} "
-              f"flips)")
-        culled_ok = same_culled if not flips else (
-            len(flips) <= SHOOT_FLIPS and knife
-            and rel_culled < SHOOT_FLIP_REL)
-        if not (all(plain_equal) and culled_ok):
+              f"K3's {flips}; solution bitwise equal to K3's {same_culled} "
+              f"(bar: no flip, bitwise)")
+        if not (all(plain_equal) and not flips and same_culled):
             raise AssertionError("the sub-4 shooting steps depend on the "
                                  "route")
+
+    # sub 6: the culled route beside K3 on every segment of the solve
+    for steps in SHOOT6_FLIP_STEPS:
+        r = shoot6_flips(dev, SHOOT6_SEED, steps)
+        same = steps != SHOOT6_STEPS or fields_equal(r["solution"], s6)
+        phase("shooting", f"cbox sub {SHOOT6['subdivision']}, seed "
+              f"{SHOOT6_SEED}, {steps} steps through the culled backend "
+              f"beside K3 on every segment: {r['line']}; the 48-step solve "
+              f"bitwise the App's {same} (bar: no flip)")
+        if r["flips"] or not same:
+            raise AssertionError("the sub-6 shooting solve's visibility "
+                                 "parts from K3's")
+    del s6
 
     # OBJ scenes through "auto" (K2) against the builtin boxes, in the
     # cbox_mirror golden's config

@@ -228,7 +228,7 @@ def test_live_checks_counted(check_every):
 
 @pytest.mark.card
 @pytest.mark.parametrize("cell", ["cbox_sub3.mis", "stress100k.bsdf",
-                                  "cbox_sub3.interactive"])
+                                  "cbox_sub3.interactive", "cbox_sub6.mis"])
 def test_card_every_sync_is_a_counted_site(cell):
     """One pass (and the frame's image) of each render cell's
     configuration at 64x64 on the card under sync debug mode "error":

@@ -41,7 +41,7 @@ from ..core.math_utils import (
     spherical_to_local,
     world_to_spherical,
 )
-from ..utils.trace_scope import scoped
+from ..utils.trace_scope import scope, scoped
 
 
 @dataclass(frozen=True)
@@ -230,7 +230,8 @@ def sample_grid_mis(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, d_b,
 
     Returns (d_g, pdf_gg, pdf_bg, g_valid)."""
     if row16 is None:
-        row16 = cdfs.prim_table[prim]
+        with scope("guide_row"):
+            row16 = cdfs.prim_table[prim]
     marg = row16[:, :GRID_HALF_RES]
     total = row16[:, GRID_HALF_RES]
     g_valid = row16[:, GRID_HALF_RES + 1] > 0.0

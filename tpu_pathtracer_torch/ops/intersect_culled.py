@@ -55,6 +55,14 @@ least `_SC_MIN_CLUSTERS` clusters, read at call time as the JAX package
 reads its own copy: 2**30, so never in production (the TPU measured the
 walk a wash); a caller lowers it to run the walk.
 
+Exact segment visibility. The segment route (`CulledScene.occluded`)
+runs the prepass on each cluster's box grown by `segment_boxes`' pad,
+which covers the rounding of K3's affine t and u, v: a cluster is culled
+only where none of its triangles can block the segment in K3's
+arithmetic, which the walk (K7) also tests in. So the culled any hit
+answers as K3 does on every segment. The ray route keeps the plain
+boxes. (The JAX package culls segments by the plain boxes.)
+
 Semantics. The slab test is `_prepass_block_vals`'s, with the inverse
 direction clamped at 1e-8 and NaN bounds (padding clusters) failing every
 compare. The pair test is the all-pairs kernels' affine arithmetic in the
@@ -91,6 +99,7 @@ from .cluster_layout import (
     _GID_BITS,
     _GMAX_CLUSTERS,
     _MAX_CLUSTERS,
+    _host,
     median_split_order,
     pack_triangles_ordered,
     padded_clusters,
@@ -132,6 +141,77 @@ def _pad_rays(n: int, *arrays):
 
 def _tiled(b: int) -> int:
     return -(-b // RAYS_PER_TILE) * RAYS_PER_TILE
+
+
+# --- the segment boxes ------------------------------------------------------
+
+SEG_PAD = 2.0 ** -17   # 64 rounding widths (2**-23) of the scene's scale
+
+
+def segment_boxes(geom: Geometry, order: np.ndarray, cluster_min,
+                  cluster_max):
+    """(seg_min, seg_max) f32 on the boxes' device, shaped as the boxes
+    of triangles `order` (C, 3), whose padding clusters keep their NaN
+    bounds: each real cluster's box grown so that the segment prepass
+    culls a cluster only where no triangle of it can block the segment in
+    K3's arithmetic.
+
+    The bound. Let S = 4 max|vertex coordinate| + 1 over the scene, and
+    let a segment's origin and end lie within the scene's box grown by 1
+    (every segment the port traces: patch to patch, hit point to light),
+    so |o|_inf + |v0|_inf + |t d|_inf <= S at every t the test accepts,
+    with |d| = 1. Where K3 accepts a triangle at its f32 t (1e-5 < t <
+    maxd, u, v >= 0, u + v <= 1, the Pallas op order), the exact point
+    P = o + t d lies within 16 x 2**-23 x S x (kappa + 1) of it, kappa =
+    (|row 0| + |row 1| of M^-1) (|e1| + |e2|), the in-plane conditioning:
+      * the plane offset n.o - c and the rate n.d take 3 and 2
+        roundings, the quotient one: P's plane residual is at most 6 x
+        2**-24 ||n||_1 S, which M^-1's plane row (n / |n|^2) makes at
+        most 3 sqrt(3) x 2**-23 x S in space, whatever the angle. That is
+        3 of the widths of chip_smoke.py's `knife_edge_widths` (w =
+        2**-23 ||n||_1 (|o|_inf + |v0|_inf) / |n.d|: the t that one
+        rounding of the plane offset moves; along the normal, at most
+        sqrt(3) x 2**-23 x S);
+      * u and v take 4 roundings each, at most 6 x 2**-24 |row|_1 S,
+        which the edges make at most 6 sqrt(3) x 2**-23 x S x kappa in
+        space, twice that at a corner;
+      * the pack's own rounding (M^-1 and c = M^-1 v0 in f32) moves the
+        affine triangle by as much again.
+    Each box grows by SEG_PAD x S x (kappa + 1), the cluster's largest
+    kappa, rounded outward to f32: 4 times the bound, and at least 64 /
+    sqrt(3) = 36.9 widths along any normal (the flips that the plain
+    boxes gave in the sub-6 box's shooting solve sat within 0.58). P
+    then lies inside the grown box by 48 x 2**-23 x S or more, which the
+    slab test's own rounding (3 roundings an axis: 1.5 x 2**-23 x S /
+    |d_a| in t; an axis of |d_a| <= 1e-8 keeps the 1e8 clamp's interval)
+    does not use up: the prepass's entry is at most t < maxd and its
+    exit at least t, and the cluster is kept."""
+    v0, e1, e2 = (_host(x) for x in (geom.tri_v0, geom.tri_e1,
+                                     geom.tri_e2))
+    verts = np.concatenate([v0, v0 + e1, v0 + e2])
+    scale = 4.0 * float(np.abs(verts).max(initial=0.0)) + 1.0
+    order = np.asarray(order)
+    inv = _host(geom.tri_inv)[order].astype(np.float64)
+    e1, e2 = e1[order].astype(np.float64), e2[order].astype(np.float64)
+    kappa = ((np.linalg.norm(inv[:, 0], axis=1)
+              + np.linalg.norm(inv[:, 1], axis=1))
+             * (np.linalg.norm(e1, axis=1) + np.linalg.norm(e2, axis=1)))
+    pad_t = SEG_PAD * scale * (np.where(np.isfinite(kappa), kappa, np.inf)
+                               + 1.0)
+    c = -(-pad_t.shape[0] // TRI_CHUNK)
+    pad = np.zeros(c * TRI_CHUNK)
+    pad[:pad_t.shape[0]] = pad_t
+    pad = pad.reshape(c, TRI_CHUNK).max(axis=1)[:, None]
+    out = []
+    for box, sign in ((cluster_min, -1.0), (cluster_max, 1.0)):
+        x = _host(box).astype(np.float64)
+        x[:c] += sign * pad
+        x32 = x.astype(np.float32)
+        inward = (x32 > x) if sign < 0 else (x32 < x)
+        x32 = np.where(inward, np.nextafter(x32, np.float32(sign * np.inf)),
+                       x32)
+        out.append(torch.from_numpy(x32).to(box.device))
+    return tuple(out)
 
 
 # --- the prepass (K4, K5) ---------------------------------------------------
@@ -770,16 +850,37 @@ def closest_tuv_grouped(tri_pack, cluster_min, cluster_max, o, d,
     return t[:b], orig[:b]
 
 
+@functools.cache
+def _byte_bits(device) -> torch.Tensor:
+    """(256,) uint8: the set bits of each byte value, made on `device`."""
+    b = torch.arange(256, dtype=torch.int32, device=device)
+    return sum((b >> i) & 1 for i in range(8)).to(torch.uint8)
+
+
+def _set_bits(words: torch.Tensor) -> torch.Tensor:
+    """The number of set bits of int32 words, summed (a device scalar):
+    each byte's count from a 256-entry table."""
+    b = words.contiguous().view(torch.uint8).reshape(-1).to(torch.int32)
+    return torch.index_select(_byte_bits(words.device), 0, b).sum(
+        dtype=torch.int64)
+
+
 def occluded_dma_grouped(tri_pack, cluster_min, cluster_max, o, d, maxd,
                          ex_a, ex_b):
     """(B,) bool segment any-hit over an ordered pack, any batch size: the
     segment prepass (t_min 1e-5, culled beyond maxd) and the walk (K7, or
-    K13 from _SC_MIN_CLUSTERS clusters)."""
+    K13 from _SC_MIN_CLUSTERS clusters). While `trace_scope` records, the
+    prepass's (8-segment group, cluster) pairs count in `prepass_groups`
+    (every cluster row of the pack, as K4's grid) and those it kept in
+    `prepass_groups_kept`."""
     b = o.shape[0]
     n = _tiled(b)
     o, d, maxd, ex_a, ex_b = _pad_rays(
         n, (o, torch.nan), (d, 1.0), (maxd, 0.0), (ex_a, -1), (ex_b, -1))
     gmask, _, _ = prepass_groups(cluster_min, cluster_max, o, d, 1e-5, maxd)
+    if trace_scope.active():
+        trace_scope.count("prepass_groups", n // GROUP * cluster_min.shape[0])
+        trace_scope.tally("prepass_groups_kept", _set_bits(gmask))
     walk = (occluded_grouped_sc if _sc_mode(cluster_min.shape[0])
             else occluded_grouped)
     return walk(tri_pack, gmask, o, d, maxd, ex_a, ex_b)[:b]
@@ -795,12 +896,16 @@ def _on(t: torch.Tensor, device) -> bool:
 class CulledPart:
     """One pack of a CulledScene: tri_pack (Tpad, 16), cluster_min /
     cluster_max (C, 3), attr_table (Tpad, 16) shading rows in pack order
-    [nx ny nz | ar ag ab | er eg eb | material | prim | pad], and the
-    part's bounding box lo / hi (3,)."""
+    [nx ny nz | ar ag ab | er eg eb | material | prim | pad], the part's
+    bounding box lo / hi (3,), and the segment route's cluster boxes
+    seg_min / seg_max (C, 3) (`segment_boxes`) and their bounding box
+    seg_lo / seg_hi (3,)."""
 
     def __init__(self, geom: Geometry, order: np.ndarray):
         self.tri_pack, self.cluster_min, self.cluster_max = \
             pack_triangles_ordered(geom, order)
+        self.seg_min, self.seg_max = segment_boxes(
+            geom, order, self.cluster_min, self.cluster_max)
         prim = geom.tri_prim.cpu().numpy()[order]
         t = prim.shape[0]
         at = np.zeros((self.tri_pack.shape[0], ATTR_COLS), np.float32)
@@ -814,9 +919,12 @@ class CulledPart:
         cmax = self.cluster_max.cpu().numpy()
         self.lo = torch.from_numpy(np.nanmin(cmin, axis=0)).to(geom.device)
         self.hi = torch.from_numpy(np.nanmax(cmax, axis=0)).to(geom.device)
+        self.seg_lo, self.seg_hi = (torch.from_numpy(f(
+            x.cpu().numpy(), axis=0)).to(geom.device) for f, x in (
+                (np.nanmin, self.seg_min), (np.nanmax, self.seg_max)))
 
     _TENSORS = ("tri_pack", "cluster_min", "cluster_max", "attr_table",
-                "lo", "hi")
+                "lo", "hi", "seg_min", "seg_max", "seg_lo", "seg_hi")
 
     def to(self, device: str | torch.device) -> "CulledPart":
         """The part with its tensors on `device` (itself when there)."""
@@ -830,10 +938,13 @@ class CulledPart:
     def may_hit(self, o, d, t_min, maxd=None):
         """Conservative ray-vs-part-box slab test (B,) bool, the prepass's
         formula: a cluster hit implies a part hit (slab hits are monotone
-        under box inclusion), so culling on a miss is exact."""
+        under box inclusion), so culling on a miss is exact. Segments
+        (maxd given) test the box of the segment boxes."""
+        lo, hi = (self.lo, self.hi) if maxd is None else (self.seg_lo,
+                                                           self.seg_hi)
         it = _inv_dir(d)
-        t1 = (self.lo[None, :] - o) * it
-        t2 = (self.hi[None, :] - o) * it
+        t1 = (lo[None, :] - o) * it
+        t2 = (hi[None, :] - o) * it
         tn = torch.clamp(torch.minimum(t1, t2).amax(dim=-1), min=t_min)
         tf = torch.maximum(t1, t2).amin(dim=-1)
         hit = (tf >= tn) & (tf > 0.0)
@@ -982,7 +1093,9 @@ class CulledScene:
     def occluded(self, o, d, max_dist, exclude_a=None, exclude_b=None):
         """(B,) bool segment any-hit (drop-in for ops.intersect.occluded:
         the 1e-5 window and two excluded logical primitives), OR over
-        parts; a segment that misses a part's box gets maxd 0 there."""
+        parts; a segment that misses a part's box gets maxd 0 there. The
+        prepass tests the segment boxes (`segment_boxes`): the answer is
+        K3's on every segment."""
         b = o.shape[0]
         dev = o.device
         maxd = torch.as_tensor(max_dist, dtype=torch.float32,
@@ -996,7 +1109,7 @@ class CulledScene:
             md = maxd
             if multi:
                 md = torch.where(part.may_hit(o, d, 1e-5, maxd), maxd, 0.0)
-            bl = occluded_dma_grouped(part.tri_pack, part.cluster_min,
-                                      part.cluster_max, o, d, md, ex_a, ex_b)
+            bl = occluded_dma_grouped(part.tri_pack, part.seg_min,
+                                      part.seg_max, o, d, md, ex_a, ex_b)
             blocked = bl if blocked is None else blocked | bl
         return blocked

@@ -44,6 +44,13 @@ ops/intersect_allpairs.py), K7 through a CulledScene (anything with an
 `occluded` method, ops/intersect_culled.py), or any callable (o, d, maxd,
 ex_a, ex_b) -> blocked, which is how a caller passes a plain version in
 explicitly.
+
+While `utils.trace_scope` records, a shooting step opens the spans
+`shoot_select` (the top-k shooters and their unshot gather) and
+`transport` (the (N, k) @ (k, 3) product, the reflection, the unshot
+update and the grid sums) and counts `shooting_steps`; every Monte-Carlo
+sample opens `visibility` around its segments and their any hit, whose
+segments count in `segments` by route (`_occluded_dispatch`).
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ from ..core.math_utils import (
 from ..ops import intersect_allpairs
 from ..ops.intersect import occluded
 from ..scene.mesh import Geometry
-from ..utils.trace_scope import scope, scoped
+from ..utils.trace_scope import count, scope, scoped
 
 RADIOSITY_HISTORY = 10   # reference ring-buffer depth (application_state.h:47)
 PAIRS_PER_PASS = 1 << 20  # (receiver, source) pairs computed per tensor pass
@@ -144,13 +151,18 @@ def _pair_culling(geom: Geometry, rows: torch.Tensor,
 def _occluded_dispatch(geom, o, d, maxd, ex_a, ex_b, occlusion_packs):
     """Visibility of flat segments through the brute-force query (None),
     K7 (a CulledScene; inactive pairs carry maxd = 0, which the prepass
-    culls), K3 ((tri_pack, prim_ids)) or a callable."""
+    culls), K3 ((tri_pack, prim_ids)) or a callable. While recording,
+    the segments of the first three count in `segments` by route:
+    `brute`, `culled` or `allpairs`."""
     if occlusion_packs is None:
+        count("segments", o.shape[0], key="brute")
         return occluded(geom, o, d, maxd, exclude_a=ex_a, exclude_b=ex_b)
     if hasattr(occlusion_packs, "occluded"):
+        count("segments", o.shape[0], key="culled")
         return occlusion_packs.occluded(o, d, maxd, ex_a, ex_b)
     if callable(occlusion_packs):
         return occlusion_packs(o, d, maxd, ex_a, ex_b)
+    count("segments", o.shape[0], key="allpairs")
     tri_pack, prim_ids = occlusion_packs
     return intersect_allpairs.occluded(tri_pack, prim_ids, o, d, maxd,
                                        ex_a, ex_b)
@@ -235,21 +247,23 @@ def _mc_rows_pass(geom, fkey, chunk_ids, rows, cols, w_cols, n_samples,
     for s in range(n_samples):
         u = rng.uniform(rng.fold_in(ckey, s), (4, rc, c_n))  # (G, 4, rc, C)
         u = u.transpose(0, 1).reshape(4, r_n, c_n)
-        p_i = sample_on_corners(corners_i, u[0], u[1])
-        p_j = sample_on_corners(corners_j, u[2], u[3])
-        seg = p_j - p_i
-        r = length(seg)
-        sd = seg / r.clamp(min=1e-20)[..., None]
-        ct_i = dot(ni, sd)
-        ct_j = -dot(nj, sd)
-        active = (s < actual) & (r >= 1e-6) & (ct_i > 0.0) & (ct_j > 0.0)
-        # Inactive pairs never use their blocked value: a zero segment
-        # lets the kernel decide them without a test.
-        blocked = _occluded_dispatch(
-            geom, (p_i + offset).reshape(-1, 3), sd.reshape(-1, 3),
-            torch.where(active, r - 2e-4, 0.0).reshape(-1), ex_a, ex_b,
-            occlusion_packs,
-        ).reshape(r.shape)
+        with scope("visibility"):
+            p_i = sample_on_corners(corners_i, u[0], u[1])
+            p_j = sample_on_corners(corners_j, u[2], u[3])
+            seg = p_j - p_i
+            r = length(seg)
+            sd = seg / r.clamp(min=1e-20)[..., None]
+            ct_i = dot(ni, sd)
+            ct_j = -dot(nj, sd)
+            active = (s < actual) & (r >= 1e-6) & (ct_i > 0.0) & (
+                ct_j > 0.0)
+            # Inactive pairs never use their blocked value: a zero
+            # segment lets the kernel decide them without a test.
+            blocked = _occluded_dispatch(
+                geom, (p_i + offset).reshape(-1, 3), sd.reshape(-1, 3),
+                torch.where(active, r - 2e-4, 0.0).reshape(-1), ex_a, ex_b,
+                occlusion_packs,
+            ).reshape(r.shape)
         ok = active & ~blocked
 
         okf = ok.to(torch.float32)
@@ -628,21 +642,23 @@ def _shoot_step(geom: Geometry, key: rng.Key, radiosity, unshot, rad_grid,
         bands = _bands(geom, occlusion_packs, None,
                        min(row_chunk, geom.num_prims), k)
         rad_grid, grid_counts = [rad_grid], [grid_counts]
-    shooters = top_k_ids(luminance(unshot) * geom.area, k)
-    if sort_shooters:
-        shooters = torch.sort(shooters).values
-    shot = unshot[shooters]                                   # (k, 3)
+    with scope("shoot_select"):
+        shooters = top_k_ids(luminance(unshot) * geom.area, k)
+        if sort_shooters:
+            shooters = torch.sort(shooters).values
+        shot = unshot[shooters]                               # (k, 3)
     parts = bands.form_factors(rng.fold_in(key, step_idx), n_samples,
                                estimator, col_ids=shooters, col_weight=shot)
-    incident = bands.gather([p[0] for p in parts]) @ shot     # (N, 3)
-    reflected = reflect(geom.albedo, incident)
-    radiosity = radiosity + reflected
-    # every shooter's unshot is delivered exactly once (the ids are
-    # distinct); receivers bank the reflection for a later shot
-    unshot = unshot.index_fill(0, shooters, 0.0) + reflected
-    rad_grid = [g + p[2] for g, p in zip(rad_grid, parts)]
-    grid_counts = [c + p[1] for c, p in zip(grid_counts, parts)]
-    stats = transport_stats(geom, shooters, shot, incident, reflected)
+    with scope("transport"):
+        incident = bands.gather([p[0] for p in parts]) @ shot  # (N, 3)
+        reflected = reflect(geom.albedo, incident)
+        radiosity = radiosity + reflected
+        # every shooter's unshot is delivered exactly once (the ids are
+        # distinct); receivers bank the reflection for a later shot
+        unshot = unshot.index_fill(0, shooters, 0.0) + reflected
+        rad_grid = [g + p[2] for g, p in zip(rad_grid, parts)]
+        grid_counts = [c + p[1] for c, p in zip(grid_counts, parts)]
+        stats = transport_stats(geom, shooters, shot, incident, reflected)
     if one:
         rad_grid, grid_counts = rad_grid[0], grid_counts[0]
     return radiosity, unshot, rad_grid, grid_counts, stats
@@ -787,6 +803,7 @@ def drive_shooting(geom: Geometry, step_fn, rad_grid, grid_counts, *,
         h_cnt = min(h_cnt + 1, RADIOSITY_HISTORY)
         radiosity, unshot, rad_grid, grid_counts, st = step_fn(
             radiosity, unshot, rad_grid, grid_counts, step)
+        count("shooting_steps")
         stats = stats + st
         if check_every and (step + 1) % check_every == 0:
             rem = float((luminance(unshot) * geom.area).sum())

@@ -12,7 +12,13 @@ the device (`sync(site)`, counted in `host_syncs` by site), and the
 wavefront's lane counters `lane_slots` (lanes x iterations run, host
 arithmetic) and `lanes_live` (live lane-iterations, from the
 integrator's device tally). `core/rng.py` counts its tensor draws in
-`rng_calls` by path, `fused` (the CUDA kernel) or `eager`.
+`rng_calls` by path, `fused` (the CUDA kernel) or `eager`. The radiosity
+solves add the spans `shoot_select`, `visibility` and `transport` and the
+counters `shooting_steps` and `segments` (by any-hit route: `culled`,
+`allpairs`, `brute`); the culled segment route the
+(8-segment group, cluster) pairs its prepass tested, `prepass_groups`,
+and kept, `prepass_groups_kept` (a device tally); the guided sampler the
+span `guide_row` (the CDF-row fetch where the hit carries no row).
 
 Off, the default, `scope` and `sync` return one shared
 `contextlib.nullcontext` and `count` and `tally` return at once, after
@@ -109,6 +115,12 @@ def _lower_sync_debug() -> int:
     if mode:
         torch.cuda.set_sync_debug_mode(0)
     return mode
+
+
+def active() -> bool:
+    """Whether a recording is open: for a site whose count needs device
+    work, which it then does only while recording."""
+    return _active
 
 
 def scope(name: str):
