@@ -1302,6 +1302,20 @@ def keep_calls(step, fns, nth=None) -> dict:
     return kept
 
 
+def eager(r):
+    """r.step with the wavefront's iteration run eagerly, not replayed from
+    the renderer's CUDA graphs, so that a wrapped kernel function sees
+    each of its calls (the film is bitwise the same)."""
+    def step():
+        graphs, r.graphs = r.graphs, None
+        try:
+            r.step()
+        finally:
+            r.graphs = graphs
+
+    return step
+
+
 def keep_third_calls(step, fns) -> dict:
     """keep_calls' arguments of the third call under each key: {key:
     args}."""
@@ -2546,7 +2560,7 @@ def nee_phase(dev, start, end, headline, large):
     # one more pass keeping the third K3 call's inputs (the shadow rays of
     # one iteration), then K3's time per launch at that shape
     (k3_args,) = keep_third_calls(
-        r.step, [(ap, "occluded", lambda a: "K3")]).values()
+        eager(r), [(ap, "occluded", lambda a: "K3")]).values()
     k3_ms = time_call(lambda: ap.occluded(*k3_args), reps=20)
     k3_dev = device_ms(lambda: ap.occluded(*k3_args), reps=20)
     k3_open = int((k3_args[4] > 0).sum())
@@ -2616,7 +2630,7 @@ def nee_phase(dev, start, end, headline, large):
     # K6 and K7 calls, then their times per launch at the queues' lanes
     fns = {"K4 rays": ic.prepass_dense, "K4 segments": ic.prepass_dense,
            "K6": ic.closest_grouped, "K7": ic.occluded_grouped}
-    kept = keep_third_calls(r.step, [
+    kept = keep_third_calls(eager(r), [
         (ic, "prepass_dense", lambda a: "K4 rays" if len(a) < 6
          or a[5] is None else "K4 segments"),
         (ic, "closest_grouped", lambda a: "K6"),

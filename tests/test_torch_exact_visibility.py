@@ -300,3 +300,71 @@ def test_guide_row_span_and_film_bitwise(backend):
             r.step()
         films.append(r.film.accum.clone())
     assert torch.equal(films[0], films[1])
+
+
+# Three rays of the sub-6 box's guided MIS paths (cbox_sub6.mis's check,
+# seed 2200004104, depths 0, 2, 3) whose closest triangle lies within a
+# rounding of its cluster's box: the prepass on the plain boxes culled
+# that cluster, and the walk found another triangle.
+EDGE_RAYS = (
+    ((0.5, 3.0, 8.5),
+     (0.16014757752418518, 0.21002957224845886, -0.9644896388053894)),
+    ((2.7499001026153564, 5.242688179016113, -0.8496475219726562),
+     (-0.8194512724876404, 0.07621436566114426, -0.5680590271949768)),
+    ((0.8921492099761963, 5.499899864196777, -3.018582344055176),
+     (-0.4308874011039734, -0.8399918079376221, 0.3297726809978485)),
+)
+
+
+def test_culled_closest_hit_is_the_all_pairs_hit_at_cluster_edges():
+    """The culled closest hit (the prepass on the grown boxes, then K6's
+    plain version) is the all-pairs one (K2's plain version) on the rays
+    that the plain boxes lose: (t, id) bitwise, 9910, 3444 and 12429."""
+    app = App(Config(scene="cbox_quads", subdivision=6, backend="culled"),
+              device="cpu")
+    app.load_scene()
+    o = torch.tensor([r[0] for r in EDGE_RAYS], dtype=torch.float32)
+    d = torch.tensor([r[1] for r in EDGE_RAYS], dtype=torch.float32)
+    want = ap.closest_tuv_plain(ap.pack_triangles(app.geom), o, d, 1e-4)
+    t, orig, _ = app.culled.closest_tuv(o, d, 1e-4)
+    assert torch.equal(t, want[0]) and torch.equal(orig, want[1])
+    assert orig.tolist() == [9910, 3444, 12429]
+    part = app.culled.parts[0]
+    t_old, orig_old = ic.closest_tuv_grouped(
+        part.tri_pack, part.cluster_min, part.cluster_max, o, d, 1e-4)
+    assert (orig_old != orig).all()
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+def test_culled_closest_hit_is_the_all_pairs_hit_on_sampled_rays(parts):
+    """On a seeded sample of the sub-4 box's camera rays (from the
+    configured camera, whose origin lies outside `segment_boxes`' bound)
+    and bounce rays (from random points on random triangles, in random
+    directions), the culled closest hit (the grouped walk on the grown
+    boxes, one part, or two behind `may_hit` and `park`) is the
+    all-pairs one, (t, id) bitwise."""
+    app = App(Config(scene="cbox_quads", subdivision=4, backend="culled"),
+              device="cpu")
+    geom = app.load_scene()
+    cap = None if parts == 1 else geom.num_tris // parts
+    scene = ic.CulledScene(geom, max_tris_per_part=cap)
+    assert len(scene.parts) == parts
+    g = np.random.default_rng(SEED)
+    n = 1024
+    cam = app.camera_ctrl.build("cpu")
+    uv = torch.from_numpy(g.random((2, n), dtype=np.float32))
+    oc, dc = cam.get_rays(uv[0], uv[1])
+    tri = torch.from_numpy(g.integers(0, geom.num_tris, n))
+    a, b = torch.from_numpy(g.random((2, n, 1), dtype=np.float32))
+    a, b = torch.minimum(a, 1.0 - b), torch.minimum(b, 1.0 - a)
+    ob = geom.tri_v0[tri] + a * geom.tri_e1[tri] + b * geom.tri_e2[tri]
+    db = torch.nn.functional.normalize(
+        torch.from_numpy(g.standard_normal((n, 3), dtype=np.float32)),
+        dim=1)
+    o, d = torch.cat([oc, ob]), torch.cat([dc, db])
+    want = ap.closest_tuv_plain(ap.pack_triangles(geom), o, d, 1e-4)
+    t, orig, _ = scene.closest_tuv(o, d, 1e-4)
+    assert torch.equal(t, want[0])
+    hit = torch.isfinite(t)
+    assert torch.equal(orig[hit], want[1][hit])
+    assert int(hit.sum()) > n

@@ -91,10 +91,9 @@ def test_spans_nest_and_clear_on_entry():
             p = spans[s.parent]
             assert p.t0 <= s.t0 <= s.t1 <= p.t1 and s.parent < i
     syncs = trace_scope.counters()["host_syncs"]
-    # the BSDF sampler's frame: two constants copied from the host an
-    # iteration
-    assert syncs == {"park_dir": 1, "live_check": 1, "image": 1,
-                     "frame_basis": 2 * r.iterations}
+    # the sampler's frame and the park direction copy nothing from the
+    # host: the live-lane test and the image are the pass's only waits
+    assert syncs == {"live_check": 1, "image": 1}
     assert sum(s.name == "sync" for s in spans) == sum(syncs.values())
 
 
@@ -210,7 +209,7 @@ def test_lane_slots_over_batches():
     c = trace_scope.counters()
     assert c["lane_slots"] == 128 * r.iterations
     assert c["lanes_live"] == r.total_rays
-    assert c["host_syncs"]["park_dir"] == 2
+    assert "park_dir" not in c["host_syncs"]
 
 
 @pytest.mark.parametrize("check_every", [1, 3, 8])
@@ -255,7 +254,7 @@ def test_card_every_sync_is_a_counted_site(cell):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = trace_scope.counters()["host_syncs"]
-    want = {"park_dir", "live_check", "frame_basis", "pass_barrier"}
+    want = {"live_check", "pass_barrier"}
     want |= {"image"} if frame else set()
     want |= {"swizzle"} if app.culled is not None else set()
     assert set(syncs) == want, syncs

@@ -68,6 +68,7 @@ from .ops.intersect_culled import CulledScene
 from .parallel.sharding import TiledRenderer, indexed_device, make_mesh
 from .render.camera import CameraController
 from .render.film import Film
+from .render.integrator import WavefrontGraphs
 from .render.radiosity import (
     RadiositySolution,
     solve_radiosity,
@@ -77,6 +78,7 @@ from .render.renderer import (
     ProgressiveRenderer,
     RenderSettings,
     pick_primitive,
+    render_packs,
     render_radiosity_view,
 )
 from .scene.builtin import cornell_box
@@ -176,6 +178,11 @@ class App:
         self.filtered_radiosity = None
         self.camera_ctrl: CameraController | None = None
         self._renderer = None   # a ProgressiveRenderer or TiledRenderer
+        # the wavefront's CUDA graphs and the packs its renderers read,
+        # kept across renderers (an orbit builds a new one) until the
+        # scene, the backend or the CDFs change (`_new_backend`)
+        self.graphs = WavefrontGraphs()
+        self._render_packs = None
 
     def load_scene(self) -> Geometry:
         cfg = self.config
@@ -198,7 +205,14 @@ class App:
         self.solution = None
         self.cdfs = None
         self._renderer = None
+        self._new_backend()
         return self.geom
+
+    def _new_backend(self) -> None:
+        """Drop what was built on the old scene, backend or CDFs: the
+        wavefront's graphs and the renderers' packs."""
+        self.graphs.clear()
+        self._render_packs = None
 
     def _select_backend(self) -> None:
         """"auto" -> the all-pairs kernel on CUDA (the cluster-culled
@@ -325,6 +339,7 @@ class App:
             pdf = top_k_mask(pdf, cfg.top_k)
         with self.profiler.stage("CDF Build"):
             self.cdfs = build_cdfs(pdf)
+        self._new_backend()
         log.info("CDFs built from '%s': %d/%d primitives valid", src,
                  int(self.cdfs.valid.sum()), self.geom.num_prims)
         return self.cdfs
@@ -377,15 +392,21 @@ class App:
                 balance_lanes=cfg.balance_lanes,
                 nee=cfg.nee,
             )
+            packs_key = (settings.sampling_mode, settings.nee)
+            if self._render_packs is None \
+                    or self._render_packs[0] != packs_key:
+                self._render_packs = (packs_key, render_packs(
+                    self.geom, settings, self.tri_pack, self.attr_pack,
+                    self.cdfs, None))
+            attr_pack, prim_ids = self._render_packs[1]
             backend = dict(
                 seed=cfg.seed,
                 tri_pack=self.tri_pack,
-                attr_pack=self.attr_pack,
+                attr_pack=attr_pack,
                 cdfs=self.cdfs,
                 mis_bsdf_fraction=cfg.mis_bsdf_fraction,
                 culled=self.culled,
-                prim_ids=(pack_prim_ids(self.geom)
-                          if cfg.nee and self.tri_pack is not None else None),
+                prim_ids=prim_ids,
                 bvh=self.bvh,
             )
             camera = self.camera_ctrl.build(self.device)
@@ -399,7 +420,7 @@ class App:
             else:
                 self._renderer = ProgressiveRenderer(
                     self.geom, camera, settings, device=self.device,
-                    **backend)
+                    graphs=self.graphs, **backend)
         return self._renderer
 
     def _view_settings(self) -> RenderSettings:

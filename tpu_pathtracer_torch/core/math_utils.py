@@ -13,8 +13,6 @@ import math
 
 import torch
 
-from ..utils import trace_scope
-
 PI = math.pi
 TWO_PI = 2.0 * math.pi
 
@@ -46,20 +44,18 @@ def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def build_frame(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Frisvad orthonormal basis (tangent, bitangent) for unit normals n,
-    including the z < -0.9999999 singular branch, branch-free."""
+    including the z < -0.9999999 singular branch, branch-free: the
+    singular frame ((0, -1, 0), (-1, 0, 0)) is picked component by
+    component with scalars, so nothing is copied from the host."""
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
     singular = nz < -0.9999999
     a = 1.0 / torch.where(singular, torch.ones_like(nz), 1.0 + nz)
-    b = -nx * ny * a
-    t_reg = torch.stack([1.0 - nx * nx * a, b, -nx], dim=-1)
-    b_reg = torch.stack([b, 1.0 - ny * ny * a, -ny], dim=-1)
-    # each constant is a copy from the host, which waits for the device
-    with trace_scope.sync("frame_basis"):
-        t_sing = n.new_tensor([0.0, -1.0, 0.0]).expand(n.shape)
-    with trace_scope.sync("frame_basis"):
-        b_sing = n.new_tensor([-1.0, 0.0, 0.0]).expand(n.shape)
-    s = singular[..., None]
-    return torch.where(s, t_sing, t_reg), torch.where(s, b_sing, b_reg)
+    b = torch.where(singular, -1.0, -nx * ny * a)   # t's y and b's x
+    t = torch.stack([torch.where(singular, 0.0, 1.0 - nx * nx * a), b,
+                     torch.where(singular, 0.0, -nx)], dim=-1)
+    bt = torch.stack([b, torch.where(singular, 0.0, 1.0 - ny * ny * a),
+                      torch.where(singular, 0.0, -ny)], dim=-1)
+    return t, bt
 
 
 def to_local(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,10 @@ pure function of (seed, pixel, sample, depth), whatever the batch layout.
 
 Tensor arithmetic runs in int64 masked to 32 bits: torch does not shift
 uint32 tensors on the CPU. The same function hashes Python ints (for key
-derivation) and int64 tensors (for lanes).
+derivation) and int64 tensors (for lanes). `lane_uniforms` also takes a
+broadcast key: a pair of one-element int64 tensors, such as the two words
+of a device buffer that a CUDA graph reads when it replays (the same bits
+as the integer key of the same words).
 
 On a CUDA device a tensor draw (`lane_uniforms`, `uniform`, `fold_in`
 with a tensor) is one launch of the hand-written kernel
@@ -128,7 +131,9 @@ def lane_uniforms(
     One counter-mode sweep, as in the JAX package: block k of lane i
     hashes (lane id, sub_id * 256 + k) and yields draws 2k and 2k + 1;
     bits become floats by the mantissa fill. Requires n <= 512 when
-    sub_ids is given."""
+    sub_ids is given. `key` is two integers or a broadcast key: two
+    one-element int64 tensors on the lanes' device (on the card the
+    kernel reads them there)."""
     if sub_ids is not None and n > 512:
         raise ValueError("sub_ids packing supports n <= 512")
     if _on_card(lane_ids.device):
@@ -208,8 +213,11 @@ def _on_card(device) -> bool:
 
 
 def _lane_uniforms_fused(key, lane_ids, n, sub_ids):
-    if any(isinstance(k, torch.Tensor) for k in key):
-        raise ValueError("lane_uniforms on the card takes integer key words")
+    if isinstance(key[0], torch.Tensor):
+        if any(k.numel() != 1 for k in key):
+            raise ValueError("lane_uniforms on the card takes integer key "
+                             "words or a broadcast key of one word each")
+        key = _flat(key)
     if lane_ids.ndim != 1:
         raise ValueError(f"lane_ids must be 1-D, got {tuple(lane_ids.shape)}")
     b = lane_ids.shape[0]
@@ -301,7 +309,8 @@ def _run(mode, key, out, out1=None, *, ids=None, sub=None, data=0, rows=1,
     """The kernel's launch on out's CUDA device and current stream.
 
     key: two Python ints, or two flat contiguous int64 tensors (a key an
-    output row, or an element in `_FOLD`); ids: the lane ids (`_LANE`) or
+    output row, or an element in `_FOLD`; one word each, broadcast, in
+    `_LANE`); ids: the lane ids (`_LANE`) or
     the data (`_FOLD`), 1-D int64 read with its stride; sub: the sub ids,
     1-D int64 read with its stride (0 broadcasts one); data: the scalar
     data of `_FOLD`; out: the (rows, n) float32 draws, or the first key

@@ -18,7 +18,10 @@
 //            k + sub_ids[i] * 256), or (lane_ids[i], k) without sub ids, and
 //            yields draws 2k and 2k + 1 (the second dropped when n is odd).
 //            lane_ids and sub_ids are int64, read with their strides (0
-//            broadcasts one sub id), so no copy or mask runs first.
+//            broadcasts one sub id), so no copy or mask runs first. The key
+//            is the scalar one, or the broadcast key (key0[0], key1[0]) read
+//            from device memory: a CUDA graph that replays the launch then
+//            draws under whatever key the buffer holds.
 //   kUniform (K, n) float32: element j of key g hashes (0, j) and yields
 //            its bits y0 ^ y1; key g is (key0[g], key1[g]) or the scalar
 //            key. A thread makes kVec consecutive draws of one key and
@@ -49,7 +52,7 @@ enum Mode : int { kLane = 0, kUniform = 1, kFold = 2 };
 
 struct Args {
   uint32_t k0, k1;            // scalar key words (key0 == nullptr)
-  const long long* key0;      // per-key words: kUniform K, kFold n
+  const long long* key0;      // key words: kUniform K, kFold n, kLane 1
   const long long* key1;
   const long long* ids;       // kLane lane ids, kFold data (or nullptr)
   long long ids_stride;
@@ -113,7 +116,12 @@ __device__ __forceinline__ void lane_item(const Args& a, long long q) {
   uint32_t x1 = k;
   if (a.sub != nullptr)
     x1 += static_cast<uint32_t>(a.sub[i * a.sub_stride]) * 256u;
-  threefry(a.k0, a.k1, x0, x1);
+  uint32_t k0 = a.k0, k1 = a.k1;
+  if (a.key0 != nullptr) {
+    k0 = static_cast<uint32_t>(a.key0[0]);
+    k1 = static_cast<uint32_t>(a.key1[0]);
+  }
+  threefry(k0, k1, x0, x1);
   float* row = a.out + i * a.n;
   const float f0 = unit_float(x0), f1 = unit_float(x1);
   if ((a.n & 1) == 0) {        // the row and 2k are even: 8-byte aligned

@@ -55,13 +55,22 @@ least `_SC_MIN_CLUSTERS` clusters, read at call time as the JAX package
 reads its own copy: 2**30, so never in production (the TPU measured the
 walk a wash); a caller lowers it to run the walk.
 
-Exact segment visibility. The segment route (`CulledScene.occluded`)
-runs the prepass on each cluster's box grown by `segment_boxes`' pad,
-which covers the rounding of K3's affine t and u, v: a cluster is culled
-only where none of its triangles can block the segment in K3's
-arithmetic, which the walk (K7) also tests in. So the culled any hit
-answers as K3 does on every segment. The ray route keeps the plain
-boxes. (The JAX package culls segments by the plain boxes.)
+Exact visibility and exact hits. The segment route (`occluded`) and
+the grouped walk of the ray route (`closest_hit`, regroup included) run
+the prepass on each cluster's box grown by `segment_boxes`' pad, which
+covers the rounding of the all-pairs kernels' affine t and u, v within
+the scale that its docstring bounds: a cluster is culled only where none
+of its triangles can block the segment or be hit by the ray in that
+arithmetic, which the walks (K6, K7) also test in. So the culled any hit
+answers as K3 does on every segment the port traces, and the culled
+closest hit is K2's (and the brute force's) on bounce rays and on camera
+rays from origins up to the bound's reach; beyond it (a camera zoomed far
+out) the grown boxes, which hold the plain ones, still keep every
+cluster the plain boxes keep. On the plain boxes a ray that meets its
+closest triangle within a rounding of its cluster's box could lose it (3
+of 5,250,644 rays of the sub-6 box's guided MIS paths). The row walk
+(K8-K11, `closest_tuv_dma`: grouped=False or sort_rays=True) keeps the
+plain boxes. (The JAX package culls by the plain boxes.)
 
 Semantics. The slab test is `_prepass_block_vals`'s, with the inverse
 direction clamped at 1e-8 and NaN bounds (padding clusters) failing every
@@ -185,7 +194,16 @@ def segment_boxes(geom: Geometry, order: np.ndarray, cluster_min,
     slab test's own rounding (3 roundings an axis: 1.5 x 2**-23 x S /
     |d_a| in t; an axis of |d_a| <= 1e-8 keeps the 1e8 clamp's interval)
     does not use up: the prepass's entry is at most t < maxd and its
-    exit at least t, and the cluster is kept."""
+    exit at least t, and the cluster is kept.
+
+    Rays. The grouped ray walk tests the same boxes, with the hit's t in
+    place of maxd. Every rounding above scales with S' = |o|_inf +
+    |v0|_inf + |t d|_inf, which the pad takes as S; it still covers
+    them while 16 S' (kappa + 1) + 1.5 S' < 64 S (kappa + 1), so on every
+    ray with S' <= 3.5 S: bounce rays (S' <= S, as segments) and the
+    cameras the port configures (the cbox camera at z = 8.5 reads S' ~
+    28.5 against S = 23). S is fixed at build and a viewer's camera is
+    not: a camera further out is beyond the bound."""
     v0, e1, e2 = (_host(x) for x in (geom.tri_v0, geom.tri_e1,
                                      geom.tri_e2))
     verts = np.concatenate([v0, v0 + e1, v0 + e2])
@@ -897,9 +915,9 @@ class CulledPart:
     """One pack of a CulledScene: tri_pack (Tpad, 16), cluster_min /
     cluster_max (C, 3), attr_table (Tpad, 16) shading rows in pack order
     [nx ny nz | ar ag ab | er eg eb | material | prim | pad], the part's
-    bounding box lo / hi (3,), and the segment route's cluster boxes
-    seg_min / seg_max (C, 3) (`segment_boxes`) and their bounding box
-    seg_lo / seg_hi (3,)."""
+    bounding box lo / hi (3,), and the grown cluster boxes that the
+    grouped walks' prepass tests, seg_min / seg_max (C, 3)
+    (`segment_boxes`), with their bounding box seg_lo / seg_hi (3,)."""
 
     def __init__(self, geom: Geometry, order: np.ndarray):
         self.tri_pack, self.cluster_min, self.cluster_max = \
@@ -937,11 +955,10 @@ class CulledPart:
 
     def may_hit(self, o, d, t_min, maxd=None):
         """Conservative ray-vs-part-box slab test (B,) bool, the prepass's
-        formula: a cluster hit implies a part hit (slab hits are monotone
-        under box inclusion), so culling on a miss is exact. Segments
-        (maxd given) test the box of the segment boxes."""
-        lo, hi = (self.lo, self.hi) if maxd is None else (self.seg_lo,
-                                                           self.seg_hi)
+        formula on the box of the grown boxes: a cluster hit implies a
+        part hit (slab hits are monotone under box inclusion), so culling
+        on a miss is exact."""
+        lo, hi = self.seg_lo, self.seg_hi
         it = _inv_dir(d)
         t1 = (lo[None, :] - o) * it
         t2 = (hi[None, :] - o) * it
@@ -953,12 +970,12 @@ class CulledPart:
         return hit
 
     def park(self, may_hit, o, d):
-        """Rays that miss the part, moved outside its box pointing away
-        (+x past hi): every cluster's x-interval is then negative and the
-        prepass schedules nothing for them."""
+        """Rays that miss the part, moved outside its grown box pointing
+        away (+x past seg_hi): every cluster's x-interval is then negative
+        and the prepass schedules nothing for them."""
         with trace_scope.sync("part_park_dir"):
             park_d = torch.tensor([1.0, 0.0, 0.0], device=o.device)
-        return (torch.where(may_hit[:, None], o, self.hi[None, :] + 1.0),
+        return (torch.where(may_hit[:, None], o, self.seg_hi[None, :] + 1.0),
                 torch.where(may_hit[:, None], d, park_d))
 
 
@@ -1030,8 +1047,8 @@ class CulledScene:
         order = torch.sort(key.view(-1, RAYS_PER_TILE), dim=1,
                            stable=True).indices
         lanes = (order + lane.view(-1, RAYS_PER_TILE)[:, :1]).view(-1)
-        t, orig = closest_tuv_grouped(part.tri_pack, part.cluster_min,
-                                      part.cluster_max, o[lanes], d[lanes],
+        t, orig = closest_tuv_grouped(part.tri_pack, part.seg_min,
+                                      part.seg_max, o[lanes], d[lanes],
                                       t_min)
         return (torch.empty_like(t).index_put_((lanes,), t),
                 torch.empty_like(orig).index_put_((lanes,), orig))
@@ -1040,8 +1057,8 @@ class CulledScene:
         if self.regroup and o.shape[0] % RAYS_PER_TILE == 0:
             return self._regrouped_tuv(part, o, d, t_min, camera_mask)
         if self.grouped:
-            return closest_tuv_grouped(part.tri_pack, part.cluster_min,
-                                       part.cluster_max, o, d, t_min)
+            return closest_tuv_grouped(part.tri_pack, part.seg_min,
+                                       part.seg_max, o, d, t_min)
         from .intersect_culled_legacy import closest_tuv_dma
 
         return closest_tuv_dma(part.tri_pack, part.cluster_min,

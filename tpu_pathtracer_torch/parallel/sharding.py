@@ -41,6 +41,7 @@ from ..ops.guiding import CDFPack
 from ..render import radiosity as rad
 from ..render.camera import Camera
 from ..render.film import Film
+from ..render.integrator import WavefrontGraphs
 from ..render.renderer import (
     RenderSettings,
     render_pass,
@@ -124,11 +125,12 @@ def band_settings(s: RenderSettings, y0: int, y1: int) -> RenderSettings:
 def render_pass_tiled(geom, camera, films: list[Film], key: rng.Key,
                       settings: RenderSettings, mesh, *, cdfs=None,
                       mis_bsdf_fraction: float = 0.5, tri_pack=None,
-                      attr_pack=None, culled=None, prim_ids=None, bvh=None):
+                      attr_pack=None, culled=None, prim_ids=None, bvh=None,
+                      graphs=None):
     """One progressive pass of the frame `settings` describes: band i
     (`band_rows`) renders on mesh[i] into films[i]. Each scene argument
     is one object (copied to the bands' devices here) or a list with one
-    per band. Returns (rays as an int64 scalar on mesh[0], iterations
+    per band; `graphs` (a `WavefrontGraphs`) serves every band. Returns (rays as an int64 scalar on mesh[0], iterations
     over all bands)."""
     mesh = make_mesh(devices=mesh)
     rows = band_rows(settings.height, len(mesh))
@@ -146,7 +148,7 @@ def render_pass_tiled(geom, camera, films: list[Film], key: rng.Key,
             g, cam, film, key, band_settings(settings, y0, y1), tp, ap, cd,
             mis_bsdf_fraction, cs, pid, None, bv,
             pixel_offset=y0 * settings.width,
-            view_size=(settings.width, settings.height))
+            view_size=(settings.width, settings.height), graphs=graphs)
         rays += r.to(mesh[0])
         iters += it
     return rays, iters
@@ -190,6 +192,7 @@ class TiledRenderer:
             attr_pack=attr_pack, culled=culled, prim_ids=prim_ids,
             bvh=bvh).items()}
         self.key = rng.base_key(seed)
+        self.graphs = WavefrontGraphs()
         self.films = [Film.create(settings.width, y1 - y0, d)
                       for (y0, y1), d in zip(self.rows, self.mesh)]
         self._rays = torch.zeros((), dtype=torch.int64, device=self.mesh[0])
@@ -203,7 +206,7 @@ class TiledRenderer:
         rays, iters = render_pass_tiled(
             films=self.films, key=self.key, settings=self.settings,
             mesh=self.mesh, mis_bsdf_fraction=self.mis_bsdf_fraction,
-            **self._scene)
+            graphs=self.graphs, **self._scene)
         self._rays += rays
         self.iterations += iters
         self._spp_host += self.settings.spp_per_pass

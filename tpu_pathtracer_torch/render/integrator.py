@@ -33,6 +33,16 @@ port tests it only every `check_every` iterations. Iterations after the
 last lane died add nothing (dead lanes contribute zero and never revive),
 so the film is bitwise the same for every `check_every`.
 
+On the card each iteration launches a few hundred small kernels, and the
+host, not the device, set the pace. So with a `WavefrontGraphs` the
+iteration runs as CUDA graphs: captured the first time a batch shape is
+seen, cut wherever it enters or leaves a phase scope (so that a
+profiler still finds each kernel under its phase), and replayed on
+static buffers between the live-lane tests. Nothing in it waits for the
+device: `build_frame` takes its singular frame from scalars, the park
+direction is made on the device, and the RNG reads the pass's key words
+from a device buffer.
+
 The JAX package fetches the light table by one-hot contractions (a TPU
 workaround for per-lane gathers); the port gathers, which is exact, as a
 one-hot row of finite values sums to the picked value.
@@ -40,6 +50,11 @@ one-hot row of finite values sums to the picked value.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import warnings
+from collections import OrderedDict
+from dataclasses import fields, is_dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -66,7 +81,7 @@ from ..core.math_utils import (
     power_heuristic,
     reflect,
 )
-from ..ops import intersect_allpairs
+from ..ops import intersect_allpairs, intersect_culled, intersect_culled_legacy
 from ..ops.bvh import BVH, bvh_closest_hit
 from ..ops.guiding import (
     CDFPack,
@@ -79,9 +94,12 @@ from ..ops.intersect import Hit, closest_hit, occluded
 from ..ops.intersect_culled_legacy import octant
 from ..scene.mesh import Geometry
 from ..utils import trace_scope
+from ..utils.logger import get_logger
 from ..utils.trace_scope import scope
 from .camera import Camera
 from .radiosity import sample_on_corners
+
+log = get_logger("Wavefront")
 
 
 class TraceStats(NamedTuple):
@@ -504,9 +522,502 @@ def lane_sort_order(o, d, alive, scene_lo, inv_ext):
     return torch.argsort(torch.where(alive, code, 1 << 30), stable=True)
 
 
+
+
 # lane state the lane sort permutes (with the queue and NEE state present)
 _SORTED_STATE = ("o", "d", "beta", "total", "alive", "depth", "done", "orig",
                  "pid", "slot", "pidq", "steps", "prev_pdf")
+# lane state a batch returns from
+_OUTPUTS = ("total", "lanes", "shadow", "steps", "orig")
+
+
+class _Wave(NamedTuple):
+    """What a batch of `trace_wavefront` reads besides its lane state:
+    the settings, the backend, the pass's keys and camera, and the
+    constants made from the scene."""
+
+    geom: Geometry
+    camera: Camera
+    key_cam: rng.Key
+    key_path: rng.Key
+    width: int
+    height: int
+    spp: int
+    max_depth: int
+    k: int
+    mode: int
+    cdfs: CDFPack | None
+    probs: tuple[float, float]
+    n_draws: int
+    tri_pack: torch.Tensor | None
+    attr_pack: torch.Tensor | None
+    culled: object
+    bvh: BVH | None
+    nee_args: tuple | None
+    sort_rays: bool
+    tile_sync: int
+    lane_steps: bool
+    scene_lo: torch.Tensor
+    inv_ext: torch.Tensor
+    park_o: torch.Tensor
+    park_d: torch.Tensor
+    slots: torch.Tensor | None
+
+
+def _wave(geom, camera, key_cam, key_path, dev, *, mis_bsdf_fraction,
+          nee, prim_ids, **kw) -> _Wave:
+    scene_lo = geom.corners.reshape(-1, 3).amin(dim=0)
+    scene_hi = geom.corners.reshape(-1, 3).amax(dim=0)
+    # Lanes that finished every sample park on a ray that starts outside
+    # the scene and points away, +x (the culled prepass schedules nothing
+    # for them), made on the device: no copy from the host.
+    park_d = torch.zeros((3,), dtype=torch.float32, device=dev)
+    park_d[:1].fill_(1.0)
+    nee_args = None
+    if nee:
+        nee_args = (build_nee_pack(geom),
+                    occlusion_fn(geom, kw["tri_pack"], prim_ids,
+                                 kw["culled"]))
+    return _Wave(
+        geom=geom, camera=camera, key_cam=key_cam, key_path=key_path,
+        probs=mis_probabilities(mis_bsdf_fraction),
+        n_draws=_num_draws(kw["mode"], nee), nee_args=nee_args,
+        scene_lo=scene_lo,
+        inv_ext=1.0 / torch.clamp(scene_hi - scene_lo, min=1e-6),
+        park_o=scene_hi + 1.0, park_d=park_d,
+        slots=torch.arange(kw["k"], device=dev) if kw["k"] > 1 else None,
+        **kw)
+
+
+def _spawn(w: _Wave, mask, o, d, pid, sample_idx):
+    """Camera rays of sample `sample_idx` of pixels `pid` where `mask`,
+    (o, d) elsewhere."""
+    jit2 = rng.lane_uniforms(w.key_cam, pid, 2, sub_ids=sample_idx)
+    u = ((pid % w.width).to(torch.float32) + jit2[:, 0]) / w.width
+    v = ((pid // w.width).to(torch.float32) + jit2[:, 1]) / w.height
+    co, cd = w.camera.get_rays(u, v)
+    m = mask[:, None]
+    return torch.where(m, co, o), torch.where(m, cd, d)
+
+
+def _initial_state(w: _Wave, lane_ids) -> dict:
+    """A batch's lane state before its first iteration: every lane on
+    sample 0 of its first pixel, and the tallies of live lane-iterations
+    (`lanes`) and, with NEE, shadow rays (`shadow`) at 0."""
+    b, k, dev = lane_ids.shape[0], w.k, lane_ids.device
+    pidq = lane_ids.to(torch.int64).reshape(b, k)
+    s = dict(
+        beta=torch.ones((b, 3), dtype=torch.float32, device=dev),
+        total=torch.zeros((b, k, 3), dtype=torch.float32, device=dev),
+        alive=torch.ones((b,), dtype=torch.bool, device=dev),
+        depth=torch.zeros((b,), dtype=torch.int64, device=dev),
+        done=torch.ones((b,), dtype=torch.int64, device=dev),  # sample 0
+        pid=pidq[:, 0],
+        slot=torch.zeros((b,), dtype=torch.int64, device=dev),
+        pidq=pidq,
+    )
+    s["o"], s["d"] = _spawn(
+        w, s["alive"], torch.zeros((b, 3), dtype=torch.float32, device=dev),
+        torch.ones((b, 3), dtype=torch.float32, device=dev), s["pid"],
+        torch.zeros((b,), dtype=torch.int64, device=dev))
+    if w.sort_rays:
+        s["orig"] = torch.arange(b, device=dev)  # a lane's place unsorted
+    if w.nee_args is not None:
+        s["prev_pdf"] = torch.full((b,), -1.0, dtype=torch.float32,
+                                   device=dev)
+    if w.lane_steps:
+        s["steps"] = torch.zeros((b,), dtype=torch.int64, device=dev)
+    if w.tile_sync:
+        s["waiting"] = torch.zeros((b,), dtype=torch.bool, device=dev)
+    # live lane-iterations, and NEE's shadow rays apart: joined once
+    s["lanes"] = torch.zeros((), dtype=torch.int64, device=dev)
+    if w.nee_args is not None:
+        s["shadow"] = torch.zeros((), dtype=torch.int64, device=dev)
+    return s
+
+
+def _iterate(w: _Wave, s: dict) -> None:
+    """One wavefront iteration: intersect, shade, end or respawn paths.
+    The lane state `s` takes the new tensors; the tallies `lanes` and
+    `shadow` are added to in place."""
+    alive, depth, done, pid, slot = (s["alive"], s["depth"], s["done"],
+                                     s["pid"], s["slot"])
+    s["lanes"] += alive.sum()
+    if w.lane_steps:
+        s["steps"] = s["steps"] + alive.to(torch.int64)
+    d = s["d"]
+    hit = _intersect(w.geom, s["o"], d, w.tri_pack, w.attr_pack, w.culled,
+                     camera_mask=alive & (depth == 0), bvh=w.bvh)
+    live = alive & hit.valid
+    emis_w = None
+    if w.nee_args is not None:
+        s["shadow"] += _nee_shadow_count(live, hit, depth < w.max_depth - 1)
+        emis_w = nee_hit_weight(w.nee_args[0], hit, d, s["prev_pdf"])
+    # (sample, depth) counter: `done` counts started samples, so the
+    # in-flight sample is done - 1; depth is pre-increment.
+    draws = rng.lane_uniforms(
+        w.key_path, pid, w.n_draws,
+        sub_ids=(done - 1) * (w.max_depth + 1) + depth,
+    )
+    o, d, beta, live, contrib, pdf_b = _shade(
+        hit, d, s["beta"], live, draws, depth > RR_START_DEPTH, w.mode,
+        w.cdfs, w.probs, nee=w.nee_args, emis_w=emis_w,
+        nee_active=depth < w.max_depth - 1,
+    )
+    if w.k == 1:
+        s["total"] = s["total"] + contrib[:, None, :]
+    else:     # into the lane's current queue slot
+        s["total"] = s["total"] + torch.where(
+            (slot[:, None] == w.slots[None, :])[:, :, None],
+            contrib[:, None, :], 0.0)
+
+    depth = depth + 1
+    live = live & (depth < w.max_depth)
+    path_end = alive & ~live
+    respawn = path_end & (done < w.spp)
+    if w.k > 1:
+        # queue advance: the slot's samples are spent and another pixel
+        # waits; its sample 0 spawns in this iteration
+        if w.tile_sync:
+            waiting = s["waiting"] | (path_end & (done >= w.spp)
+                                      & (slot + 1 < w.k))
+            ready = ~(live | respawn).view(-1, w.tile_sync).any(dim=1)
+            # each tile's flag over its lanes (`repeat_interleave` would
+            # copy its count from the host)
+            adv = waiting & ready[:, None].expand(-1, w.tile_sync).reshape(-1)
+            s["waiting"] = waiting & ~adv
+        else:
+            adv = path_end & (done >= w.spp) & (slot + 1 < w.k)
+        slot = slot + adv.to(torch.int64)
+        done = torch.where(adv, 0, done)
+        pid = torch.where(adv, s["pidq"].gather(1, slot[:, None])[:, 0], pid)
+        respawn = respawn | adv
+    o, d = _spawn(w, respawn, o, d, pid, done)
+    beta = torch.where(respawn[:, None], 1.0, beta)
+    depth = torch.where(respawn, 0, depth)
+    done = done + respawn.to(torch.int64)
+    alive = live | respawn
+    s.update(o=torch.where(alive[:, None], o, w.park_o),
+             d=torch.where(alive[:, None], d, w.park_d), beta=beta,
+             alive=alive, depth=depth, done=done, pid=pid, slot=slot)
+    if w.nee_args is not None:
+        # camera (re)spawns carry the sentinel: no light-sampling
+        # competitor for directly visible emission
+        s["prev_pdf"] = torch.where(respawn, -1.0, pdf_b)
+    if w.sort_rays:
+        perm = lane_sort_order(s["o"], s["d"], alive, w.scene_lo, w.inv_ext)
+        for name in _SORTED_STATE:
+            if name in s:
+                s[name] = s[name][perm]
+
+
+# --- the iteration as CUDA graphs -------------------------------------------
+
+GRAPH_CACHE = 8      # batch shapes and scenes a WavefrontGraphs keeps
+
+
+def _declines(tri_pack, culled, bvh) -> bool:
+    """Backends whose query waits for the device inside the iteration, so
+    that no graph can hold it: the BVH's lockstep walk (its live-stack
+    tests) and a culled scene of several parts (each part's park
+    direction, copied from the host)."""
+    if culled is not None:
+        return len(culled.parts) > 1
+    return tri_pack is None and bvh is not None
+
+
+def _scene_refs(*objs) -> list:
+    """The tensors (and culled scenes) a graph of the iteration reads:
+    every field of the dataclasses (Geometry, CDFPack, BVH), the packs,
+    the CulledScene itself."""
+    out = []
+    for x in objs:
+        if x is None:
+            continue
+        if is_dataclass(x):
+            out += [getattr(x, f.name) for f in fields(x)]
+        else:
+            out.append(x)
+    return out
+
+
+@functools.cache
+def _launch_counters() -> tuple:
+    """(wrapper, attribute) of each kernel launch counter the iteration
+    may advance: the integer attributes named `*launches` of the
+    functions of `core/rng.py` and of the intersection modules."""
+    seen = {}
+    for mod in (rng, intersect_allpairs, intersect_culled,
+                intersect_culled_legacy):
+        for fn in vars(mod).values():
+            if not callable(fn) or not hasattr(fn, "__dict__"):
+                continue
+            for attr, v in vars(fn).items():
+                if attr.endswith("launches") and isinstance(v, int):
+                    seen[(id(fn), attr)] = (fn, attr)
+    return tuple(seen.values())
+
+
+def _launch_counts() -> list:
+    return [getattr(fn, attr) for fn, attr in _launch_counters()]
+
+
+def _rewind_launches(before: list) -> tuple:
+    """Set the launch counters back to `before`; returns what they had
+    advanced by, as (wrapper, attribute, n) with n > 0."""
+    moved = []
+    for (fn, attr), n0 in zip(_launch_counters(), before):
+        n = getattr(fn, attr) - n0
+        if n:
+            moved.append((fn, attr, n))
+            setattr(fn, attr, n0)
+    return tuple(moved)
+
+
+def _label(names: list) -> tuple:
+    """The open scopes, a name repeated at once (a scope inside one of
+    its own name) kept once."""
+    out: list = []
+    for n in names:
+        if not out or out[-1] != n:
+            out.append(n)
+    return tuple(out)
+
+
+class _Piece(NamedTuple):
+    """One graph of an iteration, with the scopes open around it and
+    what its launches counted: launch counters (wrapper, attribute, n),
+    recorder counts (name, n, key) and tallies (name, tensor)."""
+
+    graph: torch.cuda.CUDAGraph
+    scopes: tuple
+    launches: tuple
+    counts: tuple
+    tallies: tuple
+
+
+class _Capture:
+    """The tap (`trace_scope.tapped`) of an iteration being captured: a
+    CUDA graph is ended and the next begun wherever a scope is entered or
+    left, so the iteration becomes consecutive pieces, each replayed
+    inside the scopes its launches ran in. Each piece keeps what its
+    wrappers counted, which a capture does not run, and the launch
+    counters are set back."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.pieces: list = []
+        self.open: list = []
+        self.graph = None
+        self.scopes: tuple = ()
+        self.broken = False
+        self.reads_recording = False
+
+    def begin(self) -> None:
+        self.scopes = _label(self.open)
+        self.counts, self.tallies = [], []
+        self.launch0 = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin(pool=self.pool,
+                                 capture_error_mode="thread_local")
+
+    def end(self) -> None:
+        graph, self.graph = self.graph, None
+        try:
+            with warnings.catch_warnings(record=True) as said:
+                warnings.simplefilter("always")
+                graph.capture_end()
+        finally:
+            launches = _rewind_launches(self.launch0)
+        empty = any("empty" in str(w.message) for w in said)
+        if not empty or launches or self.counts or self.tallies:
+            self.pieces.append(_Piece(graph, self.scopes, launches,
+                                      tuple(self.counts),
+                                      tuple(self.tallies)))
+
+    def abort(self) -> None:
+        """End a capture that failed; what it took is dropped."""
+        self.broken = True
+        if self.graph is not None:
+            graph, self.graph = self.graph, None
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+            _rewind_launches(self.launch0)
+
+    def _cut(self) -> None:
+        if not self.broken and self.graph is not None \
+                and _label(self.open) != self.scopes:
+            try:
+                self.end()
+            except RuntimeError:
+                self.broken = True
+                raise
+            self.begin()
+
+    # the tap's side of trace_scope
+    def enter(self, name: str) -> None:
+        self.open.append(name)
+        self._cut()
+
+    def exit(self, name: str) -> None:
+        if name in self.open:
+            del self.open[len(self.open) - 1 - self.open[::-1].index(name)]
+        self._cut()
+
+    def count(self, name: str, n: int, key: str | None) -> None:
+        self.counts.append((name, int(n), key))
+
+    def tally(self, name: str, value: torch.Tensor) -> None:
+        self.tallies.append((name, value))
+
+    def asked(self) -> None:
+        self.reads_recording = True
+
+
+def _replay(pieces, recording: bool) -> None:
+    """Replay an iteration's pieces, each inside its scopes while
+    recording, and count what their launches counted."""
+    for p in pieces:
+        if recording and p.scopes:
+            with contextlib.ExitStack() as stack:
+                for name in p.scopes:
+                    stack.enter_context(trace_scope.scope(name))
+                p.graph.replay()
+        else:
+            p.graph.replay()
+        for fn, attr, n in p.launches:
+            setattr(fn, attr, getattr(fn, attr) + n)
+        if recording:
+            for name, n, key in p.counts:
+                trace_scope.count(name, n, key)
+            for name, value in p.tallies:
+                trace_scope.tally(name, value.clone())
+
+
+class _Graph:
+    """The iteration of one batch shape on one scene, as CUDA graphs over
+    static buffers: the lane state, the pass's key words (`keys`: the
+    camera key, then the path key) and its camera (`cam`: origin, lower
+    left corner, horizontal, vertical). `load` writes a batch's inputs
+    into them; `step` runs an iteration in place: the first eagerly,
+    which also loads every kernel, then captured, then replayed. Graphs
+    are kept apart by whether the recorder was open when they were
+    captured, where the captured code asked (`trace_scope.active`)."""
+
+    def __init__(self, dev, make_wave, stream, refs: list):
+        self.dev, self.stream = dev, stream
+        self.refs = refs       # what the graphs read: kept alive
+        self.keys = torch.zeros((4,), dtype=torch.int64, device=dev)
+        self.cam = torch.zeros((4, 3), dtype=torch.float32, device=dev)
+        self.w = make_wave((self.keys[0], self.keys[1]),
+                           (self.keys[2], self.keys[3]),
+                           Camera(*self.cam.unbind(0)))
+        self.state: dict | None = None
+        self.pieces: dict = {}     # None, or the recording state: pieces
+        self.refused = False
+
+    def load(self, lane_ids, key_cam, key_path, camera: Camera) -> None:
+        """A batch's lane ids, keys and camera into the static buffers,
+        and its initial lane state, made eagerly from them."""
+        for buf, word in zip(self.keys, (*key_cam, *key_path)):
+            buf.fill_(word)
+        torch.stack([camera.origin, camera.lower_left_corner,
+                     camera.horizontal, camera.vertical], out=self.cam)
+        s = _initial_state(self.w, lane_ids)
+        if self.state is None:
+            self.state = {name: torch.empty_like(x) for name, x in s.items()}
+        for name, buf in self.state.items():
+            buf.copy_(s[name])
+
+    def _store(self, s: dict) -> None:
+        for name, buf in self.state.items():
+            if s[name] is not buf:
+                buf.copy_(s[name])
+
+    def _eager(self) -> None:
+        s = dict(self.state)
+        _iterate(self.w, s)
+        self._store(s)
+
+    def step(self) -> str:
+        """One iteration on the static state; returns how it ran:
+        "replay", "capture" (run eagerly, then captured), or "eager"
+        (the capture refused, as from then on for this entry)."""
+        if self.refused:
+            self._eager()
+            return "eager"
+        recording = trace_scope.active()
+        pieces = self.pieces.get(None, self.pieces.get(recording))
+        if pieces is not None:
+            _replay(pieces, recording)
+            return "replay"
+        self._eager()
+        try:
+            pieces, reads = self._capture()
+        except RuntimeError as e:
+            self.refused = True
+            log.warning("the wavefront iteration runs eagerly: its capture "
+                        "failed (%s)", (str(e).splitlines() or [""])[0])
+            return "eager"
+        self.pieces[recording if reads else None] = pieces
+        return "capture"
+
+    def _capture(self):
+        s = dict(self.state)
+        self.stream.wait_stream(torch.cuda.current_stream(self.dev))
+        tap = _Capture(torch.cuda.graph_pool_handle())
+        with torch.cuda.stream(self.stream), trace_scope.tapped(tap):
+            tap.begin()
+            try:
+                _iterate(self.w, s)
+                self._store(s)   # the iteration's outputs into its inputs
+                tap.end()
+            except BaseException:
+                tap.abort()
+                raise
+        return tap.pieces, tap.reads_recording
+
+
+class WavefrontGraphs:
+    """The CUDA graphs of `trace_wavefront`'s iteration on the card, by
+    what they bake in: the device, the batch and queue shape, the
+    settings (spp, depth, frame, mode, MIS fraction, NEE, lane sort,
+    tile_sync, lane steps) and the scene tensors the iteration reads,
+    which each entry holds so that their memory is not reused under it.
+    At most `GRAPH_CACHE` entries, the least recently used dropped first;
+    the App drops them all when its scene, backend or CDFs change
+    (`clear`).
+    The lane ids, keys, camera and initial lane state are copied in for
+    every batch, so a new pass or camera replays the same graphs."""
+
+    def __init__(self):
+        self._entries: OrderedDict = OrderedDict()
+        self._streams: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def entry(self, dev, key: tuple, refs: list, make_wave) -> _Graph | None:
+        """The entry of `key` and the scene `refs`, made (with
+        `make_wave(key_cam, key_path, camera)` on its static buffers) the
+        first time; None once its capture has refused."""
+        key = (key, tuple(map(id, refs)))
+        g = self._entries.get(key)
+        if g is None:
+            if dev not in self._streams:
+                self._streams[dev] = torch.cuda.Stream(dev)
+            g = _Graph(dev, make_wave, self._streams[dev], refs)
+            self._entries[key] = g
+            while len(self._entries) > GRAPH_CACHE:
+                self._entries.popitem(last=False)
+        else:
+            self._entries.move_to_end(key)
+        return None if g.refused else g
 
 
 def trace_wavefront(
@@ -532,6 +1043,7 @@ def trace_wavefront(
     return_lane_steps: bool = False,
     tile_sync: int = 0,
     bvh: BVH | None = None,
+    graphs: WavefrontGraphs | None = None,
 ) -> tuple:
     """Persistent wavefront with same-pixel respawn.
 
@@ -557,10 +1069,21 @@ def trace_wavefront(
     the same as without. tile_sync needs static lane tiles, so it refuses
     sort_rays.
 
+    On a CUDA device with `graphs` given, the iteration runs as CUDA
+    graphs (`WavefrontGraphs`): captured the first time a batch shape is
+    seen, then replayed, between the live-lane tests, on static buffers
+    that hold the lane state, the pass's key words and the camera. The
+    kernels, their order and their arithmetic are the eager iteration's,
+    so the film, the rays and the iterations are bitwise the same; only
+    the host's dispatch goes. The eager iteration serves the CPU, a call
+    without `graphs`, the BVH's walk and multi-part culled scenes, whose
+    queries wait for the device, and a capture that fails.
+
     While `utils.trace_scope` records, each live-lane test is a counted
     sync (`live_check`), and the call adds lanes x iterations run to
-    `lane_slots` and its live-lane tally (the returned rays less NEE's
-    shadow rays) to `lanes_live`.
+    `lane_slots`, its live-lane tally (the returned rays less NEE's
+    shadow rays) to `lanes_live`, and its iterations to
+    `wavefront_graph` by how they ran: `replay`, `capture` or `eager`.
 
     Args:
         lane_ids: (B,) or (B, K) integer pixel ids.
@@ -578,6 +1101,7 @@ def trace_wavefront(
         nee: next-event estimation; shadow rays go through
             `occlusion_fn(geom, tri_pack, prim_ids, culled)`.
         return_lane_steps: also return each lane's live-iteration count.
+        graphs: the graph cache of the caller (a renderer's or the App's).
 
     Returns:
         (radiance_sum over the spp samples, (B, 3), or (B, K, 3) in queue
@@ -597,141 +1121,60 @@ def trace_wavefront(
                              "disable sort_rays")
         if b % tile_sync:
             raise ValueError("batch must tile by tile_sync")
-    probs = mis_probabilities(mis_bsdf_fraction)
-    n_draws = _num_draws(mode, nee)
     dev = lane_ids.device
     max_iters = k * (spp * max_depth + max_depth)
-    # Lanes that finished every sample park on a ray that starts outside
-    # the scene and points away (the culled prepass schedules nothing for
-    # them).
-    scene_lo = geom.corners.reshape(-1, 3).amin(dim=0)
-    scene_hi = geom.corners.reshape(-1, 3).amax(dim=0)
-    park_o = scene_hi + 1.0
-    with trace_scope.sync("park_dir"):
-        park_d = torch.tensor([1.0, 0.0, 0.0], device=dev)
-    inv_ext = 1.0 / torch.clamp(scene_hi - scene_lo, min=1e-6)
-    nee_args = None
-    if nee:
-        nee_args = (build_nee_pack(geom),
-                    occlusion_fn(geom, tri_pack, prim_ids, culled))
-
+    settings = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+                    k=k, mode=mode, cdfs=cdfs, tri_pack=tri_pack,
+                    attr_pack=attr_pack, culled=culled, bvh=bvh,
+                    sort_rays=sort_rays, tile_sync=tile_sync,
+                    lane_steps=return_lane_steps)
     # Purpose-split keys: per-draw identity lives in the counter words.
     key_cam = rng.fold_in(key, 101)
     key_path = rng.fold_in(key, 7)
 
-    def spawn(mask, o, d, pid, sample_idx):
-        jit2 = rng.lane_uniforms(key_cam, pid, 2, sub_ids=sample_idx)
-        u = ((pid % width).to(torch.float32) + jit2[:, 0]) / width
-        v = ((pid // width).to(torch.float32) + jit2[:, 1]) / height
-        co, cd = camera.get_rays(u, v)
-        m = mask[:, None]
-        return torch.where(m, co, o), torch.where(m, cd, d)
+    g = None
+    if graphs is not None and dev.type == "cuda" \
+            and not _declines(tri_pack, culled, bvh):
+        shape = (str(dev), tuple(lane_ids.shape), width, height, spp,
+                 max_depth, mode, float(mis_bsdf_fraction), nee, sort_rays,
+                 tile_sync, return_lane_steps)
+        g = graphs.entry(
+            dev, shape,
+            _scene_refs(geom, tri_pack, attr_pack, cdfs, culled, prim_ids,
+                        bvh),
+            lambda kc, kp, cam: _wave(
+                geom, cam, kc, kp, dev, mis_bsdf_fraction=mis_bsdf_fraction,
+                nee=nee, prim_ids=prim_ids, **settings))
+    if g is not None:
+        g.load(lane_ids, key_cam, key_path, camera)
+        s = g.state
+    else:
+        w = _wave(geom, camera, key_cam, key_path, dev,
+                  mis_bsdf_fraction=mis_bsdf_fraction, nee=nee,
+                  prim_ids=prim_ids, **settings)
+        s = _initial_state(w, lane_ids)
 
-    pidq = lane_ids.to(torch.int64).reshape(b, k)
-    s = dict(
-        beta=torch.ones((b, 3), dtype=torch.float32, device=dev),
-        total=torch.zeros((b, k, 3), dtype=torch.float32, device=dev),
-        alive=torch.ones((b,), dtype=torch.bool, device=dev),
-        depth=torch.zeros((b,), dtype=torch.int64, device=dev),
-        done=torch.ones((b,), dtype=torch.int64, device=dev),  # sample 0
-        pid=pidq[:, 0],
-        slot=torch.zeros((b,), dtype=torch.int64, device=dev),
-        pidq=pidq,
-    )
-    s["o"], s["d"] = spawn(
-        s["alive"], torch.zeros((b, 3), dtype=torch.float32, device=dev),
-        torch.ones((b, 3), dtype=torch.float32, device=dev), s["pid"],
-        torch.zeros((b,), dtype=torch.int64, device=dev))
-    if sort_rays:
-        s["orig"] = torch.arange(b, device=dev)  # a lane's place unsorted
-    if nee:
-        s["prev_pdf"] = torch.full((b,), -1.0, dtype=torch.float32,
-                                   device=dev)
-    if return_lane_steps:
-        s["steps"] = torch.zeros((b,), dtype=torch.int64, device=dev)
-    waiting = torch.zeros((b,), dtype=torch.bool, device=dev)  # tile_sync
-    slots = torch.arange(k, device=dev)
-    # live lane-iterations, and NEE's shadow rays apart: joined once
-    lanes = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow = torch.zeros((), dtype=torch.int64, device=dev) if nee else None
-
+    runs = dict.fromkeys(("replay", "capture", "eager"), 0)
     it = 0
     while it < max_iters:
-        alive, depth, done, pid, slot = (s["alive"], s["depth"], s["done"],
-                                         s["pid"], s["slot"])
         if check_every and it % check_every == 0:
             with trace_scope.sync("live_check"):
-                any_alive = bool(alive.any())
+                any_alive = bool(s["alive"].any())
             if not any_alive:
                 break
-        lanes += alive.sum()
-        if return_lane_steps:
-            s["steps"] = s["steps"] + alive.to(torch.int64)
-        d = s["d"]
-        hit = _intersect(geom, s["o"], d, tri_pack, attr_pack, culled,
-                         camera_mask=alive & (depth == 0), bvh=bvh)
-        live = alive & hit.valid
-        emis_w = None
-        if nee:
-            shadow += _nee_shadow_count(live, hit, depth < max_depth - 1)
-            emis_w = nee_hit_weight(nee_args[0], hit, d, s["prev_pdf"])
-        # (sample, depth) counter: `done` counts started samples, so the
-        # in-flight sample is done - 1; depth is pre-increment.
-        draws = rng.lane_uniforms(
-            key_path, pid, n_draws,
-            sub_ids=(done - 1) * (max_depth + 1) + depth,
-        )
-        o, d, beta, live, contrib, pdf_b = _shade(
-            hit, d, s["beta"], live, draws, depth > RR_START_DEPTH, mode,
-            cdfs, probs, nee=nee_args, emis_w=emis_w,
-            nee_active=depth < max_depth - 1,
-        )
-        if k == 1:
-            s["total"] = s["total"] + contrib[:, None, :]
-        else:     # into the lane's current queue slot
-            s["total"] = s["total"] + torch.where(
-                (slot[:, None] == slots[None, :])[:, :, None],
-                contrib[:, None, :], 0.0)
-
-        depth = depth + 1
-        live = live & (depth < max_depth)
-        path_end = alive & ~live
-        respawn = path_end & (done < spp)
-        if k > 1:
-            # queue advance: the slot's samples are spent and another
-            # pixel waits; its sample 0 spawns in this iteration
-            if tile_sync:
-                waiting = waiting | (path_end & (done >= spp)
-                                     & (slot + 1 < k))
-                ready = ~(live | respawn).view(-1, tile_sync).any(dim=1)
-                adv = waiting & ready.repeat_interleave(tile_sync)
-                waiting = waiting & ~adv
-            else:
-                adv = path_end & (done >= spp) & (slot + 1 < k)
-            slot = slot + adv.to(torch.int64)
-            done = torch.where(adv, 0, done)
-            pid = torch.where(adv, s["pidq"].gather(1, slot[:, None])[:, 0],
-                              pid)
-            respawn = respawn | adv
-        o, d = spawn(respawn, o, d, pid, done)
-        beta = torch.where(respawn[:, None], 1.0, beta)
-        depth = torch.where(respawn, 0, depth)
-        done = done + respawn.to(torch.int64)
-        alive = live | respawn
-        s.update(o=torch.where(alive[:, None], o, park_o),
-                 d=torch.where(alive[:, None], d, park_d), beta=beta,
-                 alive=alive, depth=depth, done=done, pid=pid, slot=slot)
-        if nee:
-            # camera (re)spawns carry the sentinel: no light-sampling
-            # competitor for directly visible emission
-            s["prev_pdf"] = torch.where(respawn, -1.0, pdf_b)
-        if sort_rays:
-            perm = lane_sort_order(s["o"], s["d"], alive, scene_lo, inv_ext)
-            for name in _SORTED_STATE:
-                if name in s:
-                    s[name] = s[name][perm]
+        if g is None:
+            _iterate(w, s)
+            runs["eager"] += 1
+        else:
+            runs[g.step()] += 1
         it += 1
     trace_scope.count("lane_slots", b * it)
+    for outcome, n in runs.items():
+        if n:
+            trace_scope.count("wavefront_graph", n, key=outcome)
+    if g is not None:      # the static buffers serve the next batch
+        s = {name: s[name].clone() for name in _OUTPUTS if name in s}
+    lanes, shadow = s["lanes"], s.get("shadow")
     trace_scope.tally("lanes_live", lanes)
     rays = lanes if shadow is None else lanes + shadow
     total = s["total"]

@@ -38,7 +38,7 @@ from ..utils import trace_scope
 from ..utils.logger import get_logger
 from .camera import Camera
 from .film import Film
-from .integrator import trace, trace_wavefront
+from .integrator import WavefrontGraphs, trace, trace_wavefront
 
 
 @dataclass(frozen=True)
@@ -164,6 +164,7 @@ def render_pass(
     bvh=None,
     pixel_offset: int = 0,
     view_size: tuple[int, int] | None = None,
+    graphs: WavefrontGraphs | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Trace settings.spp_per_pass samples per pixel and add them into
     `film` (in place); guided modes sample by `cdfs`. With `culled` (a
@@ -174,7 +175,8 @@ def render_pass(
     the all-pairs packs. `assignment` (wavefront only) is the balanced
     lane queues of `build_balance_assignment` as device tensors: each
     batch is a row of gids (chunk, K), and per-pixel radiance is bitwise
-    that of assignment=None.
+    that of assignment=None. `graphs` (a `WavefrontGraphs`) lets the
+    wavefront replay its iteration as CUDA graphs on the card.
 
     A row band of a larger view (parallel/sharding.py) renders rows
     [y0, y0 + settings.height) of a view_size = (W, H) frame with
@@ -202,7 +204,7 @@ def render_pass(
             mode=s.sampling_mode, cdfs=cdfs,
             mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
             sort_rays=s.sort_rays, nee=s.nee, prim_ids=prim_ids,
-            tile_sync=tile_sync, bvh=bvh,
+            tile_sync=tile_sync, bvh=bvh, graphs=graphs,
         )
 
     if assignment is not None:
@@ -377,7 +379,9 @@ class ProgressiveRenderer:
     no packs and no `culled`. With `balance_lanes` K > 1 the first pass
     probes the lanes' path costs once and later passes run on the dealt
     queues (`_build_assignment`). `pixel_offset` and `view_size` make it
-    render a row band of a larger view (see render_pass).
+    render a row band of a larger view (see render_pass). The wavefront's
+    CUDA graphs live in `graphs`, the renderer's own unless given (the
+    App keeps one across renderers, so a new camera replays them).
     """
 
     def __init__(
@@ -397,8 +401,10 @@ class ProgressiveRenderer:
         bvh=None,
         pixel_offset: int = 0,
         view_size: tuple[int, int] | None = None,
+        graphs: WavefrontGraphs | None = None,
     ):
         self.device = torch.device(device)
+        self.graphs = WavefrontGraphs() if graphs is None else graphs
         self.pixel_offset = pixel_offset
         self.view_size = view_size
         self.culled = culled
@@ -474,7 +480,7 @@ class ProgressiveRenderer:
                 self.tri_pack, self.attr_pack, self.cdfs,
                 self.mis_bsdf_fraction, self.culled, self.prim_ids,
                 self._assignment, self.bvh, self.pixel_offset,
-                self.view_size,
+                self.view_size, self.graphs,
             )
             self._rays += rays
             self.iterations += iters

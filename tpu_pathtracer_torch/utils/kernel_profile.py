@@ -360,10 +360,12 @@ def kernel_profile_traced(step_fn, *args, device=None, log_dir=None) -> dict:
     Returns {"seconds": {phase: s}, "percent": {...}, "ops": count,
     "device_total": s, "top_ops": [{name, ms, count, calls_ms,
     long_name}, ...], "host_syncs": {site: n}, "rng_calls": {path: n},
-    "lane_occupancy": %} (long_name: the enclosing scopes; host_syncs: the
-    traced step's waits for the device by call site; rng_calls: its tensor
-    draws by path, "fused" or "eager"; lane_occupancy: its live wavefront
-    lane-iterations over lanes x iterations run, None without any)."""
+    "lane_occupancy": %, "wavefront_graph": {outcome: n}} (long_name: the
+    enclosing scopes; host_syncs: the traced step's waits for the device
+    by call site; rng_calls: its tensor draws by path, "fused" or "eager";
+    lane_occupancy: its live wavefront lane-iterations over lanes x
+    iterations run, None without any; wavefront_graph: its wavefront
+    iterations by how they ran, "replay", "capture" or "eager")."""
     prof = summarize(traced_ops(step_fn, *args, device=device,
                                 log_dir=log_dir))
     c = trace_scope.counters()
@@ -372,4 +374,5 @@ def kernel_profile_traced(step_fn, *args, device=None, log_dir=None) -> dict:
     prof["rng_calls"] = c.get("rng_calls", {})
     prof["lane_occupancy"] = (100.0 * c.get("lanes_live", 0) / slots
                               if slots else None)
+    prof["wavefront_graph"] = c.get("wavefront_graph", {})
     return prof

@@ -25,6 +25,13 @@ Off, the default, `scope` and `sync` return one shared
 one check of a module global: an unrecorded render launches exactly the
 kernels it would without them and reads no clock.
 
+While code is captured into a CUDA graph it runs nothing on the device,
+so it records nothing: inside `tapped(tap)` no span is logged, and every
+scope's entry and exit, every `count` and `tally`, and every question to
+`active()` go to the tap instead (`render/integrator.py`'s capture of the wavefront iteration
+cuts its graphs where a scope begins or ends, and replays each piece
+inside the same scopes with the counts it took).
+
 `recording()` logs every span as (name, parent, start, end, site) and
 keeps the counters; `tracing()` does the same and also opens each span as
 a `torch.profiler.record_function` range, which is how
@@ -61,6 +68,7 @@ _log: list = []      # [name, parent, t0_ns, t1_ns, site] a span
 _open: list = []     # log indices of the spans entered and not yet left
 _counts: dict = {}
 _tallies: list = []  # (counter, device tensor) summed on the host when read
+_tap = None          # what `tapped` installed: scope edges, counts, tallies
 
 
 class Span(NamedTuple):
@@ -84,6 +92,12 @@ class _Span:
         self.mode = 0
 
     def __enter__(self):
+        self.i = -1
+        if _tap is not None:
+            _tap.enter(self.name)
+            return self
+        if not _active:
+            return self
         if _ranges:
             self.rf = torch.profiler.record_function(self.name)
             self.rf.__enter__()
@@ -96,13 +110,16 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        if self.mode:
-            torch.cuda.set_sync_debug_mode(self.mode)
-        _log[self.i][3] = time.time_ns()
-        if _open and _open[-1] == self.i:
-            _open.pop()
-        if self.rf is not None:
-            self.rf.__exit__(*exc)
+        if self.i >= 0:
+            if self.mode:
+                torch.cuda.set_sync_debug_mode(self.mode)
+            _log[self.i][3] = time.time_ns()
+            if _open and _open[-1] == self.i:
+                _open.pop()
+            if self.rf is not None:
+                self.rf.__exit__(*exc)
+        if _tap is not None:
+            _tap.exit(self.name)
         return False
 
 
@@ -119,13 +136,18 @@ def _lower_sync_debug() -> int:
 
 def active() -> bool:
     """Whether a recording is open: for a site whose count needs device
-    work, which it then does only while recording."""
+    work, which it then does only while recording. Asked inside
+    `tapped`, it tells the tap (`tap.asked()`)."""
+    if _tap is not None:
+        _tap.asked()
     return _active
 
 
 def scope(name: str):
-    """A span named `name` while recording, else a no-op."""
-    if _active:
+    """A span named `name` while recording, else a no-op; inside `tapped`
+    its entry and exit also go to the tap (`tap.enter(name)`,
+    `tap.exit(name)`)."""
+    if _active or _tap is not None:
         return _Span(name)
     return _NULL
 
@@ -156,8 +178,10 @@ def sync(site: str):
 def count(name: str, n: int = 1, key: str | None = None) -> None:
     """Add `n` to the counter `name`, or to its entry `key` for a counter
     kept by key (`host_syncs` by site, `rng_calls` by path), while
-    recording."""
-    if _active:
+    recording; inside `tapped` to the tap instead (`tap.count`)."""
+    if _tap is not None:
+        _tap.count(name, n, key)
+    elif _active:
         if key is None:
             _counts[name] = _counts.get(name, 0) + int(n)
         else:
@@ -168,9 +192,25 @@ def count(name: str, n: int = 1, key: str | None = None) -> None:
 def tally(name: str, value: torch.Tensor) -> None:
     """Add a device scalar to the counter `name` while recording: the
     tensor is kept, and copied and summed on the host when `counters()`
-    is read. It must not change after this call."""
-    if _active:
+    is read. It must not change after this call. Inside `tapped` it goes
+    to the tap instead (`tap.tally`)."""
+    if _tap is not None:
+        _tap.tally(name, value)
+    elif _active:
         _tallies.append((name, value))
+
+
+@contextlib.contextmanager
+def tapped(tap):
+    """Send scope edges, counts, tallies and questions to `active()` to
+    `tap` for the duration of the block, and keep them from the
+    recording: the block is being captured, not run."""
+    global _tap
+    prev, _tap = _tap, tap
+    try:
+        yield tap
+    finally:
+        _tap = prev
 
 
 def spans() -> list:

@@ -21,7 +21,8 @@ Endpoints:
   GET /profiler/reset | /profiler/enable?on=0|1
   GET /profiler/kernel  phase split of one live render pass, traced by
         utils.kernel_profile.kernel_profile_traced, with the pass's host
-        syncs by site, RNG draws by path and lane occupancy (JSON)
+        syncs by site, RNG draws by path, lane occupancy and wavefront
+        iterations by how they ran (graph replay, capture, eager) (JSON)
   GET /scenes      loadable scenes: builtins + scenes/*.obj|*.pbrt
   GET /orbit?yaw=5&pitch=0&zoom=0
   GET /set?mode=mis&spp=64  (any Config field)
@@ -303,7 +304,10 @@ function kprof(){
       +' | rng calls fused '+(p.rng_calls.fused||0)+' eager '
         +(p.rng_calls.eager||0)
       +(p.lane_occupancy==null?'':' | lanes live '
-        +p.lane_occupancy.toFixed(1)+'%');
+        +p.lane_occupancy.toFixed(1)+'%')
+      +' | iterations replayed '+(p.wavefront_graph.replay||0)+' captured '
+        +(p.wavefront_graph.capture||0)+' eager '
+        +(p.wavefront_graph.eager||0);
   }).catch(e=>{$('kproftxt').textContent='trace failed: '+e});
 }
 
