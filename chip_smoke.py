@@ -1245,10 +1245,10 @@ def shoot6_flips(dev, seed: int, steps: int) -> dict:
     key = rng.base_key(seed + 12345)
     with trace_scope.recording():
         sol, both_ms = time_once(lambda: rad.solve_radiosity_shooting(
-            g, key, occlusion_packs=beside, **kw))
+            g, key, backend=Visibility(beside, "culled"), **kw))
     c = trace_scope.counters()
     alone, alone_ms = time_once(lambda: rad.solve_radiosity_shooting(
-        g, key, occlusion_packs=cs, **kw))
+        g, key, backend=cs, **kw))
     same = all(torch.equal(getattr(sol, f), getattr(alone, f)) for f in (
         "radiosity", "unshot", "rad_grid", "grid_counts", "history"))
     tested = c.get("prepass_groups", 0)
@@ -1263,6 +1263,16 @@ def shoot6_flips(dev, seed: int, steps: int) -> dict:
     if not same:
         raise AssertionError("the culled solve beside K3 and alone differ")
     return dict(solution=sol, flips=stat["flips"], line=line)
+
+
+class Visibility:
+    """A backend of the solves (render/radiosity.py reads `name` and
+    `occluded`) whose any hit is `fn(o, d, maxd, ex_a, ex_b)`: a plain
+    version, or a route with the others compared beside it. `name` keys
+    the solve's `segments` counter."""
+
+    def __init__(self, fn, name: str):
+        self.occluded, self.name = fn, name
 
 
 def solutions_equal(a, b) -> bool:
@@ -1884,6 +1894,7 @@ def shooting_phase(dev, start, end):
     from tpu_pathtracer_torch.ops import bvh as bv
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
+    from tpu_pathtracer_torch.ops.backend import AllPairs
     from tpu_pathtracer_torch.ops.intersect import closest_hit, occluded
     from tpu_pathtracer_torch.render import radiosity as rad
     from tpu_pathtracer_torch.render.camera import CameraController
@@ -1899,8 +1910,8 @@ def shooting_phase(dev, start, end):
     g6 = app6.load_scene()
     if app6.culled is None:
         raise AssertionError("auto did not pick the culled backend")
-    kw = dict(shooters_per_step=128, mc_samples=4,
-              occlusion_packs=app6.culled, check_every=0)
+    kw = dict(shooters_per_step=128, mc_samples=4, backend=app6.culled,
+              check_every=0)
     rad.solve_radiosity_shooting(g6, rng.base_key(1), steps=1, **kw)
     torch.cuda.synchronize()
     zero_counts()
@@ -2018,11 +2029,12 @@ def shooting_phase(dev, start, end):
     # sub 4: a few steps through K3, occluded_plain and the culled backend
     g4 = App(Config(**SHOOT4), device=dev).load_scene()
     tp4, pp4 = ap.pack_triangles(g4), ap.pack_prim_ids(g4)
+    k3_route = AllPairs(tp4, pp4)
     kw4 = dict(steps=3, shooters_per_step=128, mc_samples=4, check_every=0)
 
     def via_k3(key):
         return time_once(lambda: rad.solve_radiosity_shooting(
-            g4, key, occlusion_packs=(tp4, pp4), **kw4))
+            g4, key, backend=k3_route, **kw4))
 
     key = rng.base_key(SHOOT4_KEYS[0])
     zero_counts()
@@ -2030,14 +2042,14 @@ def shooting_phase(dev, start, end):
     k3 = ap.occluded.launches
     (k3_calls,) = keep_calls(
         lambda: rad.solve_radiosity_shooting(
-            g4, key, occlusion_packs=(tp4, pp4), **{**kw4, "steps": 1}),
+            g4, key, backend=k3_route, **{**kw4, "steps": 1}),
         [(ap, "occluded", lambda a: "K3")]).values()
     k3_launch_ms = sum(time_call(lambda a=a: ap.occluded(*a), reps=3)
                        for a in k3_calls) / len(k3_calls)
     k3_active = [int((a[4] > 0).sum()) for a in k3_calls]
     via_plain, plain_ms = time_once(lambda: rad.solve_radiosity_shooting(
-        g4, key, occlusion_packs=lambda o, d, m, a, b: ap.occluded_plain(
-            tp4, pp4, o, d, m, a, b), **kw4))
+        g4, key, backend=Visibility(lambda o, d, m, a, b: ap.occluded_plain(
+            tp4, pp4, o, d, m, a, b), "pallas"), **kw4))
     same_plain = fields_equal(k3_sol, via_plain)
     phase("shooting", f"cbox sub {SHOOT4['subdivision']} ({g4.num_prims} "
           f"prims, {g4.num_tris} tris), 3 steps x 128 shooters x 4 samples "
@@ -2089,7 +2101,7 @@ def shooting_phase(dev, start, end):
 
         k3_sol = k3_sol if seed == SHOOT4_KEYS[0] else via_k3(key)[0]
         via_culled, culled_ms = time_once(lambda: rad.solve_radiosity_shooting(
-            g4, key, occlusion_packs=culled_beside_k3, **kw4))
+            g4, key, backend=Visibility(culled_beside_k3, "culled"), **kw4))
         same_culled = fields_equal(k3_sol, via_culled)
         phase("shooting", f"cbox sub {SHOOT4['subdivision']}, key {seed}, "
               f"the same 3 steps through the culled backend {culled_ms:.3f} "
@@ -2170,7 +2182,8 @@ def shooting_phase(dev, start, end):
     cam = CameraController.default().build(dev)
     _, bo, bd = make_rays(cam, 12, dev)[1]
     bv.bvh_closest_tuv.iterations = 0
-    hb, bvh_ms = time_once(lambda: bv.bvh_closest_hit(g3, bapp.bvh, bo, bd))
+    bvh = bapp.backend.bvh
+    hb, bvh_ms = time_once(lambda: bv.bvh_closest_hit(g3, bvh, bo, bd))
     lock_bounce = bv.bvh_closest_tuv.iterations
     hk = ap.closest_hit(g3, tp3, bo, bd, attr_pack=at3)
     hr = closest_hit(g3, bo, bd)
@@ -2181,9 +2194,9 @@ def shooting_phase(dev, start, end):
     ulps = float(((hb.t[v] - hk.t[v]).abs()
                   / (hk.t[v].abs().clamp(min=1.0) * 2.0 ** -23)).max())
     ids_k2 = int((hb.prim[v] != hk.prim[v]).sum())
-    how = "native" if bapp.bvh.native else "NumPy"
+    how = "native" if bvh.native else "NumPy"
     phase("shooting", f"BVH of cbox sub {BVH3['subdivision']} "
-          f"({g3.num_tris} tris, {bapp.bvh.num_nodes} nodes, {how} build; "
+          f"({g3.num_tris} tris, {bvh.num_nodes} nodes, {how} build; "
           f"load + build {build_s * 1e3:.3f} ms): pass "
           f"{BVH3['width']}x{BVH3['height']} {BVH3['spp']} spp "
           f"{bpass_ms:.3f} ms against \"pallas\" {ppass_ms:.3f} ms, "
@@ -2447,7 +2460,7 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
     cam_l = app.camera_ctrl.build(dev)
     r = ProgressiveRenderer(geom, cam_l, RenderSettings(sort_rays=True,
                                                         **settings),
-                            device=dev, seed=cfg.seed, culled=sorted_scene)
+                            device=dev, seed=cfg.seed, backend=sorted_scene)
     r.step()                                   # warm-up pass
     same_first = torch.equal(r.film.accum, first)
     r.reset_stats()
@@ -2482,10 +2495,10 @@ def rows_phase(dev, cam, scene1m, first, start, end, err, times, bounds,
     others = {
         "CulledScene(grouped=False)": ProgressiveRenderer(
             geom, cam_l, RenderSettings(**settings), device=dev,
-            seed=cfg.seed, culled=ic.CulledScene(geom, grouped=False)),
+            seed=cfg.seed, backend=ic.CulledScene(geom, grouped=False)),
         "CulledScene(regroup=True)": ProgressiveRenderer(
             geom, cam_l, RenderSettings(**settings), device=dev,
-            seed=cfg.seed, culled=ic.CulledScene(geom, regroup=True)),
+            seed=cfg.seed, backend=ic.CulledScene(geom, regroup=True)),
         "App(Config(sort_rays=True))": App(
             Config(spp=8, sort_rays=True, **LARGE), device=dev).renderer(),
     }
@@ -2615,7 +2628,7 @@ def nee_phase(dev, start, end, headline, large):
             app.geom, app.camera_ctrl.build(dev), RenderSettings(
                 nee=True, balance_lanes=4, balance_tile_sync=True,
                 **settings), device=dev, seed=app.config.seed,
-            culled=app.culled),
+            backend=app.culled),
     }
     for name, rr in others.items():
         _, ms1 = time_once(rr.step)
@@ -2808,17 +2821,15 @@ def launch_counts() -> dict:
 
 
 def tiled_of(app, mesh):
-    """A TiledRenderer over `mesh` of the App's frame, through the App's
-    backend (its packs with the prim-id pack for NEE, or its culled
-    scene)."""
+    """A TiledRenderer over `mesh` of the App's frame, through its
+    renderer's backend."""
     from tpu_pathtracer_torch.parallel.sharding import TiledRenderer
 
     r = app.renderer()
     return TiledRenderer(
         app.geom, r.camera, r.settings, mesh=mesh, seed=app.config.seed,
-        tri_pack=r.tri_pack, attr_pack=r.attr_pack, cdfs=r.cdfs,
-        mis_bsdf_fraction=r.mis_bsdf_fraction, culled=r.culled,
-        prim_ids=r.prim_ids, bvh=r.bvh)
+        backend=r.backend, cdfs=r.cdfs,
+        mis_bsdf_fraction=r.mis_bsdf_fraction)
 
 
 def multi_phase(dev, start, end, refs) -> dict:
@@ -2892,7 +2903,7 @@ def multi_phase(dev, start, end, refs) -> dict:
     g5 = app5.load_scene()
     (ff, gc, _), ms = time_once(lambda: sh.mc_form_factors_sharded(
         g5, rng.base_key(app5.config.seed + 12345), mesh=mesh,
-        n_samples=SOLVE5["mc_samples"], occlusion_packs=app5.culled,
+        n_samples=SOLVE5["mc_samples"], backend=app5.culled,
         estimator=app5.config.ff_estimator))
     same = (torch.equal(ff.cpu(), refs["solve"][0])
             and torch.equal(gc.cpu(), refs["solve"][1]))
@@ -2908,7 +2919,7 @@ def multi_phase(dev, start, end, refs) -> dict:
     g6 = app6.load_scene()
     sol, ms = time_once(lambda: sh.solve_radiosity_shooting_sharded(
         g6, rng.base_key(12345), mesh=mesh, steps=SHOOT_STEPS,
-        shooters_per_step=128, mc_samples=4, occlusion_packs=app6.culled,
+        shooters_per_step=128, mc_samples=4, backend=app6.culled,
         check_every=0))
     ref = refs["shooting"]
     same = all(torch.equal(getattr(sol, f), getattr(ref[0], f)) for f in (
@@ -3020,8 +3031,7 @@ def profile_child(dev=None) -> int:
     pix = torch.arange(n, device=dev)
     o, d = r.camera.get_rays(((pix % cfg.width).float() + 0.5) / cfg.width,
                              ((pix // cfg.width).float() + 0.5) / cfg.height)
-    iso = kp.kernel_profile(app.geom, o, d, tri_pack=r.tri_pack,
-                            attr_pack=r.attr_pack)
+    iso = kp.kernel_profile(app.geom, o, d, backend=app.backend)
     phase("profile", f"kernel_profile, {n} camera rays (K2):\n"
           + kp.format_profile(iso))
     iters = []
@@ -3181,6 +3191,7 @@ def main() -> int:
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+    from tpu_pathtracer_torch.ops.backend import AllPairs
     from tpu_pathtracer_torch.render.camera import CameraController
     from tpu_pathtracer_torch.render.radiosity import solve_radiosity
     from tpu_pathtracer_torch.scene.builtin import cornell_box
@@ -3459,7 +3470,7 @@ def main() -> int:
     n = app.geom.num_prims
     npad = ((n + 15) // 16) * 16
     segments = npad * n * cfg.mc_samples
-    pair_tests = segments * app.tri_pack.shape[0]
+    pair_tests = segments * app.backend.tri_pack.shape[0]
     finite = all(bool(torch.isfinite(x).all()) for x in (
         sol.form_factors, sol.radiosity, sol.rad_grid))
     phase("radiosity", f"cbox sub 3 ({n} prims, {app.geom.num_tris} tris) "
@@ -3485,11 +3496,12 @@ def main() -> int:
 
     g2 = scenes["cbox_sub2"]
     tp2, pp2 = ap.pack_triangles(g2), ap.pack_prim_ids(g2)
+    k3_route = AllPairs(tp2, pp2)
     key = rng.base_key(cfg.seed + 12345)
-    via_k3 = solve_radiosity(g2, key, occlusion_packs=(tp2, pp2))
-    via_plain = solve_radiosity(
-        g2, key, occlusion_packs=lambda o, d, m, a, b: ap.occluded_plain(
-            tp2, pp2, o, d, m, a, b))
+    via_k3 = solve_radiosity(g2, key, backend=k3_route)
+    via_plain = solve_radiosity(g2, key, backend=Visibility(
+        lambda o, d, m, a, b: ap.occluded_plain(tp2, pp2, o, d, m, a, b),
+        "pallas"))
     same2 = solutions_equal(via_k3, via_plain)
     phase("radiosity", f"cbox sub 2 solve through K3 bitwise equal to the "
           f"solve through occluded_plain: {same2}")

@@ -574,8 +574,8 @@ def shoot_profile(out: dict) -> None:
 
     app = App(Config(**cs.SHOOT6), device="cuda")
     geom = app.load_scene()
-    kw = dict(shooters_per_step=128, mc_samples=4,
-              occlusion_packs=app.culled, check_every=0)
+    kw = dict(shooters_per_step=128, mc_samples=4, backend=app.culled,
+              check_every=0)
 
     def steps(n):
         return rad.solve_radiosity_shooting(geom, rng.base_key(12345),
@@ -880,7 +880,7 @@ def main() -> int:
                       geom_large, cam_l, RenderSettings(sort_rays=True,
                                                         **settings),
                       device=dev, seed=scene_app.config.seed,
-                      culled=sorted_scene), libs, out)
+                      backend=sorted_scene), libs, out)
         mis = App(Config(spp=32, **cs.GUIDED), device=dev)
         mis.load_scene()
         mis.run_solver()
@@ -925,7 +925,7 @@ def main() -> int:
         cam_l = scene_app.camera_ctrl.build(dev)
         render_ab("stress100k grouped pass", lambda: ProgressiveRenderer(
             geom_large, cam_l, RenderSettings(**settings), device=dev,
-            seed=scene_app.config.seed, culled=grouped), libs, out)
+            seed=scene_app.config.seed, backend=grouped), libs, out)
         rec = out["stress100k grouped pass"]
         rec.update({f"{s}_mrays_per_s": rec["rays"] / rec[f"{s}_ms"] / 1e3
                     for s in ("baseline", "this")})
@@ -1033,10 +1033,10 @@ def main() -> int:
                     geom_large, cam_l, RenderSettings(sort_rays=True,
                                                       **settings),
                     device=dev, seed=scene_app.config.seed,
-                    culled=sorted_scene),
+                    backend=sorted_scene),
             "1M grouped pass": lambda: ProgressiveRenderer(
                 g1m, cam_1m, RenderSettings(**settings), device=dev,
-                seed=cfg1m.seed, culled=cs1m)}
+                seed=cfg1m.seed, backend=cs1m)}
         for rnd in ("", " (again)"):      # two rounds of turns: the spread
             for name, make in passes.items():
                 render_ab(name + rnd, make, libs, out)

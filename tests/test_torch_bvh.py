@@ -28,6 +28,7 @@ from tpu_pathtracer.scene import builtin as jbuiltin
 from tpu_pathtracer.scene import mesh as jmesh
 from tpu_pathtracer_torch.app import App
 from tpu_pathtracer_torch.ops import bvh as tbvh
+from tpu_pathtracer_torch.ops.backend import BVHTraversal
 from tpu_pathtracer_torch.ops import intersect as tintersect
 from tpu_pathtracer_torch.render.renderer import RenderSettings
 from tpu_pathtracer_torch.scene import mesh as tmesh
@@ -189,7 +190,7 @@ def test_app_bvh_film_equals_brute(kw):
                      backend=backend, nee=kw.get("nee", False))
         app = App(cfg, device="cpu")
         r = app.renderer()
-        assert (app.bvh is not None) == (backend == "bvh")
+        assert app.backend.name == backend
         if kw.get("scan"):
             r.settings = dataclasses.replace(r.settings, wavefront=False)
         r.render(cfg.spp)
@@ -210,7 +211,8 @@ def test_render_settings_bvh_balance_lanes_film():
     films = []
     for k in (0, 4):
         s = RenderSettings(width=64, height=64, max_depth=3, balance_lanes=k)
-        r = ProgressiveRenderer(geom, cam, s, device="cpu", bvh=b)
+        r = ProgressiveRenderer(geom, cam, s, device="cpu",
+                                backend=BVHTraversal(geom, b))
         r.step()
         films.append(r.film.accum)
     assert torch.equal(films[0], films[1])

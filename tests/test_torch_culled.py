@@ -840,7 +840,7 @@ def test_app_culled_film_equals_allpairs_bitwise():
     CPU, lanes in swizzled tile order) and through the all-pairs one:
     the same film, bitwise."""
     culled = _film(backend="culled")
-    assert culled.culled is not None and culled.tri_pack is None
+    assert culled.backend.name == "culled" and culled.attr_pack is None
     allpairs = _film(backend="pallas")
     assert torch.equal(culled.film.accum, allpairs.film.accum)
     assert culled.total_rays == allpairs.total_rays > 0

@@ -158,21 +158,27 @@ def test_segment_boxes_grow_by_the_stated_pad():
     assert torch.equal(part.seg_lo, part.seg_min[:c].amin(dim=0))
 
 
-def _shooting_calls(geom, occl, steps=2, k=32, key=7):
-    """Every any-hit call of `steps` shooting steps: ((o, d, maxd, ex_a,
-    ex_b), the route's answer)."""
-    calls = []
+class _Kept:
+    """A backend whose any hit is `route`'s, each call kept."""
 
-    def keep(o, d, m, a, b):
+    def __init__(self, route):
+        self.route, self.name, self.calls = route, route.name, []
+
+    def occluded(self, o, d, m, a, b):
         a, b = a.to(torch.int32), b.to(torch.int32)
-        out = occl(o, d, m, a, b)
-        calls.append(((o, d, m, a, b), out))
+        out = self.route.occluded(o, d, m, a, b)
+        self.calls.append(((o, d, m, a, b), out))
         return out
 
+
+def _shooting_calls(geom, route, steps=2, k=32, key=7):
+    """Every any-hit call of `steps` shooting steps through `route`:
+    ((o, d, maxd, ex_a, ex_b), the route's answer)."""
+    kept = _Kept(route)
     rad.solve_radiosity_shooting(geom, rng.base_key(key), steps=steps,
                                  shooters_per_step=k, mc_samples=4,
-                                 occlusion_packs=keep, check_every=0)
-    return calls
+                                 backend=kept, check_every=0)
+    return kept.calls
 
 
 def test_culled_route_is_k3_on_shooting_segments():
@@ -182,7 +188,7 @@ def test_culled_route_is_k3_on_shooting_segments():
     geom = subdivide(cornell_box("quads"), 2).build("cpu")
     cs = ic.CulledScene(geom)
     tp, pp = ap.pack_triangles(geom), ap.pack_prim_ids(geom)
-    calls = _shooting_calls(geom, cs.occluded)
+    calls = _shooting_calls(geom, cs)
     assert calls
     active = 0
     for args, got in calls:
@@ -221,13 +227,11 @@ def test_guided_film_on_the_culled_backend_is_the_reference():
 def _recorded_solve(backend, recording=True, steps=3, k=32):
     app = App(Config(subdivision=2, backend=backend), device="cpu")
     geom = app.load_scene()
-    occl = app.culled if app.culled is not None else (
-        app.tri_pack, ap.pack_prim_ids(geom))
 
     def solve():
         return rad.solve_radiosity_shooting(
             geom, rng.base_key(11), steps=steps, shooters_per_step=k,
-            mc_samples=4, occlusion_packs=occl, check_every=0)
+            mc_samples=4, backend=app.backend, check_every=0)
     if not recording:
         return solve(), None, None
     with trace_scope.recording():

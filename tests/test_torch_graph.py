@@ -1,7 +1,8 @@
 """The wavefront iteration as CUDA graphs (`render/integrator.py`,
 `WavefrontGraphs`) and what makes it capturable: `build_frame` without
 host copies, the RNG's broadcast key read from device memory, the
-capture's cut at the phase scopes and its counters.
+capture's cut at the phase scopes and its counters, which the kernel
+wrappers advance only through `trace_scope.launched`.
 
 The CPU tests hold the pieces that run here: the frame against its old
 form, the broadcast key against the integer key, the CPU path (eager,
@@ -12,6 +13,8 @@ imports no JAX):
 `python -m pytest tests/test_torch_graph.py --noconftest -q -k card`."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -119,10 +122,39 @@ class _StandIn:
 def _wave(r, mode):
     return integrator._wave(
         r.geom, r.camera, (1, 2), (3, 4), torch.device("cpu"),
-        mis_bsdf_fraction=0.5, nee=False, prim_ids=None, width=16,
-        height=16, spp=2, max_depth=3, k=1, mode=mode, cdfs=r.cdfs,
-        tri_pack=r.tri_pack, attr_pack=r.attr_pack, culled=r.culled,
-        bvh=None, sort_rays=False, tile_sync=0, lane_steps=False)
+        mis_bsdf_fraction=0.5, nee=False, width=16, height=16, spp=2,
+        max_depth=3, k=1, mode=mode, cdfs=r.cdfs, backend=r.backend,
+        sort_rays=False, tile_sync=0, lane_steps=False)
+
+
+def _counter_attrs() -> list:
+    """(wrapper, attribute) of every kernel launch counter: the integer
+    attributes named `*launches` of the functions of `core/rng.py` and
+    of the intersection modules."""
+    seen = {}
+    for mod in (rng, intersect_allpairs, intersect_culled,
+                intersect_culled_legacy):
+        for fn in vars(mod).values():
+            for attr, v in getattr(fn, "__dict__", {}).items():
+                if attr.endswith("launches") and isinstance(v, int):
+                    seen[(id(fn), attr)] = (fn, attr)
+    return list(seen.values())
+
+
+def _launches() -> dict:
+    return {(fn.__name__, attr): getattr(fn, attr)
+            for fn, attr in _counter_attrs()}
+
+
+def _fake_kernel(monkeypatch):
+    """CPU draws take the RNG's kernel path, its launch a stand-in that
+    writes zeros: the wrappers count their launches as on the card."""
+    def run(mode, key, out, out1=None, **kw):
+        out.zero_()
+        if out1 is not None:
+            out1.zero_()
+    monkeypatch.setattr(rng, "_on_card", lambda device: True)
+    monkeypatch.setattr(rng, "_run", run)
 
 
 @pytest.mark.parametrize("mode,backend,scopes", [
@@ -137,15 +169,17 @@ def _wave(r, mode):
 def test_capture_cuts_at_the_phase_scopes(monkeypatch, mode, backend,
                                           scopes):
     """An iteration captured under the tap is cut wherever a scope opens
-    or closes; each piece keeps its scopes and the counts its code made
-    (an RNG draw each in the `rng` pieces), none of which reaches the
-    recording; the launch counters end where they began."""
+    or closes; each piece keeps its scopes and what its code counted (a
+    kernel launch of the RNG's lane draw and its `rng_calls` count in
+    each `rng` piece), none of which reaches the recording or a launch
+    counter."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandIn)
     app = _app(backend=backend, sampling_mode=mode)
     r = app.renderer()
     w = _wave(r, r.settings.sampling_mode)
     s = integrator._initial_state(w, torch.arange(256))
-    before = integrator._launch_counts()
+    _fake_kernel(monkeypatch)
+    before = _launches()
     tap = integrator._Capture(None)
     with trace_scope.recording():
         with trace_scope.tapped(tap):
@@ -155,17 +189,20 @@ def test_capture_cuts_at_the_phase_scopes(monkeypatch, mode, backend,
     assert trace_scope.counters() == {} and trace_scope.spans() == []
     assert [p.scopes for p in tap.pieces] == scopes
     for p in tap.pieces:
-        want = (("rng_calls", 1, "eager"),) if p.scopes == ("rng",) else ()
-        assert p.counts == want and p.launches == ()
-    assert integrator._launch_counts() == before
+        rng_piece = p.scopes == ("rng",)
+        assert p.counts == ((("rng_calls", 1, "fused"),) if rng_piece
+                            else ())
+        assert p.launches == (((rng.lane_uniforms, "launches", 1),)
+                              if rng_piece else ())
+    assert _launches() == before
     assert not tap.reads_recording
 
 
 def test_capture_rewinds_and_replay_adds_the_launches(monkeypatch):
-    """A piece whose code advanced a launch counter keeps the advance and
-    sets the counter back; each replay adds it again, and, while
-    recording, the piece's counts and a copy of its tallies, inside its
-    scopes."""
+    """A piece whose code advanced a launch counter keeps the advance,
+    which the tap took in place of the counter; each replay adds it, and,
+    while recording, the piece's counts and a copy of its tallies, inside
+    its scopes."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandIn)
     fn = intersect_allpairs.closest_record
     n0 = fn.launches
@@ -174,7 +211,7 @@ def test_capture_rewinds_and_replay_adds_the_launches(monkeypatch):
     with trace_scope.tapped(tap):
         tap.begin()
         with trace_scope.scope("intersection"):
-            fn.launches += 2
+            trace_scope.launched(fn, n=2)
             trace_scope.count("prepass_groups", 3)
             trace_scope.tally("prepass_groups_kept", value)
             assert not trace_scope.active()
@@ -194,18 +231,27 @@ def test_capture_rewinds_and_replay_adds_the_launches(monkeypatch):
     assert [s.name for s in trace_scope.spans()] == ["intersection"] * 2
 
 
-def test_launch_counters_cover_the_wrappers():
-    """Every kernel launch counter the iteration can advance is one the
-    capture follows."""
-    have = {(fn.__name__, attr) for fn, attr in integrator._launch_counters()}
-    for fn in (rng.lane_uniforms, rng.uniform, rng.fold_in,
-               intersect_allpairs.closest_record, intersect_allpairs.occluded,
-               intersect_culled.prepass_dense, intersect_culled.prepass_gated,
-               intersect_culled.closest_grouped,
-               intersect_culled.occluded_grouped,
-               intersect_culled_legacy.prepass_probe):
-        assert (fn.__name__, "launches") in have
-    assert ("closest_record", "guide_launches") in have
+def test_launch_counters_advance_only_through_the_helper():
+    """No source of `core/rng.py` or `ops/` advances a launch counter
+    itself (it only sets one to 0): every advance goes through
+    `trace_scope.launched`, which a capture's tap takes. The wrappers of
+    the kernels the iteration runs call it."""
+    pkg = Path(integrator.__file__).resolve().parents[1]
+    sources = [pkg / "core" / "rng.py", *sorted((pkg / "ops").glob("*.py"))]
+    advance = re.compile(r"launches\s*[-+*]?=(?!=)|setattr\(.*launches")
+    zeroed = re.compile(r"^\s*[\w.]*launches = 0$")
+    callers = set()
+    for path in sources:
+        for line in path.read_text().splitlines():
+            code = line.split("#")[0]
+            assert not advance.search(code) or zeroed.match(code), \
+                f"{path.name}: {line.strip()}"
+            callers |= set(re.findall(r"launched\(\(?(\w+)", code))
+    assert {"lane_uniforms", "closest_tuv", "closest_record", "occluded",
+            "prepass_dense", "prepass_gated", "closest_grouped",
+            "occluded_grouped", "closest_grouped_sc", "occluded_grouped_sc",
+            "prepass_probe", "prepass_rows", "closest_culled",
+            "closest_rows"} <= callers
 
 
 # --- on the card ------------------------------------------------------------
@@ -233,14 +279,8 @@ def _pass(app, film, graphs, camera=None, settings=None):
     r = app.renderer()
     rays, iters = render_pass(
         r.geom, camera or r.camera, film, r.key, settings or r.settings,
-        r.tri_pack, r.attr_pack, r.cdfs, r.mis_bsdf_fraction, r.culled,
-        r.prim_ids, None, r.bvh, graphs=graphs)
+        r.backend, r.cdfs, r.mis_bsdf_fraction, graphs=graphs)
     return int(rays), iters
-
-
-def _launches() -> dict:
-    return {(fn.__name__, attr): getattr(fn, attr)
-            for fn, attr in integrator._launch_counters()}
 
 
 def _recorded_pass(app, film, graphs, camera=None):
@@ -307,8 +347,8 @@ def test_card_iterations_past_the_last_test(check_every):
     for g in (graphs, graphs, None):
         out.append(integrator.trace_wavefront(
             r.geom, r.camera, lane_ids, (5, 6), width=362, height=362,
-            spp=2, max_depth=3, tri_pack=r.tri_pack, attr_pack=r.attr_pack,
-            check_every=check_every, return_lane_steps=True, graphs=g))
+            spp=2, max_depth=3, backend=r.backend, check_every=check_every,
+            return_lane_steps=True, graphs=g))
     if check_every == 0:
         assert out[2][2] == 9
     for got in out[:2]:
@@ -363,9 +403,8 @@ def _queue_pass(app, film, graphs):
     settings = dataclasses.replace(r.settings, balance_lanes=2,
                                    balance_tile_sync=True)
     rays, iters = render_pass(
-        r.geom, r.camera, film, r.key, settings, r.tri_pack, r.attr_pack,
-        r.cdfs, r.mis_bsdf_fraction, r.culled, r.prim_ids,
-        (gids, inv.to(r.device)), r.bvh, graphs=graphs)
+        r.geom, r.camera, film, r.key, settings, r.backend, r.cdfs,
+        r.mis_bsdf_fraction, (gids, inv.to(r.device)), graphs=graphs)
     return int(rays), iters
 
 
@@ -432,7 +471,7 @@ def test_card_tiled_bands_graphed():
     app = _card_app("pallas", "bsdf", width=128, height=128)
     r = app.renderer()
     tiled = TiledRenderer(r.geom, r.camera, r.settings, mesh=[r.device] * 2,
-                          tri_pack=r.tri_pack, attr_pack=r.attr_pack)
+                          backend=r.backend)
     for _ in range(2):
         r.step()
         tiled.step()

@@ -40,8 +40,8 @@ from tpu_pathtracer_torch.core import rng
 from tpu_pathtracer_torch.core.constants import SAMPLING_BSDF, SAMPLING_MIS
 from tpu_pathtracer_torch.ops import guiding as tguiding
 from tpu_pathtracer_torch.ops import intersect as tintersect
-from tpu_pathtracer_torch.ops import intersect_allpairs as ap
 from tpu_pathtracer_torch.ops import intersect_culled as ic
+from tpu_pathtracer_torch.ops.backend import AllPairs
 from tpu_pathtracer_torch.render import integrator as tintegrator
 from tpu_pathtracer_torch.render import renderer as trenderer
 from tpu_pathtracer_torch.render.camera import CameraController
@@ -335,17 +335,16 @@ def test_scan_nee_without_emitters_is_bitwise_nee_off():
 
 def _nee_renderer(backend, size=32, spp=4, **kw):
     geom = cornell_box("quads").build("cpu")
-    packs = {}
+    route = None
     if backend == "pallas":
-        packs = dict(tri_pack=ap.pack_triangles(geom),
-                     attr_pack=ap.pack_attributes(geom))
+        route = AllPairs.of(geom)
     elif backend == "culled":
-        packs = dict(culled=ic.CulledScene(geom))
+        route = ic.CulledScene(geom)
     s = trenderer.RenderSettings(width=size, height=size, max_depth=4,
                                  spp_per_pass=spp, **kw)
     r = trenderer.ProgressiveRenderer(geom, CameraController.default()
                                       .build("cpu"), s, device="cpu",
-                                      seed=12, **packs)
+                                      seed=12, backend=route)
     r.step()
     return r
 
@@ -357,7 +356,7 @@ def test_nee_film_same_through_k3_and_k7_routes():
     any hit's own arithmetic stays within the goldens' bar of them
     (measured relative RMSE 5.3e-8)."""
     pallas = _nee_renderer("pallas", nee=True)
-    assert pallas.prim_ids is not None
+    assert pallas.backend.prim_ids is not None
     culled = _nee_renderer("culled", nee=True)
     assert torch.equal(pallas.film.accum, culled.film.accum)
     assert pallas.total_rays == culled.total_rays
@@ -404,7 +403,7 @@ def _balanced(geom, cam, culled, nee, k=0, tile_sync=False, size=64,
                                  spp_per_pass=spp, nee=nee, balance_lanes=k,
                                  balance_tile_sync=tile_sync)
     r = trenderer.ProgressiveRenderer(geom, cam, s, device="cpu", seed=13,
-                                      culled=culled)
+                                      backend=culled)
     r.step()
     assert (r._assignment is not None) == (k > 1)
     return r

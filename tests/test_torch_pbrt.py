@@ -159,5 +159,5 @@ def test_auto_backend_on_cpu_builds_a_bvh_for_large_pbrt_scene():
     does: stress100k gets one over all its triangles."""
     app = App(Config(scene=STRESS), device="cpu")
     app.load_scene()
-    assert app.bvh is not None and app.culled is None
-    assert app.bvh.tri_order.shape[0] == app.geom.num_tris == 101_704
+    assert app.backend.name == "bvh" and app.culled is None
+    assert app.backend.bvh.tri_order.shape[0] == app.geom.num_tris == 101_704

@@ -219,7 +219,7 @@ def test_kernel_profile_isolated_phases():
     """The phase-isolated timing through each backend: the JAX function's
     keys, shares summing to 100%, grid sampling with CDFs, and the JAX
     package's table format."""
-    from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+    from tpu_pathtracer_torch.ops.backend import AllPairs
     from tpu_pathtracer_torch.ops.guiding import build_cdfs
     from tpu_pathtracer_torch.render.camera import CameraController
 
@@ -230,8 +230,7 @@ def test_kernel_profile_isolated_phases():
     cdfs = build_cdfs(torch.rand((geom.num_prims, 256),
                                  generator=torch.Generator().manual_seed(0)))
     prof = tkp.kernel_profile(
-        geom, o, d, cdfs=cdfs, tri_pack=ap.pack_triangles(geom),
-        attr_pack=ap.pack_attributes(geom), iters=2)
+        geom, o, d, cdfs=cdfs, backend=AllPairs.of(geom), iters=2)
     assert list(prof["seconds"]) == ["intersection", "rng", "bsdf_sampling",
                                      "grid_sampling"]
     assert prof["rays"] == 256

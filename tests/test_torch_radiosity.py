@@ -28,6 +28,7 @@ from tpu_pathtracer.scene import mesh as jmesh
 from tpu_pathtracer_torch.core import math_utils as tmath
 from tpu_pathtracer_torch.core import rng as trng
 from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+from tpu_pathtracer_torch.ops.backend import AllPairs
 from tpu_pathtracer_torch.render import radiosity as trad
 from tpu_pathtracer_torch.scene import mesh as tmesh
 
@@ -292,16 +293,21 @@ def test_solve_analytic_and_filtered(scene):
 
 
 def test_visibility_routes(scene):
-    """The K3 route (plain version on the CPU) and a callable give the
-    same solve bitwise; both agree with the brute route up to knife-edge
-    visibility flips."""
+    """The K3 route (plain version on the CPU) and K3's plain version
+    called directly give the same solve bitwise; both agree with the
+    brute route up to knife-edge visibility flips."""
     _, tg = scene
     tp, pp = ap.pack_triangles(tg), ap.pack_prim_ids(tg)
     kw = dict(num_iterations=2, mc_samples=2)
-    via_packs = trad.solve_radiosity(tg, occlusion_packs=(tp, pp), **kw)
-    via_fn = trad.solve_radiosity(
-        tg, occlusion_packs=lambda o, d, m, a, b: ap.occluded_plain(
-            tp, pp, o, d, m, a.int(), b.int()), **kw)
+
+    class Plain:
+        name = "pallas"
+
+        def occluded(self, o, d, m, a, b):
+            return ap.occluded_plain(tp, pp, o, d, m, a.int(), b.int())
+
+    via_packs = trad.solve_radiosity(tg, backend=AllPairs(tp, pp), **kw)
+    via_fn = trad.solve_radiosity(tg, backend=Plain(), **kw)
     brute = trad.solve_radiosity(tg, **kw)
     assert torch.equal(via_packs.radiosity, via_fn.radiosity)
     assert torch.equal(via_packs.rad_grid, via_fn.rad_grid)

@@ -29,7 +29,7 @@ from tpu_pathtracer_torch.core.constants import (
     SAMPLING_RADIOSITY,
     SAMPLING_TOPK,
 )
-from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+from tpu_pathtracer_torch.ops.backend import AllPairs
 from tpu_pathtracer_torch.ops import tonemap as ttonemap
 from tpu_pathtracer_torch.render import film as tfilm
 from tpu_pathtracer_torch.render.camera import CameraController
@@ -71,9 +71,9 @@ def test_slice_matches_golden(name, backend):
         assert (r.cdfs is not None) == guided
         if backend == "pallas":
             assert r.attr_pack.shape[0] == (32 if guided else 16)
+            assert r.backend.prim_ids is not None   # K3: NEE's shadow rays
         assert r.settings.nee == cfg.nee
-        assert (r.prim_ids is not None) == (cfg.nee and backend == "pallas")
-    assert (app.tri_pack is not None) == (backend == "pallas")
+    assert (app.backend.name == "pallas") == (backend == "pallas")
     with np.load(os.path.join(GOLDEN_DIR, f"{name}.npz")) as z:
         want = z["image"]
     assert got.shape == want.shape
@@ -94,12 +94,9 @@ def _renderer(ray_chunk, backend="pallas", size=32, spp=4, mirror=True,
     s = RenderSettings(width=size, height=size, max_depth=5,
                        spp_per_pass=spp, ray_chunk=ray_chunk,
                        sampling_mode=mode)
-    packs = {}
-    if backend == "pallas":
-        packs = dict(tri_pack=ap.pack_triangles(geom),
-                     attr_pack=ap.pack_attributes(geom))
+    route = AllPairs.of(geom) if backend == "pallas" else None
     return ProgressiveRenderer(geom, cam, s, device="cpu", seed=11,
-                               cdfs=cdfs, **packs)
+                               cdfs=cdfs, backend=route)
 
 
 @pytest.mark.parametrize("backend", ["brute", "pallas"])
@@ -151,13 +148,12 @@ def test_film_bitwise_invariant_to_alive_check():
     geom = cornell_box("quads", mirror_tall_box=True).build("cpu")
     cam = CameraController.default().build("cpu")
     key = rng.stream_key(rng.fold_in(rng.base_key(3), 0), rng.STREAM_PATH)
-    tp, atp = ap.pack_triangles(geom), ap.pack_attributes(geom)
+    route = AllPairs.of(geom)
     out = {}
     for every in (0, 1, 8):
         out[every] = trace_wavefront(
             geom, cam, torch.arange(24 * 24), key, width=24, height=24,
-            spp=3, max_depth=4, tri_pack=tp, attr_pack=atp,
-            check_every=every,
+            spp=3, max_depth=4, backend=route, check_every=every,
         )
     max_iters = 3 * 4 + 4
     assert out[0][2] == max_iters
@@ -240,7 +236,7 @@ def test_app_num_tiles_renders_the_untiled_film():
     img1, img3 = one.render(), three.render()
     r = three.renderer()
     assert r.n_tiles == 3 and [f.height for f in r.films] == [7, 7, 6]
-    assert r._scene["prim_ids"][0] is not None
+    assert r._scene["backend"][0].prim_ids is not None
     np.testing.assert_array_equal(img3, img1)
     assert torch.equal(r.film.accum, one.renderer().film.accum)
     assert r.total_rays == one.renderer().total_rays
@@ -268,7 +264,7 @@ def test_shooting_and_bvh_configs_render(kw):
         assert tuple(app.solution.form_factors.shape) == (0, 0)
         assert app.solution.history_count == 3
     else:
-        assert app.bvh is not None and app.solution is None
+        assert app.backend.name == "bvh" and app.solution is None
 
 
 @pytest.mark.parametrize("kw", [
@@ -463,11 +459,11 @@ def test_auto_backend_on_cpu_is_brute_up_to_2048_triangles():
     at 8192 (sub-4), as in the JAX App."""
     small = App(Config(subdivision=3), device="cpu")
     small.load_scene()
-    assert small.bvh is None and small.tri_pack is None
+    assert small.backend.name == "brute"
     big = App(Config(subdivision=4), device="cpu")
     big.load_scene()
-    assert big.geom.num_tris == 8192 and big.bvh is not None
-    assert big.culled is None and big.tri_pack is None
+    assert big.geom.num_tris == 8192 and big.backend.name == "bvh"
+    assert big.culled is None
 
 
 def test_config_json_loads_in_both_packages():
@@ -618,9 +614,9 @@ def test_package_imports_without_jax():
     unimportable, every module of the package still imports."""
     mods = ["tpu_pathtracer_torch." + m for m in (
         "app", "cli", "core.rng", "core.math_utils", "core.constants",
-        "ops.bvh", "ops.cluster_layout", "ops.filters", "ops.guiding",
-        "ops.intersect", "ops.intersect_allpairs", "ops.intersect_culled",
-        "ops.intersect_culled_legacy", "ops.tonemap",
+        "ops.backend", "ops.bvh", "ops.cluster_layout", "ops.filters",
+        "ops.guiding", "ops.intersect", "ops.intersect_allpairs",
+        "ops.intersect_culled", "ops.intersect_culled_legacy", "ops.tonemap",
         "graft_entry", "parallel.sharding",
         "render.camera", "render.film", "render.integrator",
         "render.radiosity", "render.renderer", "scene.builtin", "scene.mesh",

@@ -56,6 +56,7 @@ from tpu_pathtracer_torch.ops import intersect as tintersect
 from tpu_pathtracer_torch.ops import intersect_allpairs as ap
 from tpu_pathtracer_torch.ops import intersect_culled as ic
 from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
+from tpu_pathtracer_torch.ops.backend import AllPairs
 from tpu_pathtracer_torch.render import integrator as tintegrator
 from tpu_pathtracer_torch.render import renderer as trenderer
 from tpu_pathtracer_torch.render.camera import CameraController
@@ -834,18 +835,17 @@ def _trace(backend, sort_rays, size=32):
         "cpu")
     cam = CameraController.default().build("cpu")
     key = rng.stream_key(rng.fold_in(rng.base_key(4), 0), rng.STREAM_PATH)
-    kw = {}
+    route = None
     if backend == "pallas":
-        kw = dict(tri_pack=ap.pack_triangles(geom),
-                  attr_pack=ap.pack_attributes(geom))
+        route = AllPairs.of(geom)
     elif backend.startswith("culled"):
         opts = dict(sort_rays=True) if backend == "culled-rows" else {}
-        kw = dict(culled=ic.CulledScene(geom, **opts))
+        route = ic.CulledScene(geom, **opts)
     lanes = torch.from_numpy(trenderer._tile_swizzle(size, size,
                                                      size * size)[0])
     return tintegrator.trace_wavefront(
         geom, cam, lanes, key, width=size, height=size, spp=2, max_depth=4,
-        sort_rays=sort_rays, **kw)
+        sort_rays=sort_rays, backend=route)
 
 
 @pytest.mark.parametrize("backend", ["brute", "pallas", "culled",

@@ -27,7 +27,7 @@ from tpu_pathtracer.scene import mesh as jmesh
 from tpu_pathtracer_torch import graft_entry
 from tpu_pathtracer_torch.core import rng
 from tpu_pathtracer_torch.core.constants import SAMPLING_MIS
-from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+from tpu_pathtracer_torch.ops.backend import AllPairs, BVHTraversal
 from tpu_pathtracer_torch.ops.bvh import build_bvh
 from tpu_pathtracer_torch.ops.guiding import build_cdfs
 from tpu_pathtracer_torch.ops.intersect_culled import CulledScene
@@ -66,11 +66,10 @@ def box():
     jcam = JCameraController.default().build()
     tg = _to_torch(jg)
     backends = {
-        "brute": {},
-        "pallas": dict(tri_pack=ap.pack_triangles(tg),
-                       attr_pack=ap.pack_attributes(tg)),
-        "culled": dict(culled=CulledScene(tg)),
-        "bvh": dict(bvh=build_bvh(tg)),
+        "brute": None,
+        "pallas": AllPairs.of(tg),
+        "culled": CulledScene(tg),
+        "bvh": BVHTraversal(tg, build_bvh(tg)),
     }
     return jg, jcam, tg, _cam(jcam), backends
 
@@ -85,7 +84,7 @@ def _films(box, settings, backend, n_tiles, seed=5, cdfs=None,
            mesh=None):
     """(single-device renderer, tiled renderer) after one pass each."""
     _, _, tg, cam, backends = box
-    kw = dict(seed=seed, cdfs=cdfs, **backends[backend])
+    kw = dict(seed=seed, cdfs=cdfs, backend=backends[backend])
     single = ProgressiveRenderer(tg, cam, settings, device="cpu", **kw)
     single.step()
     tiled = sh.TiledRenderer(tg, cam, settings,
@@ -141,9 +140,9 @@ def test_tiled_options_bitwise(box, variant):
             else None)
     single, tiled = _films(box, settings, backend, 3, cdfs=cdfs)
     if backend == "pallas":
-        band = tiled._scene
-        assert band["attr_pack"][0].shape[0] == (32 if cdfs else 16)
-        assert (band["prim_ids"][0] is not None) == settings.nee
+        band = tiled._scene["backend"][0]
+        assert band.attr_pack.shape[0] == (32 if cdfs else 16)
+        assert band.prim_ids is not None
     assert torch.equal(tiled.film.accum, single.film.accum)
     assert tiled.total_rays == single.total_rays
 
@@ -176,16 +175,15 @@ def test_mc_form_factors_sharded_bitwise(box, n_dev):
     brute force and the plain K3 for visibility."""
     _, _, tg, _, backends = box
     key = rng.base_key(3)
-    vis = (backends["pallas"]["tri_pack"], ap.pack_prim_ids(tg))
-    for rc, packs in ((2, None), (16, None), (2, vis)):
+    for rc, route in ((2, None), (16, None), (2, backends["pallas"])):
         got = sh.mc_form_factors_sharded(
             tg, key, mesh=["cpu"] * n_dev, n_samples=8, row_chunk=rc,
-            occlusion_packs=packs)
+            backend=route)
         want = rad.mc_form_factors(tg, key, n_samples=8, row_chunk=rc,
-                                   occlusion_packs=packs)
+                                   backend=route)
         assert got[0].shape == (16, 16)
         for a, b in zip(got, want):
-            assert torch.equal(a, b), (rc, packs is None)
+            assert torch.equal(a, b), (rc, route is None)
 
 
 @pytest.mark.parametrize("n_dev,kw", [

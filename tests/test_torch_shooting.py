@@ -31,6 +31,7 @@ from tpu_pathtracer_torch.app import App
 from tpu_pathtracer_torch.core import math_utils as tmath
 from tpu_pathtracer_torch.core import rng as trng
 from tpu_pathtracer_torch.ops import intersect_allpairs as ap
+from tpu_pathtracer_torch.ops.backend import AllPairs
 from tpu_pathtracer_torch.ops.intersect_culled import CulledScene
 from tpu_pathtracer_torch.render import radiosity as trad
 from tpu_pathtracer_torch.scene import mesh as tmesh
@@ -115,12 +116,13 @@ def test_shoot_step_vs_jax(scene, sort_shooters):
     largest."""
     jg, tg = scene
     st = _state(jg, 1)
-    kw = dict(k=8, n_samples=16, row_chunk=16, occlusion_packs=None,
-              sort_shooters=sort_shooters)
+    kw = dict(k=8, n_samples=16, row_chunk=16, sort_shooters=sort_shooters)
     want = [np.asarray(x) for x in jrad._shoot_step(
-        jg, jrng.base_key(5), *map(jnp.asarray, st), jnp.int32(3), **kw)]
+        jg, jrng.base_key(5), *map(jnp.asarray, st), jnp.int32(3),
+        occlusion_packs=None, **kw)]
     got = [x.numpy() for x in trad._shoot_step(
-        tg, trng.base_key(5), *map(torch.from_numpy, st), 3, **kw)]
+        tg, trng.base_key(5), *map(torch.from_numpy, st), 3, backend=None,
+        **kw)]
     power = st[1] @ np.float32([0.2126, 0.7152, 0.0722]) * np.asarray(jg.area)
     np.testing.assert_array_equal(
         trad.top_k_ids(torch.from_numpy(power), 8).numpy(),
@@ -263,13 +265,12 @@ def test_visibility_routes(scene):
     kw = dict(steps=6, shooters_per_step=16, mc_samples=8, check_every=0)
     key = trng.base_key(9)
     routes = {
-        "k3": (ap.pack_triangles(tg), ap.pack_prim_ids(tg)),
+        "k3": AllPairs(ap.pack_triangles(tg), ap.pack_prim_ids(tg)),
         "culled": CulledScene(tg),
         "brute": None,
     }
-    sols = {name: trad.solve_radiosity_shooting(tg, key,
-                                                occlusion_packs=packs, **kw)
-            for name, packs in routes.items()}
+    sols = {name: trad.solve_radiosity_shooting(tg, key, backend=route, **kw)
+            for name, route in routes.items()}
     for f in SOLUTION_FIELDS:
         assert torch.equal(getattr(sols["k3"], f), getattr(sols["culled"], f))
     np.testing.assert_allclose(sols["k3"].radiosity.numpy(),

@@ -179,9 +179,8 @@ def _wavefront(nee, check_every=8, spp=2, max_depth=3):
     with trace_scope.recording():
         total, rays, it, steps = trace_wavefront(
             r.geom, r.camera, lane_ids, rng.base_key(7), width=16,
-            height=16, spp=spp, max_depth=max_depth, tri_pack=r.tri_pack,
-            attr_pack=r.attr_pack, nee=nee, prim_ids=r.prim_ids,
-            check_every=check_every, return_lane_steps=True)
+            height=16, spp=spp, max_depth=max_depth, backend=r.backend,
+            nee=nee, check_every=check_every, return_lane_steps=True)
     return trace_scope.counters(), int(rays), it, int(steps.sum())
 
 

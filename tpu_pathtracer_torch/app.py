@@ -11,7 +11,8 @@ plus "Backend Build" around `_select_backend`: the packs, the
 `App(cfg, device=...)` runs on the device it is given; a `Config` JSON
 and a checkpoint npz load in both packages.
 
-Backends: "pallas" selects the hand-written all-pairs kernels
+Backends (ops/backend.py, one object the solve and the renderers share):
+"pallas" selects the hand-written all-pairs kernels
 (ops/intersect_allpairs.py: K2 for hits, K3 for form-factor visibility
 and NEE's shadow rays; their plain torch versions on the CPU), "culled"
 the cluster-culled kernels for large scenes (ops/intersect_culled.py: the
@@ -21,7 +22,8 @@ in supercluster mode), "bvh" the BVH traversal for hits
 package) and "brute" the brute-force queries. "auto" selects, as the JAX
 package does on its accelerator and on the CPU, the all-pairs kernels on
 CUDA up to 16,384 triangles and the culled ones above, and on the CPU
-brute force up to 2048 triangles and the BVH above. The radiosity solver
+brute force up to 2048 triangles and the BVH above (`select_backend`).
+The radiosity solver
 "auto" is the gather solve up to 16,384 primitives and the matrix-free
 shooting solve above, whose (N, N) matrix would not fit. As in the JAX
 App, `sort_rays` is the integrator's lane sort on any backend, `nee` the
@@ -33,8 +35,8 @@ defaults. Scenes are the builtins, `.obj` and `.pbrt` files.
 `num_tiles` > 1 renders through `parallel.sharding.TiledRenderer`: row
 bands on `num_tiles` cards from the App's own (`make_mesh`) on CUDA, on
 `["cpu"] * num_tiles` on the CPU. Unlike the JAX App, which tiles on its
-brute-force path, every band runs the App's backend (its packs, `culled`
-or `bvh`), so on the card the bands run the kernels. The film that
+brute-force path, every band runs the App's backend, so on the card the
+bands run the kernels. The film that
 `render`, `save_checkpoint` and `load_checkpoint` see is the gathered
 frame.
 """
@@ -56,14 +58,9 @@ from .core.constants import (
     SAMPLING_TOPK,
 )
 from .core.math_utils import luminance
-from .ops.bvh import BVH, build_bvh
+from .ops.backend import NAMES, Backend, select_backend
 from .ops.filters import bilateral_filter_rgb, filter_pdfs, gaussian_filter_rgb
 from .ops.guiding import CDFPack, build_cdfs, top_k_mask
-from .ops.intersect_allpairs import (
-    pack_attributes,
-    pack_prim_ids,
-    pack_triangles,
-)
 from .ops.intersect_culled import CulledScene
 from .parallel.sharding import TiledRenderer, indexed_device, make_mesh
 from .render.camera import CameraController
@@ -78,7 +75,6 @@ from .render.renderer import (
     ProgressiveRenderer,
     RenderSettings,
     pick_primitive,
-    render_packs,
     render_radiosity_view,
 )
 from .scene.builtin import cornell_box
@@ -113,7 +109,7 @@ _SOLUTION_KEYS = ("radiosity", "unshot", "rad_grid", "grid_counts",
 def check_config(cfg: Config) -> None:
     """Raise ValueError for an unknown sampling mode, backend or solver."""
     _ = cfg.sampling_mode_id
-    if cfg.backend not in ("auto", "brute", "pallas", "culled", "bvh"):
+    if cfg.backend not in ("auto", *NAMES):
         raise ValueError(f"unknown backend '{cfg.backend}'")
     if cfg.radiosity_solver not in ("auto", "gather", "shooting"):
         raise ValueError(
@@ -168,21 +164,19 @@ class App:
         self.profiler = Profiler(self.device)
         self.prims: PrimList | None = None
         self.geom: Geometry | None = None
-        self.tri_pack = None
-        self.attr_pack = None
-        self.culled: CulledScene | None = None
-        self.bvh: BVH | None = None
+        self.backend: Backend | None = None
         self.solution: RadiositySolution | None = None
         self.cdfs: CDFPack | None = None
         self.filtered_formfactor = None   # (N, 256) filtered float PDFs
         self.filtered_radiosity = None
         self.camera_ctrl: CameraController | None = None
         self._renderer = None   # a ProgressiveRenderer or TiledRenderer
-        # the wavefront's CUDA graphs and the packs its renderers read,
-        # kept across renderers (an orbit builds a new one) until the
-        # scene, the backend or the CDFs change (`_new_backend`)
+        # the wavefront's CUDA graphs and the backend its renderers read
+        # (`for_render`), kept across renderers (an orbit builds a new
+        # one) until the scene, the backend or the CDFs change
+        # (`_new_backend`)
         self.graphs = WavefrontGraphs()
-        self._render_packs = None
+        self._render_backend = None
 
     def load_scene(self) -> Geometry:
         cfg = self.config
@@ -194,7 +188,7 @@ class App:
             cfg.scene, self.geom.num_prims, self.geom.num_tris,
         )
         with self.profiler.stage("Backend Build"):
-            self._select_backend()
+            self.backend = select_backend(self.geom, cfg.backend)
         self.camera_ctrl = CameraController(
             lookfrom=np.array(cfg.camera_origin, np.float32),
             lookat=np.array(cfg.look_at, np.float32),
@@ -210,38 +204,15 @@ class App:
 
     def _new_backend(self) -> None:
         """Drop what was built on the old scene, backend or CDFs: the
-        wavefront's graphs and the renderers' packs."""
+        wavefront's graphs and the renderers' backend."""
         self.graphs.clear()
-        self._render_packs = None
+        self._render_backend = None
 
-    def _select_backend(self) -> None:
-        """"auto" -> the all-pairs kernel on CUDA (the cluster-culled
-        backend above 16384 triangles), brute force on the CPU up to 2048
-        triangles (the BVH above). "culled" on the CPU runs the culled
-        path's plain versions; "bvh" runs on either device."""
-        backend = self.config.backend
-        n = self.geom.num_tris
-        if backend == "auto":
-            if self.device.type == "cuda":
-                backend = "culled" if n > 16384 else "pallas"
-            else:
-                backend = "bvh" if n > 2048 else "brute"
-        self.tri_pack = self.attr_pack = self.culled = self.bvh = None
-        if backend == "bvh":
-            self.bvh = build_bvh(self.geom)
-            log.info("Backend: BVH traversal (%d tris, %d nodes)", n,
-                     self.bvh.num_nodes)
-        elif backend == "culled":
-            self.culled = CulledScene(self.geom)
-            log.info("Backend: cluster-culled kernels (%d tris, %d clusters)",
-                     n, self.culled.num_clusters)
-        elif backend == "pallas":
-            self.tri_pack = pack_triangles(self.geom)
-            self.attr_pack = pack_attributes(self.geom)
-            log.info("Backend: all-pairs kernel (%d tris -> %s pack)",
-                     n, tuple(self.tri_pack.shape))
-        else:
-            log.info("Backend: brute-force (%d tris)", n)
+    @property
+    def culled(self) -> CulledScene | None:
+        """The backend where it is the cluster-culled one, else None."""
+        b = self.backend
+        return b if b is not None and b.name == "culled" else None
 
     # ---------------- radiosity ----------------
 
@@ -263,9 +234,6 @@ class App:
             else:
                 def filter_fn(g):
                     return gaussian_filter_rgb(g, cfg.sigma_spatial)
-        occlusion_packs = self.culled
-        if self.tri_pack is not None:
-            occlusion_packs = (self.tri_pack, pack_prim_ids(self.geom))
         solver = cfg.radiosity_solver
         if solver == "auto":
             # the (N, N) gather matrix is 1 GB at 16,384 primitives
@@ -290,7 +258,7 @@ class App:
                     steps=cfg.shooting_steps,
                     shooters_per_step=cfg.shooters_per_step,
                     mc_samples=cfg.shooting_mc_samples,
-                    occlusion_packs=occlusion_packs,
+                    backend=self.backend,
                     grid_refresh=cfg.grid_refresh,
                     estimator=cfg.ff_estimator,
                 )
@@ -301,7 +269,7 @@ class App:
                     use_monte_carlo=cfg.use_monte_carlo,
                     mc_samples=cfg.mc_samples,
                     filter_fn=filter_fn,
-                    occlusion_packs=occlusion_packs,
+                    backend=self.backend,
                     estimator=cfg.ff_estimator,
                 )
         log.info("Radiosity solved (%s): %d prims, %.1f ms", solver,
@@ -392,23 +360,14 @@ class App:
                 balance_lanes=cfg.balance_lanes,
                 nee=cfg.nee,
             )
-            packs_key = (settings.sampling_mode, settings.nee)
-            if self._render_packs is None \
-                    or self._render_packs[0] != packs_key:
-                self._render_packs = (packs_key, render_packs(
-                    self.geom, settings, self.tri_pack, self.attr_pack,
-                    self.cdfs, None))
-            attr_pack, prim_ids = self._render_packs[1]
-            backend = dict(
-                seed=cfg.seed,
-                tri_pack=self.tri_pack,
-                attr_pack=attr_pack,
-                cdfs=self.cdfs,
-                mis_bsdf_fraction=cfg.mis_bsdf_fraction,
-                culled=self.culled,
-                prim_ids=prim_ids,
-                bvh=self.bvh,
-            )
+            mode = settings.sampling_mode
+            if self._render_backend is None \
+                    or self._render_backend[0] != mode:
+                self._render_backend = (mode, self.backend.for_render(
+                    self.geom, mode, self.cdfs))
+            kw = dict(seed=cfg.seed, backend=self._render_backend[1],
+                      cdfs=self.cdfs,
+                      mis_bsdf_fraction=cfg.mis_bsdf_fraction)
             camera = self.camera_ctrl.build(self.device)
             if cfg.num_tiles > 1:
                 mesh = (make_mesh(cfg.num_tiles,
@@ -416,11 +375,11 @@ class App:
                         if self.device.type == "cuda"
                         else make_mesh(devices=[self.device] * cfg.num_tiles))
                 self._renderer = TiledRenderer(self.geom, camera, settings,
-                                               mesh=mesh, **backend)
+                                               mesh=mesh, **kw)
             else:
                 self._renderer = ProgressiveRenderer(
                     self.geom, camera, settings, device=self.device,
-                    graphs=self.graphs, **backend)
+                    graphs=self.graphs, **kw)
         return self._renderer
 
     def _view_settings(self) -> RenderSettings:
@@ -440,7 +399,7 @@ class App:
                     self.geom, self.solution.radiosity,
                     self.camera_ctrl.build(self.device),
                     rng.base_key(cfg.seed), self._view_settings(),
-                    culled=self.culled,
+                    backend=self.backend,
                 )
             return img.cpu().numpy()[::-1]
         r = self.renderer()
@@ -466,7 +425,7 @@ class App:
         img = render_radiosity_view(
             self.geom, delta, self.camera_ctrl.build(self.device),
             rng.base_key(cfg.seed), self._view_settings(),
-            include_emission=False, culled=self.culled,
+            include_emission=False, backend=self.backend,
         )
         return img.cpu().numpy()[::-1]
 

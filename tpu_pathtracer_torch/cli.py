@@ -110,11 +110,8 @@ def main(argv=None) -> int:
         x = (pix % cfg.width).to(torch.float32)
         y = (pix // cfg.width).to(torch.float32)
         o, d = cam.get_rays((x + 0.5) / cfg.width, (y + 0.5) / cfg.height)
-        prof = kernel_profile(
-            app.geom, o, d, cdfs=app.cdfs, bvh=app.bvh,
-            tri_pack=app.tri_pack, attr_pack=app.attr_pack,
-            culled=app.culled,
-        )
+        prof = kernel_profile(app.geom, o, d, cdfs=app.cdfs,
+                              backend=app.backend)
         print(format_profile(prof))
     return 0
 

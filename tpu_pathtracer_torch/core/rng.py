@@ -266,7 +266,8 @@ def _fold_in_fused(key, data):
 
 def _launch(mode, key, out, out1=None, **args):
     """One launch of the kernel (`_run`) on out's device; then one more
-    launch of the draw's entry point (`.launches`) and, while recording,
+    launch of the draw's entry point (`.launches`, through
+    `trace_scope.launched`) and, while recording,
     one more `rng_calls["fused"]`. An empty draw launches nothing; tensors
     on another device than `out` raise."""
     if out.numel() == 0:
@@ -276,7 +277,7 @@ def _launch(mode, key, out, out1=None, **args):
     if any(x.device != out.device for x in tensors):
         raise ValueError("the draw's tensors must be on one device")
     _run(mode, key, out, out1, **args)
-    (lane_uniforms, uniform, fold_in)[mode].launches += 1
+    trace_scope.launched((lane_uniforms, uniform, fold_in)[mode])
     _count("fused")
 
 

@@ -18,7 +18,7 @@ import torch
 
 from . import resolve_device
 from .core import rng
-from .ops import intersect_allpairs as ap
+from .ops.backend import AllPairs
 from .render.camera import CameraController
 from .render.film import Film
 from .render.renderer import RenderSettings
@@ -41,11 +41,10 @@ def entry(device: str | torch.device = "cuda"):
 
     dev = resolve_device(device)
     geom, cam, settings, film, key = _small_setup(dev)
-    tri_pack, attr_pack = ap.pack_triangles(geom), ap.pack_attributes(geom)
+    backend = AllPairs.of(geom)
 
     def fn(geom, cam, film, key):
-        rays, _ = render_pass(geom, cam, film, key, settings, tri_pack,
-                              attr_pack)
+        rays, _ = render_pass(geom, cam, film, key, settings, backend)
         return film.accum, rays
 
     return fn, (geom, cam, film, key)
@@ -81,12 +80,11 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     dev = mesh[0]
     geom, cam, settings, _, _ = _small_setup(dev, width=32, height=32,
                                              spp=1, chunk=128)
-    packs = dict(tri_pack=ap.pack_triangles(geom),
-                 attr_pack=ap.pack_attributes(geom))
-    visibility = (packs["tri_pack"], ap.pack_prim_ids(geom))
+    packs = AllPairs.of(geom)
 
     # 1) tiled progressive render across the mesh (all-pairs packs)
-    tiled = TiledRenderer(geom, cam, settings, mesh=mesh, seed=1, **packs)
+    tiled = TiledRenderer(geom, cam, settings, mesh=mesh, seed=1,
+                          backend=packs)
     tiled.step()
     film = tiled.gather_film()
     assert film.accum.shape == (32, 32, 3) and film.spp == 1
@@ -95,10 +93,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     # 1b) the culled backend, bitwise the single-device culled render
     cs = CulledScene(geom)
     tiled_c = TiledRenderer(geom, cam, settings, mesh=mesh, seed=1,
-                            culled=cs)
+                            backend=cs)
     tiled_c.step()
     single_c = ProgressiveRenderer(geom, cam, settings, device=dev, seed=1,
-                                   culled=cs)
+                                   backend=cs)
     single_c.step()
     assert torch.equal(tiled_c.gather_film().accum, single_c.film.accum), (
         "culled tiled render must match the single-device render bitwise")
@@ -106,21 +104,21 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     # 2) sharded form factors + the refinement matmul
     ff, gc, gv = mc_form_factors_sharded(
         geom, rng.base_key(2), mesh=mesh, n_samples=8, row_chunk=2,
-        occlusion_packs=visibility)
+        backend=packs)
     assert ff.shape == (geom.num_prims, geom.num_prims)
     radiosity, _ = radiosity_step(geom, ff, geom.emission, geom.emission)
 
     # 2b) the row-sharded gather solve
     sol = solve_radiosity_sharded(
         geom, rng.base_key(4), mesh=mesh, num_iterations=3, mc_samples=8,
-        row_chunk=2, occlusion_packs=visibility)
+        row_chunk=2, backend=packs)
     assert sol.radiosity.shape == (geom.num_prims, 3)
     assert float(sol.radiosity.mean()) > 0.0
 
     # 2c) sharded matrix-free shooting: no (N, N) matrix on any device
     shoot = solve_radiosity_shooting_sharded(
         geom, rng.base_key(5), mesh=mesh, steps=4, shooters_per_step=4,
-        mc_samples=4, row_chunk=2, check_every=0, occlusion_packs=visibility)
+        mc_samples=4, row_chunk=2, check_every=0, backend=packs)
     assert shoot.radiosity.shape == (geom.num_prims, 3)
     assert shoot.form_factors.numel() == 0
     assert float(shoot.radiosity.mean()) > 0.0
@@ -131,7 +129,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
                                   sampling_mode=SAMPLING_MIS, spp_per_pass=1,
                                   ray_chunk=128)
     mis_tiled = TiledRenderer(geom, cam, mis_settings, mesh=mesh, cdfs=cdfs,
-                              mis_bsdf_fraction=0.5, seed=3, **packs)
+                              mis_bsdf_fraction=0.5, seed=3, backend=packs)
     mis_tiled.step()
     mis_film = mis_tiled.gather_film()
     assert float(mis_film.accum.max()) > 0.0
@@ -139,10 +137,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     # 3b) NEE across the mesh, bitwise the single-device NEE render
     nee_settings = replace(settings, nee=True)
     nee_tiled = TiledRenderer(geom, cam, nee_settings, mesh=mesh, seed=6,
-                              **packs)
+                              backend=packs)
     nee_tiled.step()
     nee_single = ProgressiveRenderer(geom, cam, nee_settings, device=dev,
-                                     seed=6, **packs)
+                                     seed=6, backend=packs)
     nee_single.step()
     assert torch.equal(nee_tiled.gather_film().accum,
                        nee_single.film.accum), (

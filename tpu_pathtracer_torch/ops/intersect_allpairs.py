@@ -19,9 +19,10 @@ Each query has a plain torch version beside its kernel:
 The wrapper takes the plain version only for CPU tensors. For CUDA
 tensors it launches the hand-written kernel (`csrc/closest_hit.cu`,
 `csrc/any_hit.cu`, built at first use, see utils/cuda_build.py) or
-raises; there is no fallback. Each wrapper counts its kernel launches:
-`closest_tuv.launches`, `closest_record.launches` (11 rows),
-`closest_record.guide_launches` (27 rows) and `occluded.launches`.
+raises; there is no fallback. Each wrapper counts its kernel launches
+(`trace_scope.launched`): `closest_tuv.launches`,
+`closest_record.launches` (11 rows), `closest_record.guide_launches` (27
+rows) and `occluded.launches`.
 
 Semantics, shared by both versions and by the Pallas kernels: the affine
 t/u/v arithmetic in the Pallas op order; padding rows have a zero
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from ..scene.mesh import Geometry
+from ..utils import trace_scope
 from .intersect import Hit
 
 TRI_CHUNK = 128      # triangles per chunk (plain loop and kernel staging)
@@ -318,7 +320,7 @@ def closest_tuv(tri_pack, o, d, t_min=1e-4):
     if o.device.type == "cpu":
         return closest_tuv_plain(tri_pack, o, d, t_min)
     t, idx, _ = _launch(tri_pack, None, o, d, t_min)
-    closest_tuv.launches += 1
+    trace_scope.launched(closest_tuv)
     return t, idx
 
 
@@ -331,9 +333,9 @@ def closest_record(tri_pack, attr_pack, o, d, t_min=1e-4):
         return closest_record_plain(tri_pack, attr_pack, o, d, t_min)
     t, idx, attrs = _launch(tri_pack, attr_pack, o, d, t_min)
     if attrs.shape[0] == N_ATTRS:
-        closest_record.launches += 1
+        trace_scope.launched(closest_record)
     else:
-        closest_record.guide_launches += 1
+        trace_scope.launched(closest_record, "guide_launches")
     return t, idx, attrs
 
 
@@ -358,7 +360,7 @@ def occluded(tri_pack, prim_ids, o, d, maxd, ex_a, ex_b):
     if o.device.type == "cpu":
         return occluded_plain(tri_pack, prim_ids, o, d, maxd, ex_a, ex_b)
     blocked = _launch_any_hit(tri_pack, prim_ids, o, d, maxd, ex_a, ex_b)
-    occluded.launches += 1
+    trace_scope.launched(occluded)
     return blocked
 
 

@@ -41,7 +41,7 @@ The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the hand-written kernel (`csrc/cluster_prepass.cu`,
 `csrc/grouped_closest.cu` for K6 and K12, `csrc/grouped_anyhit.cu` for K7
 and K13, built at first use) or raises. Each wrapper counts its launches
-(`.launches`).
+(`.launches`, through `trace_scope.launched`).
 
 The supercluster walk (K12, K13; `intersect_pallas_lab.py` of the JAX
 package): a schedule entry is _SC = 8 consecutive clusters whose 1024
@@ -403,7 +403,7 @@ def prepass_dense(cluster_min, cluster_max, o, d, t_min, maxd=None):
     if o.device.type == "cpu":
         return prepass_plain(cluster_min, cluster_max, o, d, t_min, maxd)
     out = _launch_prepass(cluster_min, cluster_max, o, d, t_min, maxd, None)
-    prepass_dense.launches += 1
+    trace_scope.launched(prepass_dense)
     return out
 
 
@@ -417,7 +417,7 @@ def prepass_gated(cluster_min, cluster_max, gate, o, d, t_min, maxd=None):
         return prepass_plain(cluster_min, cluster_max, o, d, t_min, maxd,
                              gate)
     out = _launch_prepass(cluster_min, cluster_max, o, d, t_min, maxd, gate)
-    prepass_gated.launches += 1
+    trace_scope.launched(prepass_gated)
     return out
 
 
@@ -664,7 +664,7 @@ def closest_grouped(tri_pack, gmask, o, d, t_min=1e-4):
             t_min, best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "grouped closest-hit")
-    closest_grouped.launches += 1
+    trace_scope.launched(closest_grouped)
     return key_hits(best)
 
 
@@ -699,7 +699,7 @@ def occluded_grouped(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "grouped any-hit")
-    occluded_grouped.launches += 1
+    trace_scope.launched(occluded_grouped)
     return blocked
 
 
@@ -804,7 +804,7 @@ def closest_grouped_sc(tri_pack, gmask, o, d, t_min=1e-4):
             best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "supercluster closest-hit")
-    closest_grouped_sc.launches += 1
+    trace_scope.launched(closest_grouped_sc)
     return key_hits(best)
 
 
@@ -830,7 +830,7 @@ def occluded_grouped_sc(tri_pack, gmask, o, d, maxd, ex_a, ex_b):
             blocked.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, lib, "supercluster any-hit")
-    occluded_grouped_sc.launches += 1
+    trace_scope.launched(occluded_grouped_sc)
     return blocked
 
 
@@ -992,7 +992,13 @@ class CulledScene:
     regroup=True (grouped, one part only) re-sorts the lanes of each
     1024-ray tile by K8's probe before the grouped walk, camera lanes
     (`camera_mask`) first and in their own order. The any hit is the
-    grouped walk (K7) whatever the options."""
+    grouped walk (K7) whatever the options.
+
+    As a route of ops/backend.py it is "culled"; a CUDA graph holds its
+    queries on one part only (each part's park direction is copied from
+    the host)."""
+
+    name = "culled"
 
     def __init__(self, geom: Geometry, sort_rays=False, grouped=True,
                  regroup=False, max_tris_per_part=None):
@@ -1027,6 +1033,17 @@ class CulledScene:
     @property
     def num_clusters(self) -> int:
         return sum(p.cluster_min.shape[0] for p in self.parts)
+
+    @property
+    def graphable(self) -> bool:
+        return len(self.parts) == 1
+
+    def tensors(self) -> list:
+        return [self.rank] + [getattr(p, name) for p in self.parts
+                              for name in CulledPart._TENSORS]
+
+    def for_render(self, geom: Geometry, mode: int, cdfs) -> "CulledScene":
+        return self
 
     def _regrouped_tuv(self, part, o, d, t_min, camera_mask):
         """The grouped walk on lanes re-sorted within each 1024-ray tile:

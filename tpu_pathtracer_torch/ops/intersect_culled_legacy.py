@@ -32,7 +32,8 @@ rows of 128 consecutive rays, and a row is tested against a cluster's
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the hand-written kernel (K8 and K10 in `csrc/cluster_prepass.
 cu`, K9 in `csrc/closest_hit.cu`, K11 in `csrc/row_closest.cu`, built at
-first use) or raises. Each wrapper counts its launches (`.launches`).
+first use) or raises. Each wrapper counts its launches (`.launches`,
+through `trace_scope.launched`).
 
 Semantics. The slab and pair tests are the grouped backend's. On equal t
 the lowest ORIGINAL triangle id wins (the 64-bit key t bits << 32 | id),
@@ -51,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace_scope
 from .cluster_layout import (
     DMA_ROWS,
     RAY_TILE,
@@ -186,7 +188,7 @@ def prepass_rows(cluster_min, cluster_max, o, d, t_min):
         return prepass_rows_plain(cluster_min, cluster_max, o, d, t_min)
     *out, best = _launch_rows_prepass(cluster_min, cluster_max, o, d,
                                       t_min, rows=True)
-    prepass_rows.launches += 1
+    trace_scope.launched(prepass_rows)
     return (*out, (best & _INT_MAX).to(torch.int32))
 
 
@@ -199,7 +201,7 @@ def prepass_probe(cluster_min, cluster_max, o, d, t_min):
         return prepass_probe_plain(cluster_min, cluster_max, o, d, t_min)
     (best,) = _launch_rows_prepass(cluster_min, cluster_max, o, d, t_min,
                                    rows=False)
-    prepass_probe.launches += 1
+    trace_scope.launched(prepass_probe)
     return (best & _INT_MAX).to(torch.int32)
 
 
@@ -271,7 +273,7 @@ def closest_culled(tri_pack, mask, o, d, t_min=1e-4):
                 t.data_ptr(), idx.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(err, lib, "culled closest-hit")
-    closest_culled.launches += 1
+    trace_scope.launched(closest_culled)
     return t, idx
 
 
@@ -412,7 +414,7 @@ def closest_rows(tri_pack, count, keys, lostep, o, d, texit, t_min=1e-4,
                 visited.data_ptr(), row_tests.data_ptr(), sched.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(err, lib, "row closest-hit")
-    closest_rows.launches += 1
+    trace_scope.launched(closest_rows)
     if return_stats:
         return t, idx, visited, count, row_tests
     return t, idx

@@ -10,7 +10,7 @@ from one process as the JAX package drives its mesh from one controller:
 `make_mesh(n)` takes the first n CUDA cards, `make_mesh(devices=[...])`
 any list, where a device may repeat (`["cpu"] * 8` stands for the JAX
 tests' 8-device virtual CPU mesh, `["cuda:0", "cuda:0"]` runs two real
-bands on one card). Scene, packs, `CulledScene`, CDFs and camera are
+bands on one card). Scene, backend (ops/backend.py), CDFs and camera are
 copied once to each distinct device. The host launches the bands one
 after another; on distinct cards their kernels overlap, as launches are
 asynchronous.
@@ -37,16 +37,13 @@ import torch
 
 from .. import resolve_device
 from ..core import rng
+from ..ops.backend import Backend, or_brute
 from ..ops.guiding import CDFPack
 from ..render import radiosity as rad
 from ..render.camera import Camera
 from ..render.film import Film
 from ..render.integrator import WavefrontGraphs
-from ..render.renderer import (
-    RenderSettings,
-    render_pass,
-    render_packs,
-)
+from ..render.renderer import RenderSettings, render_pass
 from ..scene.mesh import Geometry
 
 
@@ -77,20 +74,11 @@ def indexed_device(device) -> torch.device:
     return dev
 
 
-def _replicate(obj, device):
-    """obj on `device`: tensors, tuples of them, and objects with `to`
-    (Geometry, Camera, CDFPack, BVH, CulledScene); anything else (a
-    visibility callable) as it is."""
-    if obj is None or (callable(obj) and not hasattr(obj, "to")):
-        return obj
-    if isinstance(obj, tuple):
-        return tuple(_replicate(x, device) for x in obj)
-    return obj.to(device)
-
-
 def _per_device(obj, mesh) -> list:
-    """[obj on mesh[i]], one copy per distinct device."""
-    copies = {d: _replicate(obj, d) for d in dict.fromkeys(mesh)}
+    """[obj on mesh[i]] (obj a Geometry, Camera, CDFPack or backend, or
+    None), one copy per distinct device."""
+    copies = {d: None if obj is None else obj.to(d)
+              for d in dict.fromkeys(mesh)}
     return [copies[d] for d in mesh]
 
 
@@ -124,14 +112,14 @@ def band_settings(s: RenderSettings, y0: int, y1: int) -> RenderSettings:
 
 def render_pass_tiled(geom, camera, films: list[Film], key: rng.Key,
                       settings: RenderSettings, mesh, *, cdfs=None,
-                      mis_bsdf_fraction: float = 0.5, tri_pack=None,
-                      attr_pack=None, culled=None, prim_ids=None, bvh=None,
+                      mis_bsdf_fraction: float = 0.5, backend=None,
                       graphs=None):
     """One progressive pass of the frame `settings` describes: band i
     (`band_rows`) renders on mesh[i] into films[i]. Each scene argument
-    is one object (copied to the bands' devices here) or a list with one
-    per band; `graphs` (a `WavefrontGraphs`) serves every band. Returns (rays as an int64 scalar on mesh[0], iterations
-    over all bands)."""
+    (geom, camera, cdfs, backend) is one object (copied to the bands'
+    devices here) or a list with one per band; `graphs` (a
+    `WavefrontGraphs`) serves every band. Returns (rays as an int64
+    scalar on mesh[0], iterations over all bands)."""
     mesh = make_mesh(devices=mesh)
     rows = band_rows(settings.height, len(mesh))
     rays = torch.zeros((), dtype=torch.int64, device=mesh[0])
@@ -140,14 +128,12 @@ def render_pass_tiled(geom, camera, films: list[Film], key: rng.Key,
     def per_band(x):
         return x if isinstance(x, list) else _per_device(x, mesh)
 
-    args = [per_band(x) for x in (geom, camera, tri_pack, attr_pack, cdfs,
-                                  culled, prim_ids, bvh)]
+    args = [per_band(x) for x in (geom, camera, cdfs, backend)]
     for i, ((y0, y1), film) in enumerate(zip(rows, films)):
-        g, cam, tp, ap, cd, cs, pid, bv = (a[i] for a in args)
+        g, cam, cd, b = (a[i] for a in args)
         r, it = render_pass(
-            g, cam, film, key, band_settings(settings, y0, y1), tp, ap, cd,
-            mis_bsdf_fraction, cs, pid, None, bv,
-            pixel_offset=y0 * settings.width,
+            g, cam, film, key, band_settings(settings, y0, y1), b, cd,
+            mis_bsdf_fraction, pixel_offset=y0 * settings.width,
             view_size=(settings.width, settings.height), graphs=graphs)
         rays += r.to(mesh[0])
         iters += it
@@ -157,9 +143,9 @@ def render_pass_tiled(geom, camera, films: list[Film], key: rng.Key,
 class TiledRenderer:
     """Progressive renderer over a mesh (a drop-in for
     ProgressiveRenderer): row band i of the frame on mesh[i], through the
-    backend it is given on every band (`tri_pack`/`attr_pack` and
-    `prim_ids`, `culled` or `bvh`). `film` is the gathered frame on
-    mesh[0]; assigning it splits it into the bands."""
+    backend it is given (its variant for the sampling mode, `for_render`)
+    on every band. `film` is the gathered frame on mesh[0]; assigning it
+    splits it into the bands."""
 
     def __init__(
         self,
@@ -172,11 +158,7 @@ class TiledRenderer:
         cdfs: CDFPack | None = None,
         mis_bsdf_fraction: float = 0.5,
         seed: int = 2023,
-        tri_pack=None,
-        attr_pack=None,
-        culled=None,
-        prim_ids=None,
-        bvh=None,
+        backend: Backend | None = None,
     ):
         mesh = (make_mesh(n_tiles) if mesh is None
                 else make_mesh(devices=mesh))
@@ -185,12 +167,10 @@ class TiledRenderer:
         self.n_tiles = len(self.mesh)
         self.settings = settings
         self.mis_bsdf_fraction = mis_bsdf_fraction
-        attr_pack, prim_ids = render_packs(geom, settings, tri_pack,
-                                           attr_pack, cdfs, prim_ids)
+        backend = or_brute(backend, geom).for_render(
+            geom, settings.sampling_mode, cdfs)
         self._scene = {name: _per_device(x, self.mesh) for name, x in dict(
-            geom=geom, camera=camera, cdfs=cdfs, tri_pack=tri_pack,
-            attr_pack=attr_pack, culled=culled, prim_ids=prim_ids,
-            bvh=bvh).items()}
+            geom=geom, camera=camera, cdfs=cdfs, backend=backend).items()}
         self.key = rng.base_key(seed)
         self.graphs = WavefrontGraphs()
         self.films = [Film.create(settings.width, y1 - y0, d)
@@ -261,29 +241,29 @@ class TiledRenderer:
 # ---------------------------------------------------------------------------
 
 
-def _replicas(geom: Geometry, occlusion_packs, mesh):
-    """(geom on mesh[0], rad.Replicas of geom and occlusion_packs over
-    the mesh)."""
+def _replicas(geom: Geometry, backend, mesh):
+    """(geom on mesh[0], rad.Replicas of geom and backend over the
+    mesh)."""
     mesh = make_mesh() if mesh is None else make_mesh(devices=mesh)
     geoms = _per_device(geom, mesh)
-    return geoms[0], rad.Replicas(geoms, _per_device(occlusion_packs, mesh))
+    return geoms[0], rad.Replicas(geoms, _per_device(backend, mesh))
 
 
 def mc_form_factors_sharded(geom: Geometry, key: rng.Key, *, mesh=None,
-                            occlusion_packs=None, **kw):
+                            backend=None, **kw):
     """(N, N) MC form factors with receiver rows split over the mesh:
     `mc_form_factors` (its keyword arguments) with the scene and the
     visibility backend on each band's device; each band computes its
     rows from its first global chunk, and the rows join on mesh[0].
     Returns the (ff, grid_counts, rad_grid) of `mc_form_factors`,
     bitwise."""
-    g0, reps = _replicas(geom, occlusion_packs, mesh)
-    return rad.mc_form_factors(g0, key, occlusion_packs=reps.packs[0],
+    g0, reps = _replicas(geom, backend, mesh)
+    return rad.mc_form_factors(g0, key, backend=reps.backends[0],
                                replicas=reps, **kw)
 
 
 def solve_radiosity_sharded(geom: Geometry, key: rng.Key | None = None, *,
-                            mesh=None, occlusion_packs=None,
+                            mesh=None, backend=None,
                             **kw) -> rad.RadiositySolution:
     """The gather solve (`solve_radiosity`, its keyword arguments) with
     receiver rows split over the mesh: no device holds more than its band
@@ -292,14 +272,14 @@ def solve_radiosity_sharded(geom: Geometry, key: rng.Key | None = None, *,
     (the JAX module's all_gather), and rebins each band's grids against
     the new radiosity. Equal to the single-device solve to the rounding
     of the (band, N) @ (N, 3) products."""
-    g0, reps = _replicas(geom, occlusion_packs, mesh)
-    return rad.solve_radiosity(g0, key, occlusion_packs=reps.packs[0],
+    g0, reps = _replicas(geom, backend, mesh)
+    return rad.solve_radiosity(g0, key, backend=reps.backends[0],
                                replicas=reps, **kw)
 
 
 def solve_radiosity_shooting_sharded(geom: Geometry,
                                      key: rng.Key | None = None, *,
-                                     mesh=None, occlusion_packs=None,
+                                     mesh=None, backend=None,
                                      **kw) -> rad.RadiositySolution:
     """Matrix-free shooting (`solve_radiosity_shooting`, its keyword
     arguments) with receiver rows split over the mesh: a step picks the
@@ -308,6 +288,6 @@ def solve_radiosity_shooting_sharded(geom: Geometry,
     grids there; the blocks join on mesh[0] for the incident product,
     where radiosity, unshot and the transport stats advance. Bitwise
     equal to the single-device solve."""
-    g0, reps = _replicas(geom, occlusion_packs, mesh)
+    g0, reps = _replicas(geom, backend, mesh)
     return rad.solve_radiosity_shooting(
-        g0, key, occlusion_packs=reps.packs[0], replicas=reps, **kw)
+        g0, key, backend=reps.backends[0], replicas=reps, **kw)

@@ -51,10 +51,9 @@ one-hot row of finite values sums to the picked value.
 from __future__ import annotations
 
 import contextlib
-import functools
 import warnings
 from collections import OrderedDict
-from dataclasses import fields, is_dataclass
+from dataclasses import fields
 from typing import NamedTuple
 
 import numpy as np
@@ -81,8 +80,7 @@ from ..core.math_utils import (
     power_heuristic,
     reflect,
 )
-from ..ops import intersect_allpairs, intersect_culled, intersect_culled_legacy
-from ..ops.bvh import BVH, bvh_closest_hit
+from ..ops.backend import Backend, Brute, or_brute
 from ..ops.guiding import (
     CDFPack,
     cos_theta_edges,
@@ -90,7 +88,7 @@ from ..ops.guiding import (
     sample_grid,
     sample_grid_mis,
 )
-from ..ops.intersect import Hit, closest_hit, occluded
+from ..ops.intersect import Hit, closest_hit
 from ..ops.intersect_culled_legacy import octant
 from ..scene.mesh import Geometry
 from ..utils import trace_scope
@@ -374,45 +372,11 @@ def trace_primary(geom: Geometry, origins, directions) -> Hit:
     return closest_hit(geom, origins, directions, t_min=RAY_EPS)
 
 
-def _intersect(geom: Geometry, o, d, tri_pack, attr_pack, culled=None,
-               camera_mask=None, bvh: BVH | None = None) -> Hit:
+def _intersect(geom: Geometry, o, d, backend: Backend,
+               camera_mask=None) -> Hit:
     with scope("intersection"):
-        return _intersect_backend(geom, o, d, tri_pack, attr_pack, culled,
-                                  camera_mask, bvh)
-
-
-def _intersect_backend(geom, o, d, tri_pack, attr_pack, culled, camera_mask,
-                       bvh) -> Hit:
-    if culled is not None:
-        return culled.closest_hit(geom, o, d, t_min=RAY_EPS,
-                                  camera_mask=camera_mask)
-    if tri_pack is not None:
-        return intersect_allpairs.closest_hit(
-            geom, tri_pack, o, d, t_min=RAY_EPS, attr_pack=attr_pack
-        )
-    if bvh is not None:
-        return bvh_closest_hit(geom, bvh, o, d, t_min=RAY_EPS)
-    return closest_hit(geom, o, d, t_min=RAY_EPS)
-
-
-def occlusion_fn(geom: Geometry, tri_pack=None, prim_ids=None, culled=None):
-    """NEE's shadow-ray query occl_fn(o, d, maxd, ex_a, ex_b) -> (B,) bool
-    on a backend: `CulledScene.occluded` (K7, or K13 in supercluster mode)
-    on the culled one, K3 (`intersect_allpairs.occluded`) on the all-pairs
-    packs when `prim_ids` (`pack_prim_ids`) is given, the brute force
-    otherwise. The JAX package runs the brute force on its all-pairs
-    backend; K3 has the same any-hit semantics."""
-    if culled is not None:
-        return culled.occluded
-    if tri_pack is not None and prim_ids is not None:
-        def occl(o, d, maxd, ex_a, ex_b):
-            return intersect_allpairs.occluded(tri_pack, prim_ids, o, d,
-                                               maxd, ex_a, ex_b)
-        return occl
-
-    def occl_brute(o, d, maxd, ex_a, ex_b):
-        return occluded(geom, o, d, maxd, ex_a, ex_b)
-    return occl_brute
+        return backend.closest_hit(geom, o, d, t_min=RAY_EPS,
+                                   camera_mask=camera_mask)
 
 
 def _nee_shadow_count(live, hit: Hit, depth_ok):
@@ -431,24 +395,20 @@ def trace(
     mode: int = SAMPLING_BSDF,
     cdfs: CDFPack | None = None,
     mis_bsdf_fraction: float = 0.5,
-    tri_pack: torch.Tensor | None = None,
-    attr_pack: torch.Tensor | None = None,
-    culled=None,
-    prim_ids: torch.Tensor | None = None,
+    backend: Backend | None = None,
     lane_ids: torch.Tensor | None = None,
     nee: bool = False,
-    bvh: BVH | None = None,
 ) -> tuple[torch.Tensor, TraceStats]:
     """The per-depth scan integrator: trace a batch of paths, one bounce
     per step, for max_depth steps.
 
     Bounce `depth` draws `lane_uniforms(fold_in(key, depth), lane_ids)`,
     so a lane's draws depend on its logical id (default arange(B)), not
-    its place in the batch. Hits come from K2 (or K1 without attr_pack)
-    when `tri_pack` is given, from the BVH traversal when `bvh` is, and
-    from the brute force otherwise; `culled` serves only the shadow rays,
-    as in the JAX package. Shadow rays are
-    counted in `stats.rays`, not in `depth_alive`.
+    its place in the batch. Hits and NEE's shadow rays go through
+    `backend` (ops/backend.py; the brute force when None), but for the
+    culled one, which serves only the shadow rays: the JAX package's scan
+    takes its hits by brute force there. Shadow rays are counted in
+    `stats.rays`, not in `depth_alive`.
 
     Returns (radiance (B, 3), TraceStats)."""
     if mode != SAMPLING_BSDF and cdfs is None:
@@ -459,10 +419,9 @@ def trace(
         lane_ids = torch.arange(b, device=dev)
     probs = mis_probabilities(mis_bsdf_fraction)
     n_draws = _num_draws(mode, nee)
-    nee_args = None
-    if nee:
-        nee_args = (build_nee_pack(geom),
-                    occlusion_fn(geom, tri_pack, prim_ids, culled))
+    backend = or_brute(backend, geom)
+    hits = Brute(geom) if backend.name == "culled" else backend
+    nee_args = (build_nee_pack(geom), backend.occluded) if nee else None
     o, d = origins, directions
     beta = torch.ones((b, 3), dtype=torch.float32, device=dev)
     radiance = torch.zeros((b, 3), dtype=torch.float32, device=dev)
@@ -471,13 +430,7 @@ def trace(
     per_depth, shadow = [], torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(max_depth):
         per_depth.append(alive.sum())
-        if tri_pack is not None:
-            hit = intersect_allpairs.closest_hit(
-                geom, tri_pack, o, d, t_min=RAY_EPS, attr_pack=attr_pack)
-        elif bvh is not None:
-            hit = bvh_closest_hit(geom, bvh, o, d, t_min=RAY_EPS)
-        else:
-            hit = closest_hit(geom, o, d, t_min=RAY_EPS)
+        hit = hits.closest_hit(geom, o, d, t_min=RAY_EPS)
         live = alive & hit.valid
         if nee:
             shadow = shadow + _nee_shadow_count(live, hit,
@@ -549,10 +502,7 @@ class _Wave(NamedTuple):
     cdfs: CDFPack | None
     probs: tuple[float, float]
     n_draws: int
-    tri_pack: torch.Tensor | None
-    attr_pack: torch.Tensor | None
-    culled: object
-    bvh: BVH | None
+    backend: Backend
     nee_args: tuple | None
     sort_rays: bool
     tile_sync: int
@@ -565,7 +515,7 @@ class _Wave(NamedTuple):
 
 
 def _wave(geom, camera, key_cam, key_path, dev, *, mis_bsdf_fraction,
-          nee, prim_ids, **kw) -> _Wave:
+          nee, **kw) -> _Wave:
     scene_lo = geom.corners.reshape(-1, 3).amin(dim=0)
     scene_hi = geom.corners.reshape(-1, 3).amax(dim=0)
     # Lanes that finished every sample park on a ray that starts outside
@@ -573,11 +523,7 @@ def _wave(geom, camera, key_cam, key_path, dev, *, mis_bsdf_fraction,
     # for them), made on the device: no copy from the host.
     park_d = torch.zeros((3,), dtype=torch.float32, device=dev)
     park_d[:1].fill_(1.0)
-    nee_args = None
-    if nee:
-        nee_args = (build_nee_pack(geom),
-                    occlusion_fn(geom, kw["tri_pack"], prim_ids,
-                                 kw["culled"]))
+    nee_args = (build_nee_pack(geom), kw["backend"].occluded) if nee else None
     return _Wave(
         geom=geom, camera=camera, key_cam=key_cam, key_path=key_path,
         probs=mis_probabilities(mis_bsdf_fraction),
@@ -646,8 +592,8 @@ def _iterate(w: _Wave, s: dict) -> None:
     if w.lane_steps:
         s["steps"] = s["steps"] + alive.to(torch.int64)
     d = s["d"]
-    hit = _intersect(w.geom, s["o"], d, w.tri_pack, w.attr_pack, w.culled,
-                     camera_mask=alive & (depth == 0), bvh=w.bvh)
+    hit = _intersect(w.geom, s["o"], d, w.backend,
+                     camera_mask=alive & (depth == 0))
     live = alive & hit.valid
     emis_w = None
     if w.nee_args is not None:
@@ -716,64 +662,6 @@ def _iterate(w: _Wave, s: dict) -> None:
 GRAPH_CACHE = 8      # batch shapes and scenes a WavefrontGraphs keeps
 
 
-def _declines(tri_pack, culled, bvh) -> bool:
-    """Backends whose query waits for the device inside the iteration, so
-    that no graph can hold it: the BVH's lockstep walk (its live-stack
-    tests) and a culled scene of several parts (each part's park
-    direction, copied from the host)."""
-    if culled is not None:
-        return len(culled.parts) > 1
-    return tri_pack is None and bvh is not None
-
-
-def _scene_refs(*objs) -> list:
-    """The tensors (and culled scenes) a graph of the iteration reads:
-    every field of the dataclasses (Geometry, CDFPack, BVH), the packs,
-    the CulledScene itself."""
-    out = []
-    for x in objs:
-        if x is None:
-            continue
-        if is_dataclass(x):
-            out += [getattr(x, f.name) for f in fields(x)]
-        else:
-            out.append(x)
-    return out
-
-
-@functools.cache
-def _launch_counters() -> tuple:
-    """(wrapper, attribute) of each kernel launch counter the iteration
-    may advance: the integer attributes named `*launches` of the
-    functions of `core/rng.py` and of the intersection modules."""
-    seen = {}
-    for mod in (rng, intersect_allpairs, intersect_culled,
-                intersect_culled_legacy):
-        for fn in vars(mod).values():
-            if not callable(fn) or not hasattr(fn, "__dict__"):
-                continue
-            for attr, v in vars(fn).items():
-                if attr.endswith("launches") and isinstance(v, int):
-                    seen[(id(fn), attr)] = (fn, attr)
-    return tuple(seen.values())
-
-
-def _launch_counts() -> list:
-    return [getattr(fn, attr) for fn, attr in _launch_counters()]
-
-
-def _rewind_launches(before: list) -> tuple:
-    """Set the launch counters back to `before`; returns what they had
-    advanced by, as (wrapper, attribute, n) with n > 0."""
-    moved = []
-    for (fn, attr), n0 in zip(_launch_counters(), before):
-        n = getattr(fn, attr) - n0
-        if n:
-            moved.append((fn, attr, n))
-            setattr(fn, attr, n0)
-    return tuple(moved)
-
-
 def _label(names: list) -> tuple:
     """The open scopes, a name repeated at once (a scope inside one of
     its own name) kept once."""
@@ -787,7 +675,8 @@ def _label(names: list) -> tuple:
 class _Piece(NamedTuple):
     """One graph of an iteration, with the scopes open around it and
     what its launches counted: launch counters (wrapper, attribute, n),
-    recorder counts (name, n, key) and tallies (name, tensor)."""
+    recorder counts (name, n, key) and tallies (name, tensor), as the tap
+    took them."""
 
     graph: torch.cuda.CUDAGraph
     scopes: tuple
@@ -801,8 +690,8 @@ class _Capture:
     CUDA graph is ended and the next begun wherever a scope is entered or
     left, so the iteration becomes consecutive pieces, each replayed
     inside the scopes its launches ran in. Each piece keeps what its
-    wrappers counted, which a capture does not run, and the launch
-    counters are set back."""
+    wrappers counted (`trace_scope.launched`, `count`, `tally`), which a
+    capture does not run."""
 
     def __init__(self, pool):
         self.pool = pool
@@ -815,23 +704,20 @@ class _Capture:
 
     def begin(self) -> None:
         self.scopes = _label(self.open)
-        self.counts, self.tallies = [], []
-        self.launch0 = _launch_counts()
+        self.counts, self.tallies, self.launches = [], [], []
         self.graph = torch.cuda.CUDAGraph()
         self.graph.capture_begin(pool=self.pool,
                                  capture_error_mode="thread_local")
 
     def end(self) -> None:
         graph, self.graph = self.graph, None
-        try:
-            with warnings.catch_warnings(record=True) as said:
-                warnings.simplefilter("always")
-                graph.capture_end()
-        finally:
-            launches = _rewind_launches(self.launch0)
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            graph.capture_end()
         empty = any("empty" in str(w.message) for w in said)
-        if not empty or launches or self.counts or self.tallies:
-            self.pieces.append(_Piece(graph, self.scopes, launches,
+        if not empty or self.launches or self.counts or self.tallies:
+            self.pieces.append(_Piece(graph, self.scopes,
+                                      tuple(self.launches),
                                       tuple(self.counts),
                                       tuple(self.tallies)))
 
@@ -844,7 +730,6 @@ class _Capture:
                 graph.capture_end()
             except RuntimeError:
                 pass
-            _rewind_launches(self.launch0)
 
     def _cut(self) -> None:
         if not self.broken and self.graph is not None \
@@ -865,6 +750,9 @@ class _Capture:
         if name in self.open:
             del self.open[len(self.open) - 1 - self.open[::-1].index(name)]
         self._cut()
+
+    def launched(self, fn, attr: str, n: int) -> None:
+        self.launches.append((fn, attr, n))
 
     def count(self, name: str, n: int, key: str | None) -> None:
         self.counts.append((name, int(n), key))
@@ -888,7 +776,7 @@ def _replay(pieces, recording: bool) -> None:
         else:
             p.graph.replay()
         for fn, attr, n in p.launches:
-            setattr(fn, attr, getattr(fn, attr) + n)
+            trace_scope.launched(fn, attr, n)
         if recording:
             for name, n, key in p.counts:
                 trace_scope.count(name, n, key)
@@ -1030,19 +918,15 @@ def trace_wavefront(
     height: int,
     spp: int,
     max_depth: int,
-    tri_pack: torch.Tensor | None = None,
-    attr_pack: torch.Tensor | None = None,
+    backend: Backend | None = None,
     mode: int = SAMPLING_BSDF,
     cdfs: CDFPack | None = None,
     mis_bsdf_fraction: float = 0.5,
     check_every: int = 8,
-    culled=None,
     sort_rays: bool = False,
     nee: bool = False,
-    prim_ids: torch.Tensor | None = None,
     return_lane_steps: bool = False,
     tile_sync: int = 0,
-    bvh: BVH | None = None,
     graphs: WavefrontGraphs | None = None,
 ) -> tuple:
     """Persistent wavefront with same-pixel respawn.
@@ -1076,8 +960,9 @@ def trace_wavefront(
     kernels, their order and their arithmetic are the eager iteration's,
     so the film, the rays and the iterations are bitwise the same; only
     the host's dispatch goes. The eager iteration serves the CPU, a call
-    without `graphs`, the BVH's walk and multi-part culled scenes, whose
-    queries wait for the device, and a capture that fails.
+    without `graphs`, a backend whose queries wait for the device (not
+    `graphable`: the BVH's walk, multi-part culled scenes) and a capture
+    that fails.
 
     While `utils.trace_scope` records, each live-lane test is a counted
     sync (`live_check`), and the call adds lanes x iterations run to
@@ -1088,18 +973,14 @@ def trace_wavefront(
     Args:
         lane_ids: (B,) or (B, K) integer pixel ids.
         key: the pass's path key (`stream_key(pass_key, STREAM_PATH)`).
-        tri_pack / attr_pack: the all-pairs packs; None selects the
-            brute-force intersector.
-        culled: a CulledScene (ops/intersect_culled.py); takes precedence
-            over the packs.
-        bvh: a BVH (ops/bvh.py): hits by its traversal when neither
-            `culled` nor `tri_pack` is given.
+        backend: the intersection route (ops/backend.py) of the hits
+            and NEE's shadow rays; None selects the brute force.
         mode: SAMPLING_* constant; every mode but BSDF needs `cdfs`.
         mis_bsdf_fraction: the BSDF share of one-sample MIS.
         check_every: test for live lanes every this many iterations
             (0 = never; run all max_iters iterations).
         nee: next-event estimation; shadow rays go through
-            `occlusion_fn(geom, tri_pack, prim_ids, culled)`.
+            `backend.occluded`.
         return_lane_steps: also return each lane's live-iteration count.
         graphs: the graph cache of the caller (a renderer's or the App's).
 
@@ -1123,9 +1004,9 @@ def trace_wavefront(
             raise ValueError("batch must tile by tile_sync")
     dev = lane_ids.device
     max_iters = k * (spp * max_depth + max_depth)
+    backend = or_brute(backend, geom)
     settings = dict(width=width, height=height, spp=spp, max_depth=max_depth,
-                    k=k, mode=mode, cdfs=cdfs, tri_pack=tri_pack,
-                    attr_pack=attr_pack, culled=culled, bvh=bvh,
+                    k=k, mode=mode, cdfs=cdfs, backend=backend,
                     sort_rays=sort_rays, tile_sync=tile_sync,
                     lane_steps=return_lane_steps)
     # Purpose-split keys: per-draw identity lives in the counter words.
@@ -1133,25 +1014,24 @@ def trace_wavefront(
     key_path = rng.fold_in(key, 7)
 
     g = None
-    if graphs is not None and dev.type == "cuda" \
-            and not _declines(tri_pack, culled, bvh):
+    if graphs is not None and dev.type == "cuda" and backend.graphable:
         shape = (str(dev), tuple(lane_ids.shape), width, height, spp,
                  max_depth, mode, float(mis_bsdf_fraction), nee, sort_rays,
                  tile_sync, return_lane_steps)
+        # the scene tensors the graphs read
+        refs = [getattr(x, f.name) for x in (geom, cdfs) if x is not None
+                for f in fields(x)] + backend.tensors()
         g = graphs.entry(
-            dev, shape,
-            _scene_refs(geom, tri_pack, attr_pack, cdfs, culled, prim_ids,
-                        bvh),
+            dev, shape, refs,
             lambda kc, kp, cam: _wave(
                 geom, cam, kc, kp, dev, mis_bsdf_fraction=mis_bsdf_fraction,
-                nee=nee, prim_ids=prim_ids, **settings))
+                nee=nee, **settings))
     if g is not None:
         g.load(lane_ids, key_cam, key_path, camera)
         s = g.state
     else:
         w = _wave(geom, camera, key_cam, key_path, dev,
-                  mis_bsdf_fraction=mis_bsdf_fraction, nee=nee,
-                  prim_ids=prim_ids, **settings)
+                  mis_bsdf_fraction=mis_bsdf_fraction, nee=nee, **settings)
         s = _initial_state(w, lane_ids)
 
     runs = dict.fromkeys(("replay", "capture", "eager"), 0)

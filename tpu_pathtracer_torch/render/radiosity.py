@@ -2,8 +2,9 @@
 
 Counterpart: `tpu_pathtracer/render/radiosity.py`, the gather part
 (`direction_to_cell`, `sample_uniform_on_prims`, `sample_on_corners`,
-`_pair_culling`, `analytic_form_factors`, `_occluded_dispatch`,
-`mc_form_factors_rows`, `mc_form_factors`, `radiosity_step`,
+`_pair_culling`, `analytic_form_factors`, the occlusion dispatch (here
+`_occluded` on a backend), `mc_form_factors_rows`, `mc_form_factors`,
+`radiosity_step`,
 `rebin_rows`, `rebin_radiosity_grid`, `RadiositySolution`,
 `solve_radiosity`) and the matrix-free shooting part (`_shoot_step`,
 `transport_stats`, `ambient_correction`, `solve_radiosity_shooting`,
@@ -38,19 +39,16 @@ blocks on the first device for the one (N, k) @ (k, 3) product, whose
 reduction a BLAS may split differently for a band of rows. Without
 `replicas` a solve is the one band of all rows on geom's device.
 
-Visibility (`occlusion_packs`) is the brute-force `ops.intersect.occluded`
-(None), K3 on the all-pairs packs ((tri_pack, prim_ids), see
-ops/intersect_allpairs.py), K7 through a CulledScene (anything with an
-`occluded` method, ops/intersect_culled.py), or any callable (o, d, maxd,
-ex_a, ex_b) -> blocked, which is how a caller passes a plain version in
-explicitly.
+Visibility is the any hit of a `backend` (ops/backend.py): the brute
+force (the default, also the BVH's), K3 on the all-pairs packs or K7
+through a CulledScene.
 
 While `utils.trace_scope` records, a shooting step opens the spans
 `shoot_select` (the top-k shooters and their unshot gather) and
 `transport` (the (N, k) @ (k, 3) product, the reflection, the unshot
 update and the grid sums) and counts `shooting_steps`; every Monte-Carlo
 sample opens `visibility` around its segments and their any hit, whose
-segments count in `segments` by route (`_occluded_dispatch`).
+segments count in `segments` by route (`_occluded`).
 """
 
 from __future__ import annotations
@@ -71,8 +69,7 @@ from ..core.math_utils import (
     luminance,
     to_local,
 )
-from ..ops import intersect_allpairs
-from ..ops.intersect import occluded
+from ..ops.backend import Backend, or_brute
 from ..scene.mesh import Geometry
 from ..utils.trace_scope import count, scope, scoped
 
@@ -148,24 +145,18 @@ def _pair_culling(geom: Geometry, rows: torch.Tensor,
     return dn, dist, cos_i, cos_j, facing
 
 
-def _occluded_dispatch(geom, o, d, maxd, ex_a, ex_b, occlusion_packs):
-    """Visibility of flat segments through the brute-force query (None),
-    K7 (a CulledScene; inactive pairs carry maxd = 0, which the prepass
-    culls), K3 ((tri_pack, prim_ids)) or a callable. While recording,
-    the segments of the first three count in `segments` by route:
-    `brute`, `culled` or `allpairs`."""
-    if occlusion_packs is None:
-        count("segments", o.shape[0], key="brute")
-        return occluded(geom, o, d, maxd, exclude_a=ex_a, exclude_b=ex_b)
-    if hasattr(occlusion_packs, "occluded"):
-        count("segments", o.shape[0], key="culled")
-        return occlusion_packs.occluded(o, d, maxd, ex_a, ex_b)
-    if callable(occlusion_packs):
-        return occlusion_packs(o, d, maxd, ex_a, ex_b)
-    count("segments", o.shape[0], key="allpairs")
-    tri_pack, prim_ids = occlusion_packs
-    return intersect_allpairs.occluded(tri_pack, prim_ids, o, d, maxd,
-                                       ex_a, ex_b)
+# the `segments` counter's key of each backend's any hit
+_SEGMENT_ROUTE = {"brute": "brute", "bvh": "brute", "pallas": "allpairs",
+                  "culled": "culled"}
+
+
+def _occluded(backend: Backend, o, d, maxd, ex_a, ex_b):
+    """Visibility of flat segments through the backend's any hit (on the
+    culled one, inactive pairs carry maxd = 0, which the prepass culls).
+    While recording, the segments count in `segments` by route: `brute`,
+    `culled` or `allpairs`."""
+    count("segments", o.shape[0], key=_SEGMENT_ROUTE[backend.name])
+    return backend.occluded(o, d, maxd, ex_a, ex_b)
 
 
 def _bin_cells(cell: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -189,11 +180,12 @@ def _flat_pairs(rows: torch.Tensor, cols: torch.Tensor):
 
 
 def analytic_form_factors(geom: Geometry,
-                          occlusion_packs=None) -> torch.Tensor:
+                          backend: Backend | None = None) -> torch.Tensor:
     """Point-to-point form factors with centroid visibility
     (calculate_form_factors_kernel, form_factors.h:354-404): (N, N).
     Every pair is independent, so the row passes change nothing."""
     n = geom.num_prims
+    backend = or_brute(backend, geom)
     rows_per_pass = max(1, PAIRS_PER_PASS // max(n, 1))
     parts = []
     for r0 in range(0, n, rows_per_pass):
@@ -201,11 +193,11 @@ def analytic_form_factors(geom: Geometry,
         dn, dist, cos_i, cos_j, facing = _pair_culling(geom, rows)
         o = geom.centroid[rows][:, None, :] + geom.normal[rows][:, None, :] * 1e-4
         ex_a, ex_b = _flat_pairs(rows, torch.arange(n, device=geom.device))
-        blocked = _occluded_dispatch(
-            geom, o.expand(dn.shape).reshape(-1, 3), dn.reshape(-1, 3),
+        blocked = _occluded(
+            backend, o.expand(dn.shape).reshape(-1, 3), dn.reshape(-1, 3),
             # non-facing pairs never use their blocked value
             torch.where(facing, dist - 2e-4, 0.0).reshape(-1),
-            ex_a, ex_b, occlusion_packs,
+            ex_a, ex_b,
         ).reshape(dist.shape)
         ff = cos_i * cos_j * geom.area[None, :] / (PI * dist * dist)
         parts.append(torch.where(facing & ~blocked, ff.clamp(min=0.0), 0.0))
@@ -213,7 +205,7 @@ def analytic_form_factors(geom: Geometry,
 
 
 def _mc_rows_pass(geom, fkey, chunk_ids, rows, cols, w_cols, n_samples,
-                  occlusion_packs, estimator):
+                  backend, estimator):
     """MC form factors and grids of G row chunks (rows (G, rc)) in one
     tensor pass; chunk g draws from fold_in(fkey, chunk_ids[g])."""
     rc = rows.shape[1]
@@ -259,10 +251,9 @@ def _mc_rows_pass(geom, fkey, chunk_ids, rows, cols, w_cols, n_samples,
                 ct_j > 0.0)
             # Inactive pairs never use their blocked value: a zero
             # segment lets the kernel decide them without a test.
-            blocked = _occluded_dispatch(
-                geom, (p_i + offset).reshape(-1, 3), sd.reshape(-1, 3),
+            blocked = _occluded(
+                backend, (p_i + offset).reshape(-1, 3), sd.reshape(-1, 3),
                 torch.where(active, r - 2e-4, 0.0).reshape(-1), ex_a, ex_b,
-                occlusion_packs,
             ).reshape(r.shape)
         ok = active & ~blocked
 
@@ -312,7 +303,7 @@ def mc_form_factors_rows(
     row_ids: torch.Tensor,
     n_samples: int = 64,
     row_chunk: int = 16,
-    occlusion_packs=None,
+    backend: Backend | None = None,
     col_ids: torch.Tensor | None = None,
     col_weight: torch.Tensor | None = None,
     chunk_offset: int = 0,
@@ -328,6 +319,7 @@ def mc_form_factors_rows(
     form_factors.h:339-347) or "unbiased" (per-sample double-area).
     Returns (ff (R, C), grid_counts (R, 256), rad_grid (R, 256, 3))."""
     dev = geom.device
+    backend = or_brute(backend, geom)
     rc = min(row_chunk, row_ids.shape[0])
     cols = (torch.arange(geom.num_prims, device=dev) if col_ids is None
             else col_ids.to(torch.int64))
@@ -342,7 +334,7 @@ def mc_form_factors_rows(
             geom, fkey,
             chunk_offset + torch.arange(g0, g1, device=dev),
             row_ids[g0 * rc:g1 * rc].to(torch.int64).reshape(g1 - g0, rc),
-            cols, w_cols, n_samples, occlusion_packs, estimator,
+            cols, w_cols, n_samples, backend, estimator,
         ))
     return tuple(torch.cat(x) for x in zip(*parts))
 
@@ -355,11 +347,12 @@ def _padded_rows(n: int, rc: int, device) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Replicas:
-    """The scene and its visibility backend on each device of a mesh,
-    one band of receiver rows a device (a device may repeat)."""
+    """The scene and its visibility backend (None: the brute force) on
+    each device of a mesh, one band of receiver rows a device (a device
+    may repeat)."""
 
     geoms: list
-    packs: list
+    backends: list
 
 
 def _chunk_bands(n_chunks: int, n_dev: int,
@@ -384,7 +377,7 @@ class RowBands:
                               chunks_per_pass(rc, n_cols))
         self.rc = rc
         self.geoms = replicas.geoms[:len(ranges)]
-        self.packs = replicas.packs[:len(ranges)]
+        self.backends = replicas.backends[:len(ranges)]
         self.devices = [g.device for g in self.geoms]
         self.rows = [_padded_rows(n, rc, g.device)[c0 * rc:c1 * rc]
                      for (c0, c1), g in zip(ranges, self.geoms)]
@@ -414,17 +407,17 @@ class RowBands:
             self.scatter(col_weight))
         return [tuple(x[:real] for x in mc_form_factors_rows(
             g, key, rows, n_samples=n_samples, row_chunk=self.rc,
-            occlusion_packs=packs, col_ids=c, col_weight=w,
-            chunk_offset=c0, estimator=estimator))
-            for g, packs, rows, c0, real, c, w in zip(
-                self.geoms, self.packs, self.rows, self.chunk0, self.real,
+            backend=b, col_ids=c, col_weight=w, chunk_offset=c0,
+            estimator=estimator))
+            for g, b, rows, c0, real, c, w in zip(
+                self.geoms, self.backends, self.rows, self.chunk0, self.real,
                 cols, weights)]
 
 
-def _bands(geom: Geometry, occlusion_packs, replicas: Replicas | None,
-           rc: int, n_cols: int) -> RowBands:
+def _bands(geom: Geometry, backend: Backend | None,
+           replicas: Replicas | None, rc: int, n_cols: int) -> RowBands:
     if replicas is None:
-        replicas = Replicas([geom], [occlusion_packs])
+        replicas = Replicas([geom], [backend])
     for g in dict.fromkeys(replicas.geoms):
         _check_full_f32(g)
     return RowBands(replicas, geom.num_prims, rc, n_cols)
@@ -435,7 +428,7 @@ def mc_form_factors(
     key: rng.Key,
     n_samples: int = 64,
     row_chunk: int = 16,
-    occlusion_packs=None,
+    backend: Backend | None = None,
     estimator: str = "reference",
     replicas: Replicas | None = None,
 ):
@@ -446,7 +439,7 @@ def mc_form_factors(
     sample counts per direction cell, rad_grid (N, 256, 3) the
     emission-weighted geometry accumulation)."""
     n = geom.num_prims
-    bands = _bands(geom, occlusion_packs, replicas, min(row_chunk, n), n)
+    bands = _bands(geom, backend, replicas, min(row_chunk, n), n)
     parts = bands.form_factors(key, n_samples, estimator)
     return tuple(bands.gather(list(x)) for x in zip(*parts))
 
@@ -560,7 +553,7 @@ def solve_radiosity(
     mc_samples: int = 64,
     filter_fn=None,
     row_chunk: int = 16,
-    occlusion_packs=None,
+    backend: Backend | None = None,
     estimator: str = "reference",
     replicas: Replicas | None = None,
 ) -> RadiositySolution:
@@ -574,7 +567,7 @@ def solve_radiosity(
     if key is None:
         key = rng.base_key(12345)
     n = geom.num_prims
-    bands = _bands(geom, occlusion_packs, replicas, min(row_chunk, n), n)
+    bands = _bands(geom, backend, replicas, min(row_chunk, n), n)
     if use_monte_carlo:
         ff, counts, grids = (list(x) for x in zip(
             *bands.form_factors(key, mc_samples, estimator)))
@@ -583,7 +576,7 @@ def solve_radiosity(
         if len(bands.geoms) > 1:
             raise ValueError("analytic form factors are computed on one "
                              "device")
-        ff = [analytic_form_factors(geom, occlusion_packs=occlusion_packs)]
+        ff = [analytic_form_factors(geom, backend=backend)]
         grid_counts = torch.zeros((n, GRID_SIZE), device=geom.device)
         grids = [torch.zeros((n, GRID_SIZE, 3), device=geom.device)]
 
@@ -624,7 +617,7 @@ def top_k_ids(values: torch.Tensor, k: int) -> torch.Tensor:
 
 def _shoot_step(geom: Geometry, key: rng.Key, radiosity, unshot, rad_grid,
                 grid_counts, step_idx: int, *, k: int, n_samples: int,
-                row_chunk: int, occlusion_packs, estimator="reference",
+                row_chunk: int, backend, estimator="reference",
                 sort_shooters=False, bands: RowBands | None = None):
     """One batched shooting step: the k primitives of largest unshot power
     (luminance x area) shoot; their (N, k) form-factor block comes from
@@ -639,7 +632,7 @@ def _shoot_step(geom: Geometry, key: rng.Key, radiosity, unshot, rad_grid,
     Returns (radiosity, unshot, rad_grid, grid_counts, stats)."""
     one = bands is None
     if one:
-        bands = _bands(geom, occlusion_packs, None,
+        bands = _bands(geom, backend, None,
                        min(row_chunk, geom.num_prims), k)
         rad_grid, grid_counts = [rad_grid], [grid_counts]
     with scope("shoot_select"):
@@ -705,7 +698,7 @@ def solve_radiosity_shooting(
     shooters_per_step: int = 128,
     mc_samples: int = 4,
     row_chunk: int | None = None,
-    occlusion_packs=None,
+    backend: Backend | None = None,
     rel_tol: float = 1e-3,
     check_every: int = 8,
     ambient: bool = True,
@@ -734,7 +727,7 @@ def solve_radiosity_shooting(
     if row_chunk is None:
         # visibility batches of ~32k segments a chunk
         row_chunk = max(16, 32768 // k)
-    bands = _bands(geom, occlusion_packs, replicas, min(row_chunk, n), k)
+    bands = _bands(geom, backend, replicas, min(row_chunk, n), k)
     rad_grid = [torch.zeros((r, GRID_SIZE, 3), device=d)
                 for r, d in zip(bands.real, bands.devices)]
     grid_counts = [torch.zeros((r, GRID_SIZE), device=d)
@@ -744,7 +737,7 @@ def solve_radiosity_shooting(
         return _shoot_step(
             geom, key, radiosity, unshot, rad_grid, grid_counts, step, k=k,
             n_samples=mc_samples, row_chunk=row_chunk,
-            occlusion_packs=occlusion_packs, estimator=estimator,
+            backend=backend, estimator=estimator,
             sort_shooters=sort_shooters, bands=bands,
         )
 
@@ -756,13 +749,14 @@ def solve_radiosity_shooting(
     if grid_refresh > 0:
         sol = refresh_grids(geom, key, sol, top=grid_refresh,
                             n_samples=grid_refresh_samples,
-                            occlusion_packs=occlusion_packs,
+                            backend=backend,
                             estimator=estimator, replicas=replicas)
     return sol
 
 
 def refresh_grids(geom: Geometry, key: rng.Key, sol: RadiositySolution, *,
-                  top: int = 128, n_samples: int = 16, occlusion_packs=None,
+                  top: int = 128, n_samples: int = 16,
+                  backend: Backend | None = None,
                   estimator: str = "reference",
                   replicas: Replicas | None = None) -> RadiositySolution:
     """The solution with rad_grid and grid_counts replaced by a dense MC
@@ -772,7 +766,7 @@ def refresh_grids(geom: Geometry, key: rng.Key, sol: RadiositySolution, *,
     n = geom.num_prims
     m = min(top, n)
     cols = top_k_ids(luminance(sol.radiosity) * geom.area, m)
-    bands = _bands(geom, occlusion_packs, replicas,
+    bands = _bands(geom, backend, replicas,
                    min(max(16, 32768 // m), n), m)
     rkey = rng.fold_in(rng.stream_key(key, rng.STREAM_FORMFACTOR),
                        0x47524944)

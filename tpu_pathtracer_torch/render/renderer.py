@@ -29,9 +29,9 @@ import torch
 
 from ..core import rng
 from ..core.constants import RAY_EPS, SAMPLING_BSDF
+from ..ops.backend import Backend, Brute, or_brute
 from ..ops.guiding import CDFPack
 from ..ops.intersect import closest_hit
-from ..ops.intersect_allpairs import ATTR_COLS, pack_attributes, pack_prim_ids
 from ..ops.tonemap import tonemap_radiosity, tonemap_radiosity_legacy
 from ..scene.mesh import Geometry
 from ..utils import trace_scope
@@ -131,8 +131,7 @@ def build_balance_assignment(lane_steps, swz_perm, npix: int, k: int,
 def probe_pass(geom: Geometry, camera: Camera, key: rng.Key,
                settings: RenderSettings, gids: torch.Tensor, *,
                cdfs: CDFPack | None = None, mis_bsdf_fraction: float = 0.5,
-               tri_pack=None, attr_pack=None, culled=None,
-               bvh=None) -> torch.Tensor:
+               backend: Backend | None = None) -> torch.Tensor:
     """Per-lane cost probe: one spp-1 wavefront pass (without NEE, as in
     the JAX package) over each row of gids (nruns, chunk) pixel ids,
     returning each lane's live-step count, (nruns, chunk)."""
@@ -141,10 +140,9 @@ def probe_pass(geom: Geometry, camera: Camera, key: rng.Key,
     for lane_ids in gids:
         out.append(trace_wavefront(
             geom, camera, lane_ids, key, width=s.width, height=s.height,
-            spp=1, max_depth=s.max_depth, tri_pack=tri_pack,
-            attr_pack=attr_pack, mode=s.sampling_mode, cdfs=cdfs,
-            mis_bsdf_fraction=mis_bsdf_fraction, culled=culled, bvh=bvh,
-            return_lane_steps=True)[3])
+            spp=1, max_depth=s.max_depth, backend=backend,
+            mode=s.sampling_mode, cdfs=cdfs,
+            mis_bsdf_fraction=mis_bsdf_fraction, return_lane_steps=True)[3])
     return torch.stack(out)
 
 
@@ -154,25 +152,19 @@ def render_pass(
     film: Film,
     key: rng.Key,
     settings: RenderSettings,
-    tri_pack: torch.Tensor | None = None,
-    attr_pack: torch.Tensor | None = None,
+    backend: Backend | None = None,
     cdfs: CDFPack | None = None,
     mis_bsdf_fraction: float = 0.5,
-    culled=None,
-    prim_ids: torch.Tensor | None = None,
     assignment=None,
-    bvh=None,
     pixel_offset: int = 0,
     view_size: tuple[int, int] | None = None,
     graphs: WavefrontGraphs | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Trace settings.spp_per_pass samples per pixel and add them into
-    `film` (in place); guided modes sample by `cdfs`. With `culled` (a
-    CulledScene) batches are whole 1024-lane tiles in swizzled lane order;
-    with `bvh` (a BVH, when neither `culled` nor `tri_pack` is given) hits
-    come from its traversal.
-    `prim_ids` (`pack_prim_ids`) sends NEE's shadow rays through K3 on
-    the all-pairs packs. `assignment` (wavefront only) is the balanced
+    `film` (in place); guided modes sample by `cdfs`. Hits and NEE's
+    shadow rays go through `backend` (ops/backend.py; the brute force when
+    None); on the culled one batches are whole 1024-lane tiles in
+    swizzled lane order. `assignment` (wavefront only) is the balanced
     lane queues of `build_balance_assignment` as device tensors: each
     batch is a row of gids (chunk, K), and per-pixel radiance is bitwise
     that of assignment=None. `graphs` (a `WavefrontGraphs`) lets the
@@ -195,16 +187,17 @@ def render_pass(
     path_key = rng.stream_key(pass_key, rng.STREAM_PATH)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     iters = 0
+    backend = or_brute(backend, geom)
 
     def wavefront(lane_ids, tile_sync=0):
         return trace_wavefront(
             geom, camera, lane_ids, path_key,
             width=vw, height=vh, spp=s.spp_per_pass,
-            max_depth=s.max_depth, tri_pack=tri_pack, attr_pack=attr_pack,
+            max_depth=s.max_depth, backend=backend,
             mode=s.sampling_mode, cdfs=cdfs,
-            mis_bsdf_fraction=mis_bsdf_fraction, culled=culled,
-            sort_rays=s.sort_rays, nee=s.nee, prim_ids=prim_ids,
-            tile_sync=tile_sync, bvh=bvh, graphs=graphs,
+            mis_bsdf_fraction=mis_bsdf_fraction,
+            sort_rays=s.sort_rays, nee=s.nee,
+            tile_sync=tile_sync, graphs=graphs,
         )
 
     if assignment is not None:
@@ -225,7 +218,7 @@ def render_pass(
 
     chunk = min(s.ray_chunk, npix)
     swz = None
-    if culled is not None:
+    if backend.name == "culled":
         chunk = max(1024, (chunk // 1024) * 1024)
         swz = _tile_swizzle(s.width, s.height, npix)
     if swz is None:
@@ -240,8 +233,8 @@ def render_pass(
             total, r, it = wavefront(lane_ids)
         else:
             total, r, it = _scan_samples(
-                geom, camera, lane_ids, pass_key, s, vw, vh, tri_pack,
-                attr_pack, cdfs, mis_bsdf_fraction, culled, prim_ids, bvh)
+                geom, camera, lane_ids, pass_key, s, vw, vh, backend, cdfs,
+                mis_bsdf_fraction)
         radiance[start:start + lane_ids.shape[0]] = total
         rays += r
         iters += it
@@ -255,8 +248,7 @@ def render_pass(
 
 
 def _scan_samples(geom, camera, lane_ids, pass_key, s: RenderSettings,
-                  vw: int, vh: int, tri_pack, attr_pack, cdfs,
-                  mis_bsdf_fraction, culled, prim_ids, bvh):
+                  vw: int, vh: int, backend, cdfs, mis_bsdf_fraction):
     """render_pass's scan branch for one batch of global pixel ids of a
     (vw, vh) view: sample `samp` keys its camera jitter by
     stream_key(fold_in(pass_key, samp), STREAM_CAMERA) and its paths by
@@ -276,9 +268,8 @@ def _scan_samples(geom, camera, lane_ids, pass_key, s: RenderSettings,
         rad, stats = trace(
             geom, o, d, rng.stream_key(skey, rng.STREAM_PATH),
             max_depth=s.max_depth, mode=s.sampling_mode, cdfs=cdfs,
-            mis_bsdf_fraction=mis_bsdf_fraction, tri_pack=tri_pack,
-            attr_pack=attr_pack, culled=culled, prim_ids=prim_ids,
-            lane_ids=lane_ids, nee=s.nee, bvh=bvh)
+            mis_bsdf_fraction=mis_bsdf_fraction, backend=backend,
+            lane_ids=lane_ids, nee=s.nee)
         radiance = radiance + rad
         rays = rays + stats.rays
     return radiance, rays, s.spp_per_pass * s.max_depth
@@ -292,12 +283,11 @@ def render_radiosity_view(
     settings: RenderSettings,
     include_emission: bool = True,
     display: str = "current",
-    culled=None,
+    backend: Backend | None = None,
 ) -> torch.Tensor:
     """Direct radiosity visualization (render_radiosity,
-    integrator.h:460-504): primary hit (brute force, as in the JAX
-    package, or through `culled`, a CulledScene) -> Le + B_i, averaged
-    over spp_per_pass jittered samples,
+    integrator.h:460-504): primary hit -> Le + B_i, averaged over
+    spp_per_pass jittered samples,
     sqrt gamma, u8. include_emission=False shows an arbitrary
     per-primitive color field (history delta images); display="legacy"
     is Reinhard + gamma 1/2.2 of B alone.
@@ -309,6 +299,10 @@ def render_radiosity_view(
     s = settings
     dev = radiosity.device
     npix = s.num_pixels
+    # the JAX package takes the primary hits by brute force; on the culled
+    # backend, whose scenes are too large for it, the port takes its hits
+    hits = (backend if backend is not None and backend.name == "culled"
+            else Brute(geom))
     chunk = min(s.ray_chunk, npix)
     nchunks = (npix + chunk - 1) // chunk
     pix = torch.arange(nchunks * chunk, device=dev)
@@ -325,10 +319,7 @@ def render_radiosity_view(
             jit2 = rng.uniform(rng.fold_in(ckey, samp), (chunk, 2), dev)
             o, d = camera.get_rays((x + jit2[:, 0]) / s.width,
                                    (y + jit2[:, 1]) / s.height)
-            if culled is not None:
-                hit = culled.closest_hit(geom, o, d, t_min=RAY_EPS)
-            else:
-                hit = closest_hit(geom, o, d, t_min=RAY_EPS)
+            hit = hits.closest_hit(geom, o, d, t_min=RAY_EPS)
             base = radiosity[hit.prim]
             if include_emission and display != "legacy":
                 base = base + hit.emission
@@ -350,33 +341,16 @@ def pick_primitive(geom: Geometry, camera: Camera, u: float, v: float) -> int:
     return int(hit.prim[0]) if bool(hit.valid[0]) else -1
 
 
-def render_packs(geom: Geometry, settings: RenderSettings, tri_pack,
-                 attr_pack, cdfs: CDFPack | None, prim_ids):
-    """(attr_pack, prim_ids) a renderer of `settings` uses: in a guided
-    mode the 11-row attribute pack is rebuilt with the CDFs' prim_table
-    rows (renderer.py:457-471 of the JAX package), and with NEE on the
-    all-pairs packs the prim-id pack is built when not given."""
-    if (cdfs is not None and attr_pack is not None
-            and settings.sampling_mode != SAMPLING_BSDF
-            and attr_pack.shape[0] == ATTR_COLS):
-        attr_pack = pack_attributes(geom, guide_table=cdfs.prim_table)
-    if settings.nee and tri_pack is not None and prim_ids is None:
-        prim_ids = pack_prim_ids(geom)
-    return attr_pack, prim_ids
-
-
 class ProgressiveRenderer:
     """Host-side progressive render loop with throughput accounting.
 
     Rays are counted as the JAX package counts them: live lanes summed
     over wavefront iterations (or scan bounces), plus NEE's shadow rays.
-    The count stays on the device until read. In a guided mode with the
-    all-pairs backend the attribute pack is rebuilt with the CDFs'
-    prim_table rows (renderer.py:457-471 of the JAX package), so K2 also
-    delivers each lane's guided-sampling row; with NEE on that backend
-    the prim-id pack (`prim_ids`, built here when not given) sends the
-    shadow rays through K3. `bvh` (a BVH) takes the hits where there are
-    no packs and no `culled`. With `balance_lanes` K > 1 the first pass
+    The count stays on the device until read. The renderer runs its
+    `backend`'s variant for its sampling mode (`for_render`: in a guided
+    mode the all-pairs backend's attribute pack carries the CDFs'
+    prim_table rows, so K2 also delivers each lane's guided-sampling
+    row). With `balance_lanes` K > 1 the first pass
     probes the lanes' path costs once and later passes run on the dealt
     queues (`_build_assignment`). `pixel_offset` and `view_size` make it
     render a row band of a larger view (see render_pass). The wavefront's
@@ -392,13 +366,9 @@ class ProgressiveRenderer:
         *,
         device: str | torch.device,
         seed: int = 2023,
-        tri_pack: torch.Tensor | None = None,
-        attr_pack: torch.Tensor | None = None,
+        backend: Backend | None = None,
         cdfs: CDFPack | None = None,
         mis_bsdf_fraction: float = 0.5,
-        culled=None,
-        prim_ids: torch.Tensor | None = None,
-        bvh=None,
         pixel_offset: int = 0,
         view_size: tuple[int, int] | None = None,
         graphs: WavefrontGraphs | None = None,
@@ -407,19 +377,13 @@ class ProgressiveRenderer:
         self.graphs = WavefrontGraphs() if graphs is None else graphs
         self.pixel_offset = pixel_offset
         self.view_size = view_size
-        self.culled = culled
-        self.bvh = None if bvh is None else bvh.to(self.device)
         self.geom = geom.to(self.device)
         self.camera = camera.to(self.device)
         self.settings = settings
         self.cdfs = None if cdfs is None else cdfs.to(self.device)
         self.mis_bsdf_fraction = mis_bsdf_fraction
-        self.tri_pack = None if tri_pack is None else tri_pack.to(self.device)
-        attr_pack, prim_ids = render_packs(self.geom, settings, self.tri_pack,
-                                           attr_pack, self.cdfs, prim_ids)
-        self.attr_pack = (None if attr_pack is None
-                          else attr_pack.to(self.device))
-        self.prim_ids = None if prim_ids is None else prim_ids.to(self.device)
+        self.backend = or_brute(backend, self.geom).to(self.device).for_render(
+            self.geom, settings.sampling_mode, self.cdfs)
         self.key = rng.base_key(seed)
         self.film = Film.create(settings.width, settings.height, self.device)
         self._rays = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -428,6 +392,11 @@ class ProgressiveRenderer:
         self.iterations = 0   # wavefront iterations (= intersect calls)
         self._assignment = None
         self._assignment_built = False
+
+    @property
+    def attr_pack(self) -> torch.Tensor | None:
+        """The all-pairs backend's attribute pack (None on the others)."""
+        return getattr(self.backend, "attr_pack", None)
 
     def _build_assignment(self):
         """Cost-balanced lane queues (settings.balance_lanes = K > 1): probe
@@ -443,7 +412,7 @@ class ProgressiveRenderer:
                 or (npix // k) % chunk:
             return None
         swz = (_tile_swizzle(s.width, s.height, npix)
-               if self.culled is not None else None)
+               if self.backend.name == "culled" else None)
         perm = swz[0] if swz is not None else np.arange(npix)
         pchunk = min(s.ray_chunk, npix)
         if npix % pchunk:
@@ -452,8 +421,7 @@ class ProgressiveRenderer:
             self.geom, self.camera, rng.fold_in(self.key, 0xBA1A), s,
             torch.from_numpy(perm.reshape(-1, pchunk)).to(self.device),
             cdfs=self.cdfs, mis_bsdf_fraction=self.mis_bsdf_fraction,
-            tri_pack=self.tri_pack, attr_pack=self.attr_pack,
-            culled=self.culled, bvh=self.bvh,
+            backend=self.backend,
         )
         with trace_scope.sync("balance"):
             steps = steps.reshape(-1).cpu().numpy()
@@ -477,10 +445,9 @@ class ProgressiveRenderer:
                 self._assignment_built = True
             rays, iters = render_pass(
                 self.geom, self.camera, self.film, self.key, self.settings,
-                self.tri_pack, self.attr_pack, self.cdfs,
-                self.mis_bsdf_fraction, self.culled, self.prim_ids,
-                self._assignment, self.bvh, self.pixel_offset,
-                self.view_size, self.graphs,
+                self.backend, self.cdfs, self.mis_bsdf_fraction,
+                self._assignment, self.pixel_offset, self.view_size,
+                self.graphs,
             )
             self._rays += rays
             self.iterations += iters

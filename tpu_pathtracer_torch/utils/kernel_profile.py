@@ -35,13 +35,13 @@ from pathlib import Path
 import torch
 
 from ..core import rng
-from ..core.constants import SAMPLING_BSDF
+from ..core.constants import RAY_EPS, SAMPLING_BSDF
 from ..core.math_utils import cosine_sample_hemisphere
 from ..ops import intersect_allpairs as ap
 from ..ops import intersect_culled as ic
 from ..ops import intersect_culled_legacy as lg
+from ..ops.backend import or_brute
 from ..ops.guiding import sample_grid
-from ..render.integrator import _intersect
 from . import trace_scope
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -79,15 +79,12 @@ def kernel_profile(
     *,
     mode: int = SAMPLING_BSDF,
     cdfs=None,
-    bvh=None,
-    tri_pack=None,
-    attr_pack=None,
-    culled=None,
+    backend=None,
     iters: int = 10,
 ) -> dict:
     """Measure the bounce phases for a ray batch (o, d): the closest hit
-    through the backend given (the `culled` scene, the all-pairs packs,
-    the `bvh` or brute force), 6 uniforms a ray, a cosine hemisphere
+    through the backend given (ops/backend.py; the brute force when
+    None), 6 uniforms a ray, a cosine hemisphere
     sample and, with `cdfs`, a guided-grid sample.
 
     Returns {"seconds": {phase: s}, "percent": {phase: %}, "rays": B}."""
@@ -95,9 +92,11 @@ def kernel_profile(
     dev = o.device
     o, d = o.contiguous(), d.contiguous()
     key = rng.base_key(0)
+    backend = or_brute(backend, geom)
 
     def p_intersect(o, d):
-        h = _intersect(geom, o, d, tri_pack, attr_pack, culled, bvh=bvh)
+        with trace_scope.scope("intersection"):
+            h = backend.closest_hit(geom, o, d, t_min=RAY_EPS)
         return h.t.sum() + h.emission.sum()
 
     def p_rng(k):

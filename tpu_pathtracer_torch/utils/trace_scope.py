@@ -27,8 +27,9 @@ kernels it would without them and reads no clock.
 
 While code is captured into a CUDA graph it runs nothing on the device,
 so it records nothing: inside `tapped(tap)` no span is logged, and every
-scope's entry and exit, every `count` and `tally`, and every question to
-`active()` go to the tap instead (`render/integrator.py`'s capture of the wavefront iteration
+scope's entry and exit, every `count`, `tally` and `launched` (the kernel
+wrappers' launch counters), and every question to `active()` go to the
+tap instead (`render/integrator.py`'s capture of the wavefront iteration
 cuts its graphs where a scope begins or ends, and replays each piece
 inside the same scopes with the counts it took).
 
@@ -189,6 +190,16 @@ def count(name: str, n: int = 1, key: str | None = None) -> None:
             d[key] = d.get(key, 0) + int(n)
 
 
+def launched(fn, attr: str = "launches", n: int = 1) -> None:
+    """Advance the kernel launch counter `fn.<attr>` (a wrapper's count
+    of its kernel's launches) by `n`; inside `tapped` the advance goes to
+    the tap instead (`tap.launched`), as nothing is launched there."""
+    if _tap is not None:
+        _tap.launched(fn, attr, n)
+    else:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def tally(name: str, value: torch.Tensor) -> None:
     """Add a device scalar to the counter `name` while recording: the
     tensor is kept, and copied and summed on the host when `counters()`
@@ -202,8 +213,8 @@ def tally(name: str, value: torch.Tensor) -> None:
 
 @contextlib.contextmanager
 def tapped(tap):
-    """Send scope edges, counts, tallies and questions to `active()` to
-    `tap` for the duration of the block, and keep them from the
+    """Send scope edges, counts, tallies, launches and questions to
+    `active()` to `tap` for the duration of the block, and keep them from the
     recording: the block is being captured, not run."""
     global _tap
     prev, _tap = _tap, tap
