@@ -25,6 +25,14 @@ Phases, one line each (any failure raises and exits non-zero):
                CUDA graph of the calls), against its bound: the larger
                of its hashes' uint32 ops at PEAK_INT32 and its bytes at
                PEAK_BYTES;
+  2c. guiding the guided sampler kernel (csrc/guide_sample.cu, built with
+               the others) against the PyTorch path, bitwise, at 65,536
+               lanes: sample_grid_mis and sample_grid on a 1,024- and a
+               65,536-primitive table, the rows as K2-guide's transposed
+               view (the all-pairs route) and as a prim_table gather (the
+               culled route); timed in turns PyTorch, kernel, kernel,
+               PyTorch with CUDA events, and by device time, against its
+               bound: the bytes a lane must move at PEAK_BYTES;
   2b. profile  the profilers, in a child process before the long phases
                (`chip_smoke.py --profile-child`; torch.profiler lost
                kernel events late in this long process): kernel_profile
@@ -231,7 +239,10 @@ Phases, one line each (any failure raises and exits non-zero):
 
 The second-to-last line is the kernel record (JSON; its "rng" entry
 is phase 2a's record of the threefry kernel, with its launches by entry
-point in the headline, guided, sub-3 solve and stress100k phases; each
+point in the headline, guided, sub-3 solve and stress100k phases; its
+"guide_sample" entry phase 2c's record of the guided sampler kernel, with
+its launches in the guided pass and in phase shooting's sub-6 MIS pass;
+each
 kernel's
 launches are those of the phase that drives its path: K2 the headline,
 K2-guide the guided pass, K3 the sub-3 solve, K4 and K6 the stress100k
@@ -1335,6 +1346,7 @@ def keep_third_calls(step, fns) -> dict:
 def zero_counts() -> None:
     """Set every kernel's launch count to 0."""
     from tpu_pathtracer_torch.core import rng
+    from tpu_pathtracer_torch.ops import guiding
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
@@ -1346,6 +1358,7 @@ def zero_counts() -> None:
     ic.zero_launch_counts()
     lg.zero_launch_counts()
     rng.zero_launch_counts()
+    guiding.zero_launch_counts()
 
 
 def rng_launches() -> dict:
@@ -1886,12 +1899,14 @@ def shooting_phase(dev, start, end):
     knife-edge flips of K3's visibility); the OBJ scenes against the
     builtin boxes and the cbox_mirror golden; the BVH against K2 and the
     brute force, its film against "pallas". Returns the kernel record's
-    shooting facts: {kernel: (launches, ms a launch)}."""
+    shooting facts: {kernel: (launches, ms a launch)}, and the guided
+    sampler's launches in the MIS pass."""
     import time
 
     from tpu_pathtracer_torch.app import App
     from tpu_pathtracer_torch.core import rng
     from tpu_pathtracer_torch.ops import bvh as bv
+    from tpu_pathtracer_torch.ops import guiding
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops.backend import AllPairs
@@ -2002,6 +2017,7 @@ def shooting_phase(dev, start, end):
     zero_counts()
     _, pass_ms = time_once(r.step)
     k6 = ic.closest_grouped.launches
+    sampler = guiding.sample_grid_mis.launches
     accum = r.film.accum
     ok = bool(torch.isfinite(accum).all()) and float(accum.mean()) > 0
     view = App(Config(**{**cfg, "integrator": "radiosity",
@@ -2017,11 +2033,13 @@ def shooting_phase(dev, start, end):
           f"ms, K7 launches {k7_app}, {s6.history_count} history entries, "
           f"form_factors {tuple(s6.form_factors.shape)}; CDFs {cdf_ms:.3f} "
           f"ms ({int(app.cdfs.valid.sum())} valid); MIS pass {frame} "
-          f"{pass_ms:.3f} ms, {r.total_rays} rays, K6 launches {k6}, film "
+          f"{pass_ms:.3f} ms, {r.total_rays} rays, K6 launches {k6}, "
+          f"guide_sample {sampler}, film "
           f"finite and non-zero {ok}; radiosity view {img.shape[1]}x"
           f"{img.shape[0]} {view_ms:.3f} ms, mean {img.mean():.3f}, max "
           f"{img.max()}")
     if not (ok and k7_app > 0 and k6 > 0 and img.max() > 0
+            and sampler == r.iterations
             and tuple(s6.form_factors.shape) == (0, 0)):
         raise AssertionError("the App's sub-6 shooting path failed")
     del app, view, r, k4_out, k7_out     # sol: phase multi's; s6 below
@@ -2212,7 +2230,8 @@ def shooting_phase(dev, start, end):
             and ulps <= BVH_T_ULP and ids_k2 <= 8):
         raise AssertionError("the BVH failed its checks")
     return {"K4": (k4, per_launch["K4"]), "K7": (k7, per_launch["K7"]),
-            "K3": (k3, k3_launch_ms), "solution": sol, "ms": ms}
+            "K3": (k3, k3_launch_ms), "guide_sample": sampler,
+            "solution": sol, "ms": ms}
 
 
 def row_kernels(part, o, d, check_early_out):
@@ -3011,6 +3030,99 @@ def rng_phase(dev) -> dict:
             "replaces": None, "library_ms": None, "cases": out}
 
 
+def sampler_lane_bytes(mis: bool) -> int:
+    """Bytes one lane of the guided sampler must move: 9 floats of its
+    guide row (10 with MIS's validity), its prim id, normal and 4 draws,
+    16 phi-CDF entries and a cell of one theta_table row, then a
+    direction and a pdf; with MIS also the second cell, the two bins
+    (int64, int32), the horizon mask, the second pdf and the validity."""
+    lane = 9 * 4 + 4 + 12 + 16 + 17 * 4 + 12 + 4
+    return lane + (4 + 4 + 8 + 4 + 1 + 4 + 1 if mis else 0)
+
+
+def guiding_phase(dev) -> dict:
+    """Phase 2c: the guided sampler kernel against the PyTorch path at
+    65,536 lanes (bitwise), timed in turns and by device time. Returns its
+    record."""
+    from tpu_pathtracer_torch.ops import guiding
+
+    b = N_RAYS
+    g = np.random.default_rng(24)
+    out = {}
+    for n_prims in (1024, 65_536):
+        pdf = (g.random((n_prims, 256)) ** 6).astype(np.float32)
+        pdf[g.random((n_prims, 256)) < 0.3] = 0.0
+        pdf[g.random((n_prims, 256)) < 0.05] = 5e-9
+        pdf[::13] = 0.0
+        cdfs = guiding.build_cdfs(torch.from_numpy(pdf).to(dev))
+        prim = torch.from_numpy(g.integers(0, n_prims, b).astype(np.int32))
+        prim[::7] = 0
+        prim = prim.to(dev)
+        n = torch.from_numpy(g.standard_normal((b, 3)).astype(np.float32))
+        n = (n / n.norm(dim=1, keepdim=True)).to(dev)
+        n[1::97] = torch.tensor([0.0, 0.0, -1.0], device=dev)
+        draws = torch.from_numpy(g.random((b, 6), np.float32)).to(dev)
+        u = tuple(draws[:, i] for i in range(4))
+        z_b = torch.sqrt(1.0 - draws[:, 0])
+        bins = ((z_b[:, None] <= guiding.cos_theta_edges(dev)[None, :])
+                .sum(dim=1),
+                (draws[:, 1] * 16).to(torch.int32).clamp(0, 15),
+                torch.zeros((b,), dtype=torch.bool, device=dev))
+        attrs = torch.zeros((27, b), device=dev)
+        attrs[11:] = cdfs.prim_table[prim].T
+        rows = {"K2-guide view": attrs[11:].T,
+                "gather": cdfs.prim_table[prim]}
+        for rname, row16 in rows.items():
+            for fn, mis in (("sample_grid_mis", True),
+                            ("sample_grid", False)):
+                bb = bins if mis else None
+
+                def fused(row16=row16, bb=bb):
+                    return guiding._sample_fused(cdfs, prim, n, u, row16, bb)
+
+                def plain(row16=row16, bb=bb):
+                    if bb is None:
+                        return guiding._sample_grid_eager(cdfs, prim, n, *u,
+                                                          row16)
+                    return guiding._sample_grid_mis_eager(cdfs, prim, n, u,
+                                                          row16, bb)
+
+                got = fused()[:4 if mis else 2]
+                want = plain()
+                torch.cuda.synchronize()
+                err = max(max_abs_diff(x, y) for x, y in zip(got, want))
+                same = all(bool(torch.equal(
+                    x.view(torch.int32) if x.dtype == torch.float32 else x,
+                    y.view(torch.int32) if y.dtype == torch.float32 else y))
+                    for x, y in zip(got, want))
+                if not same:
+                    raise AssertionError(
+                        f"the guided sampler kernel differs from the "
+                        f"PyTorch path: {fn}, {n_prims} prims, {rname}")
+                plain_ms, ms = time_pair(plain, fused)
+                plain_dev, dev_ms = device_pair(plain, fused)
+                nbytes = b * sampler_lane_bytes(mis)
+                bound_ms = nbytes / PEAK_BYTES * 1e3
+                name = f"{fn} {n_prims} prims, {rname}"
+                out[name] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "device_ms": dev_ms,
+                             "plain_device_ms": plain_dev,
+                             "bound_ms": bound_ms, "bound_by": "bytes",
+                             "bytes": nbytes}
+                phase("guiding", f"{name}, {b} lanes: max_abs_err {err} "
+                      f"(bitwise); kernel {ms:.4f} ms (PyTorch "
+                      f"{plain_ms:.4f}), device {dev_ms:.5f} ms (PyTorch "
+                      f"{plain_dev:.5f}); bound {bound_ms:.5f} ms (bytes), "
+                      f"{100 * bound_ms / dev_ms:.1f}% of device")
+    return {"name": "guide_sample (no TPU kernel: the JAX package's "
+                    "sample_grid / sample_grid_mis XLA ops)",
+            "route": "cuda",
+            "source": "tpu_pathtracer_torch/csrc/guide_sample.cu",
+            "replaces": None, "library_ms": None,
+            "max_abs_err": max(c["max_abs_err"] for c in out.values()),
+            "cases": out}
+
+
 def profile_child(dev=None) -> int:
     """The profile phase's work, in a process of its own (run as
     `chip_smoke.py --profile-child`): torch.profiler lost kernel events
@@ -3188,6 +3300,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from tpu_pathtracer_torch.app import App
     from tpu_pathtracer_torch.core import rng
+    from tpu_pathtracer_torch.ops import guiding
     from tpu_pathtracer_torch.ops import intersect_allpairs as ap
     from tpu_pathtracer_torch.ops import intersect_culled as ic
     from tpu_pathtracer_torch.ops import intersect_culled_legacy as lg
@@ -3216,7 +3329,7 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     sources = (*ap.KERNEL_SOURCES, *ic.KERNEL_SOURCES, *lg.KERNEL_SOURCES,
-               rng.KERNEL_SOURCE)
+               rng.KERNEL_SOURCE, guiding.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build, sources))
     for src, res in zip(sources, built):
@@ -3228,6 +3341,9 @@ def main() -> int:
 
     # 2a. rng: the threefry kernel against the eager path -----------------
     rng_record = rng_phase(dev)
+
+    # 2c. guiding: the guided sampler kernel against the PyTorch path ------
+    guide_record = guiding_phase(dev)
 
     # 2b. profile: the profilers, in a child process ----------------------
     profile_phase()
@@ -3520,6 +3636,7 @@ def main() -> int:
     end.synchronize()
     guide_launches = ap.closest_record.guide_launches
     rng_guided = rng_launches()
+    sampler_guided = guiding.sample_grid_mis.launches
     ms = start.elapsed_time(end)
     rays = r.total_rays
     accum = r.film.accum
@@ -3529,10 +3646,10 @@ def main() -> int:
           f"in {ms:.3f} ms (CUDA events) = {rays / (ms / 1e3) / 1e6:.3f} "
           f"Mrays/s; {r.iterations} intersect calls, K2-guide launches "
           f"{guide_launches}, K2 {ap.closest_record.launches}, threefry "
-          f"{rng_guided}; film finite "
+          f"{rng_guided}, guide_sample {sampler_guided}; film finite "
           f"{finite}, mean {mean:.6f}")
     if not (finite and mean > 0 and guide_launches > 0
-            and guide_launches == r.iterations
+            and guide_launches == r.iterations == sampler_guided
             and ap.closest_record.launches == 0
             and rng_guided["lane_uniforms"]):
         raise AssertionError("guided pass failed its checks")
@@ -3722,7 +3839,9 @@ def main() -> int:
         {**entry("K13 occluded_grouped_sc (_kernel_grouped_anyhit_dma_sc)",
                  "K13", "grouped_anyhit.cu", 222, sc["K13"], lab),
          **sc_facts["K13"]},
-    ], "rng": {**rng_record, "launches": rng_main_path}}
+    ], "rng": {**rng_record, "launches": rng_main_path},
+        "guide_sample": {**guide_record, "launches": {
+            "guided": sampler_guided, "sub6 mis": shoot["guide_sample"]}}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,6 +23,7 @@ from tpu_pathtracer_torch.app import App
 from tpu_pathtracer_torch.core import rng
 from tpu_pathtracer_torch.core.math_utils import build_frame, normalize
 from tpu_pathtracer_torch.ops import (
+    guiding,
     intersect_allpairs,
     intersect_culled,
     intersect_culled_legacy,
@@ -129,10 +130,10 @@ def _wave(r, mode):
 
 def _counter_attrs() -> list:
     """(wrapper, attribute) of every kernel launch counter: the integer
-    attributes named `*launches` of the functions of `core/rng.py` and
-    of the intersection modules."""
+    attributes named `*launches` of the functions of `core/rng.py`, of
+    `ops/guiding.py` and of the intersection modules."""
     seen = {}
-    for mod in (rng, intersect_allpairs, intersect_culled,
+    for mod in (rng, guiding, intersect_allpairs, intersect_culled,
                 intersect_culled_legacy):
         for fn in vars(mod).values():
             for attr, v in getattr(fn, "__dict__", {}).items():
@@ -147,14 +148,22 @@ def _launches() -> dict:
 
 
 def _fake_kernel(monkeypatch):
-    """CPU draws take the RNG's kernel path, its launch a stand-in that
-    writes zeros: the wrappers count their launches as on the card."""
+    """CPU draws and guided samples take the RNG's and the sampler's
+    kernel paths, each launch a stand-in that writes zeros: the wrappers
+    count their launches as on the card."""
     def run(mode, key, out, out1=None, **kw):
         out.zero_()
         if out1 is not None:
             out1.zero_()
+
+    def sample(*args):
+        for out in args[6:]:
+            if out is not None:
+                out.zero_()
     monkeypatch.setattr(rng, "_on_card", lambda device: True)
     monkeypatch.setattr(rng, "_run", run)
+    monkeypatch.setattr(guiding, "_on_card", lambda device: True)
+    monkeypatch.setattr(guiding, "_run", sample)
 
 
 @pytest.mark.parametrize("mode,backend,scopes", [
@@ -171,8 +180,9 @@ def test_capture_cuts_at_the_phase_scopes(monkeypatch, mode, backend,
     """An iteration captured under the tap is cut wherever a scope opens
     or closes; each piece keeps its scopes and what its code counted (a
     kernel launch of the RNG's lane draw and its `rng_calls` count in
-    each `rng` piece), none of which reaches the recording or a launch
-    counter."""
+    each `rng` piece, the guided sampler's launch and its `guide_sampler`
+    count in the last `grid_sampling` piece), none of which reaches the
+    recording or a launch counter."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandIn)
     app = _app(backend=backend, sampling_mode=mode)
     r = app.renderer()
@@ -188,8 +198,14 @@ def test_capture_cuts_at_the_phase_scopes(monkeypatch, mode, backend,
             tap.end()
     assert trace_scope.counters() == {} and trace_scope.spans() == []
     assert [p.scopes for p in tap.pieces] == scopes
-    for p in tap.pieces:
+    sampler = max((i for i, p in enumerate(tap.pieces)
+                   if p.scopes == ("grid_sampling",)), default=-1)
+    for i, p in enumerate(tap.pieces):
         rng_piece = p.scopes == ("rng",)
+        if i == sampler:
+            assert p.counts == (("guide_sampler", 1, "fused"),)
+            assert p.launches == ((guiding.sample_grid_mis, "launches", 1),)
+            continue
         assert p.counts == ((("rng_calls", 1, "fused"),) if rng_piece
                             else ())
         assert p.launches == (((rng.lane_uniforms, "launches", 1),)
@@ -251,7 +267,7 @@ def test_launch_counters_advance_only_through_the_helper():
             "prepass_dense", "prepass_gated", "closest_grouped",
             "occluded_grouped", "closest_grouped_sc", "occluded_grouped_sc",
             "prepass_probe", "prepass_rows", "closest_culled",
-            "closest_rows"} <= callers
+            "closest_rows", "sample_grid_mis"} <= callers
 
 
 # --- on the card ------------------------------------------------------------

@@ -146,6 +146,15 @@ def test_threefry_kernel_takes_its_rng_scope():
     assert tkp.classify_op(name, "pass/rng") == "rng"
 
 
+def test_guide_sample_kernel_takes_its_grid_sampling_scope():
+    """The guided sampler's kernel is no intersection kernel: its launch
+    takes the `grid_sampling` scope, as the PyTorch path's kernels do."""
+    assert "guide_sample_kernel" not in tkp.port_kernels()
+    name = "void (anonymous namespace)::guide_sample_kernel(GuideArgs)"
+    assert not tkp.is_port_kernel(name)
+    assert tkp.classify_op(name, "pass/grid_sampling") == "grid_sampling"
+
+
 @pytest.fixture(scope="module")
 def traced():
     app = App(Config(width=16, height=16, spp=2, max_depth=3,

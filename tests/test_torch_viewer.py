@@ -248,6 +248,8 @@ def test_frame_orbit_heatmap_and_kernel_profile(server, tmp_path):
     assert prof["seconds"]["rng"] > 0 and prof["ops"] > 0
     assert prof["host_syncs"]["live_check"] > 0
     assert prof["rng_calls"]["eager"] > 0 and "fused" not in prof["rng_calls"]
+    assert prof["guide_sampler"]["eager"] > 0 \
+        and "fused" not in prof["guide_sampler"]
     assert 0 < prof["lane_occupancy"] <= 100
 
 

@@ -13,10 +13,22 @@ the 1e-6 / 1e-8 guards) are the JAX package's.
 The JAX package fetches table rows with a one-hot matmul (`_fetch_rows`),
 a TPU workaround for per-lane gathers that equals the gather exactly;
 here a row fetch is plain indexing.
+
+On a CUDA device `sample_grid` and `sample_grid_mis` are one launch of
+the hand-written kernel `csrc/guide_sample.cu`, bit for bit the plain
+PyTorch path (`_sample_grid_eager`, `_sample_grid_mis_eager`), which is
+the path of CPU tensors; there is no fallback. The kernel reads its inputs
+in place through their strides (the hit record's transposed guide rows,
+the draw columns, int32 or int64 indices) and is built at its first call
+on the card. Each sampler counts the kernel's launches (`.launches`), and
+while `utils.trace_scope` records, each launch adds one to the counter
+`guide_sampler` under `fused` and each call of the PyTorch path one under
+`eager`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass, fields
@@ -41,6 +53,7 @@ from ..core.math_utils import (
     spherical_to_local,
     world_to_spherical,
 )
+from ..utils import trace_scope
 from ..utils.trace_scope import scope, scoped
 
 
@@ -184,6 +197,15 @@ def _hemisphere_bins(direction, normal):
             phi_idx.clamp(0, GRID_RES - 1), theta > PI * 0.5)
 
 
+def guide_rows(cdfs: CDFPack, prim) -> torch.Tensor:
+    """cdfs.prim_table[prim], the (B, 16) guide rows of the hit
+    primitives where the hit record carries none, inside the span
+    `guide_row`. `index_select` reads int32 ids as they are, where
+    `prim_table[prim]` first copies them to int64 (one more launch)."""
+    with scope("guide_row"):
+        return cdfs.prim_table.index_select(0, prim)
+
+
 @scoped("grid_sampling")
 def sample_grid(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, row16=None):
     """Sample a direction from each ray's hit-primitive grid (Grid::sample,
@@ -193,6 +215,17 @@ def sample_grid(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, row16=None):
     Returns (dir, pdf). Lanes whose grid is invalid return garbage; the
     caller masks them with cdfs.valid[prim] (the integrator falls back to
     cosine sampling there)."""
+    if _on_card(prim.device):
+        if row16 is None:
+            row16 = guide_rows(cdfs, prim)
+        d, pdf, _, _ = _sample_fused(cdfs, prim, normal, (xi1, xi2, jt, jp),
+                                     row16)
+        return d, pdf
+    _count("eager")
+    return _sample_grid_eager(cdfs, prim, normal, xi1, xi2, jt, jp, row16)
+
+
+def _sample_grid_eager(cdfs, prim, normal, xi1, xi2, jt, jp, row16):
     if row16 is None:
         marg = cdfs.marginal_cdf[prim]
         total = cdfs.total_weight[prim]
@@ -230,8 +263,18 @@ def sample_grid_mis(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, d_b,
 
     Returns (d_g, pdf_gg, pdf_bg, g_valid)."""
     if row16 is None:
-        with scope("guide_row"):
-            row16 = cdfs.prim_table[prim]
+        row16 = guide_rows(cdfs, prim)
+    if d_b_bins is None:
+        d_b_bins = _hemisphere_bins(d_b, normal)
+    draws = (xi1, xi2, jt, jp)
+    if _on_card(prim.device):
+        return _sample_fused(cdfs, prim, normal, draws, row16, d_b_bins)
+    _count("eager")
+    return _sample_grid_mis_eager(cdfs, prim, normal, draws, row16, d_b_bins)
+
+
+def _sample_grid_mis_eager(cdfs, prim, normal, draws, row16, d_b_bins):
+    xi1, xi2, jt, jp = draws
     marg = row16[:, :GRID_HALF_RES]
     total = row16[:, GRID_HALF_RES]
     g_valid = row16[:, GRID_HALF_RES + 1] > 0.0
@@ -241,8 +284,6 @@ def sample_grid_mis(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, d_b,
     phi_idx = _rank_cdf(row32[:, :GRID_RES], xi2)
     d_g = _sampled_direction(theta_idx, phi_idx, jt, jp, normal)
 
-    if d_b_bins is None:
-        d_b_bins = _hemisphere_bins(d_b, normal)
     tb_idx, pb_idx, below = d_b_bins
     val_g = _select16(row32[:, GRID_RES:], phi_idx)
     row32_b = cdfs.theta_table[prim * GRID_HALF_RES + tb_idx]
@@ -250,3 +291,139 @@ def sample_grid_mis(cdfs: CDFPack, prim, normal, xi1, xi2, jt, jp, d_b,
     pdf_gg = _cell_pdf_math(val_g, total, theta_idx)
     pdf_bg = torch.where(below, 0.0, _cell_pdf_math(val_b, total, tb_idx))
     return d_g, pdf_gg, pdf_bg, g_valid
+
+
+# --- the fused kernel (csrc/guide_sample.cu) --------------------------------
+
+KERNEL_SOURCE = "guide_sample.cu"      # csrc/ file
+
+
+def _count(path: str) -> None:
+    trace_scope.count("guide_sampler", key=path)
+
+
+def _on_card(device) -> bool:
+    """Whether sampling on `device` runs as the kernel: on any device but
+    the CPU."""
+    return torch.device(device).type != "cpu"
+
+
+def _sample_fused(cdfs, prim, normal, draws, row16, d_b_bins=None):
+    """The sampler as one kernel launch: (d, pdf_g, pdf_b, g_valid), the
+    last two None without `d_b_bins` (`sample_grid`). Inputs are passed as
+    they are, views included; a form the kernel cannot read raises. Then
+    one more launch of the sampler's counter (`.launches`, through
+    `trace_scope.launched`) and, while recording, one more
+    `guide_sampler["fused"]`; 0 lanes launch nothing."""
+    b = prim.shape[0]
+    dev = prim.device
+    mis = d_b_bins is not None
+    bins = tuple(d_b_bins) if mis else ()
+    floats = (row16, cdfs.theta_table, normal, *draws)
+    if any(x.device != dev for x in (*floats, *bins)):
+        raise ValueError("the sampler's tensors must be on one device")
+    if any(x.dtype != torch.float32 for x in floats):
+        raise ValueError("the sampler reads float32 rows, tables, normals "
+                         "and draws")
+    if any(x.dtype not in (torch.int32, torch.int64)
+           for x in (prim, *bins[:2])) or \
+            (mis and bins[2].dtype != torch.bool):
+        raise ValueError("the sampler reads int32 or int64 indices and a "
+                         "bool horizon mask")
+    table = cdfs.theta_table
+    if table.ndim != 2 or table.shape[1] != 2 * GRID_RES \
+            or not table.is_contiguous():
+        raise ValueError("theta_table must be a contiguous (N * 8, 32) "
+                         "table")
+    if row16.shape != (b, 2 * GRID_HALF_RES) or normal.shape != (b, 3) \
+            or any(x.shape != (b,) for x in (prim, *draws, *bins)):
+        raise ValueError("the sampler takes (B, 16) rows, (B, 3) normals "
+                         "and (B,) indices and draws")
+    d = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    pdf_g = torch.empty((b,), dtype=torch.float32, device=dev)
+    pdf_b = torch.empty_like(pdf_g) if mis else None
+    g_valid = torch.empty((b,), dtype=torch.bool, device=dev) if mis \
+        else None
+    if b:
+        _run(row16, prim, table, normal, draws, bins, d, pdf_g, pdf_b,
+             g_valid)
+        trace_scope.launched(sample_grid_mis if mis else sample_grid)
+        _count("fused")
+    return d, pdf_g, pdf_b, g_valid
+
+
+def zero_launch_counts() -> None:
+    """Set the kernel's launch counters to 0."""
+    sample_grid.launches = 0
+    sample_grid_mis.launches = 0
+
+
+zero_launch_counts()
+
+
+class _Args(ctypes.Structure):
+    """csrc/guide_sample.cu's GuideArgs."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("row", "prim", "table",
+                                               "normal")),
+        ("u", ctypes.c_void_p * 4),
+        *((name, ctypes.c_void_p) for name in (
+            "tb", "pb", "below", "dir", "pdf_g", "pdf_b", "valid")),
+        *((name, ctypes.c_longlong) for name in (
+            "row_s0", "row_s1", "prim_s", "n_s0", "n_s1")),
+        ("u_s", ctypes.c_longlong * 4),
+        *((name, ctypes.c_longlong) for name in (
+            "tb_s", "pb_s", "below_s", "lanes")),
+        *((name, ctypes.c_int) for name in ("mis", "prim64", "tb64",
+                                            "pb64")),
+    ]
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library of csrc/guide_sample.cu, C signature
+    declared."""
+    from ..utils.cuda_build import load
+
+    lib = load(KERNEL_SOURCE)
+    lib.tpt_guide_sample.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.tpt_guide_sample.restype = ctypes.c_int
+    lib.tpt_guide_error_string.argtypes = [ctypes.c_int]
+    lib.tpt_guide_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _run(row16, prim, table, normal, draws, bins, d, pdf_g, pdf_b, g_valid):
+    """The kernel's launch on d's CUDA device and current stream: every
+    input by its data pointer and element strides (`bins` = (tb, pb,
+    below) or () for `sample_grid`), the outputs contiguous."""
+    dev = d.device
+    if dev.type != "cuda":
+        raise ValueError(f"the guided sampler kernel runs on a CUDA device, "
+                         f"not {dev}")
+    a = _Args(row=row16.data_ptr(), prim=prim.data_ptr(),
+              table=table.data_ptr(), normal=normal.data_ptr(),
+              dir=d.data_ptr(), pdf_g=pdf_g.data_ptr(),
+              row_s0=row16.stride(0), row_s1=row16.stride(1),
+              prim_s=prim.stride(0), n_s0=normal.stride(0),
+              n_s1=normal.stride(1), lanes=prim.shape[0],
+              prim64=prim.dtype == torch.int64)
+    a.u = (ctypes.c_void_p * 4)(*(u.data_ptr() for u in draws))
+    a.u_s = (ctypes.c_longlong * 4)(*(u.stride(0) for u in draws))
+    if bins:
+        tb, pb, below = bins
+        a.mis, a.tb64, a.pb64 = 1, tb.dtype == torch.int64, \
+            pb.dtype == torch.int64
+        a.tb, a.pb, a.below = tb.data_ptr(), pb.data_ptr(), below.data_ptr()
+        a.tb_s, a.pb_s, a.below_s = tb.stride(0), pb.stride(0), \
+            below.stride(0)
+        a.pdf_b, a.valid = pdf_b.data_ptr(), g_valid.data_ptr()
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.tpt_guide_sample(
+            ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"guided sampler kernel launch failed: "
+                           f"{lib.tpt_guide_error_string(err).decode()} "
+                           f"({err})")

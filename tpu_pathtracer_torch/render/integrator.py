@@ -85,6 +85,7 @@ from ..ops.guiding import (
     CDFPack,
     cos_theta_edges,
     grid_pdf,
+    guide_rows,
     sample_grid,
     sample_grid_mis,
 )
@@ -127,8 +128,7 @@ def _sample_pure_grid(cdfs: CDFPack, prim, sn, draws, row16=None):
     clamp (integrator.h:244-257). Returns (dir, weight, grid valid, grid
     pdf of dir); `row16` may come from K2 (Hit.guide)."""
     if row16 is None:
-        with scope("guide_row"):
-            row16 = cdfs.prim_table[prim]
+        row16 = guide_rows(cdfs, prim)
     d, pdf = sample_grid(cdfs, prim, sn, draws[:, 0], draws[:, 1],
                          draws[:, 2], draws[:, 3], row16=row16)
     w = dot(d, sn).clamp(min=0.0) / (PI * pdf.clamp(min=1e-6))
@@ -319,8 +319,7 @@ def _shade(hit: Hit, d, beta, live, draws, do_rr, mode=SAMPLING_BSDF,
             # (MIS), cosine where the lane's grid is invalid
             row = hit.guide
             if row is None:
-                with scope("guide_row"):
-                    row = cdfs.prim_table[hit.prim]
+                row = guide_rows(cdfs, hit.prim)
             g_valid_ld = row[:, 9] > 0.0
 
             def fwd_pdf(ld, cos_x):

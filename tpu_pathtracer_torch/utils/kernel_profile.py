@@ -359,9 +359,11 @@ def kernel_profile_traced(step_fn, *args, device=None, log_dir=None) -> dict:
     Returns {"seconds": {phase: s}, "percent": {...}, "ops": count,
     "device_total": s, "top_ops": [{name, ms, count, calls_ms,
     long_name}, ...], "host_syncs": {site: n}, "rng_calls": {path: n},
-    "lane_occupancy": %, "wavefront_graph": {outcome: n}} (long_name: the
-    enclosing scopes; host_syncs: the traced step's waits for the device
-    by call site; rng_calls: its tensor draws by path, "fused" or "eager";
+    "guide_sampler": {path: n}, "lane_occupancy": %, "wavefront_graph":
+    {outcome: n}} (long_name: the enclosing scopes; host_syncs: the traced
+    step's waits for the device by call site; rng_calls: its tensor draws
+    by path, "fused" or "eager"; guide_sampler: its guided sampler calls
+    by path, "fused" or "eager";
     lane_occupancy: its live wavefront lane-iterations over lanes x
     iterations run, None without any; wavefront_graph: its wavefront
     iterations by how they ran, "replay", "capture" or "eager")."""
@@ -371,6 +373,7 @@ def kernel_profile_traced(step_fn, *args, device=None, log_dir=None) -> dict:
     slots = c.get("lane_slots", 0)
     prof["host_syncs"] = c.get("host_syncs", {})
     prof["rng_calls"] = c.get("rng_calls", {})
+    prof["guide_sampler"] = c.get("guide_sampler", {})
     prof["lane_occupancy"] = (100.0 * c.get("lanes_live", 0) / slots
                               if slots else None)
     prof["wavefront_graph"] = c.get("wavefront_graph", {})

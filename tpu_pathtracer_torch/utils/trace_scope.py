@@ -12,7 +12,9 @@ the device (`sync(site)`, counted in `host_syncs` by site), and the
 wavefront's lane counters `lane_slots` (lanes x iterations run, host
 arithmetic) and `lanes_live` (live lane-iterations, from the
 integrator's device tally). `core/rng.py` counts its tensor draws in
-`rng_calls` by path, `fused` (the CUDA kernel) or `eager`. The radiosity
+`rng_calls` by path, `fused` (the CUDA kernel) or `eager`, and
+`ops/guiding.py` its sampler calls in `guide_sampler` the same way. The
+radiosity
 solves add the spans `shoot_select`, `visibility` and `transport` and the
 counters `shooting_steps` and `segments` (by any-hit route: `culled`,
 `allpairs`, `brute`); the culled segment route the
@@ -231,7 +233,8 @@ def spans() -> list:
 
 def counters() -> dict:
     """The last recording's counters: `host_syncs` {site: n}, `rng_calls`
-    {path: n}, the lane counters and any other `count`/`tally` name."""
+    and `guide_sampler` {path: n}, the lane counters and any other
+    `count`/`tally` name."""
     for name, value in _tallies:
         _counts[name] = _counts.get(name, 0) + int(value.item())
     _tallies.clear()

@@ -21,7 +21,8 @@ Endpoints:
   GET /profiler/reset | /profiler/enable?on=0|1
   GET /profiler/kernel  phase split of one live render pass, traced by
         utils.kernel_profile.kernel_profile_traced, with the pass's host
-        syncs by site, RNG draws by path, lane occupancy and wavefront
+        syncs by site, RNG draws and guided sampler calls by path
+        (kernel or eager), lane occupancy and wavefront
         iterations by how they ran (graph replay, capture, eager) (JSON)
   GET /scenes      loadable scenes: builtins + scenes/*.obj|*.pbrt
   GET /orbit?yaw=5&pitch=0&zoom=0
@@ -303,6 +304,8 @@ function kprof(){
       +' | host syncs '+Object.values(p.host_syncs).reduce((a,b)=>a+b,0)
       +' | rng calls fused '+(p.rng_calls.fused||0)+' eager '
         +(p.rng_calls.eager||0)
+      +' | guided sampler fused '+(p.guide_sampler.fused||0)+' eager '
+        +(p.guide_sampler.eager||0)
       +(p.lane_occupancy==null?'':' | lanes live '
         +p.lane_occupancy.toFixed(1)+'%')
       +' | iterations replayed '+(p.wavefront_graph.replay||0)+' captured '
