@@ -2,12 +2,19 @@
 plain reference (portbench/reference/), which works out everything from
 the configuration, the traffic and the seed itself.
 
-Render units: the film at pixels drawn from the seed, after the passes
+Render units: the film at `pixels` drawn from the seed, after the passes
 the harness counted (the warm-up's and the window's), and in "frame"
-units the 8-bit image the last frame copied out. Solve units: the
-radiosity and the directional radiosity grid of the window's last solve
-and of one drawn from the seed, each against the reference at its own
-key (the k-th solve of a run is keyed by the seed plus k). A solve's
+units the 8-bit image the last frame copied out. Where the traffic's
+check sets `final_pixels` Q and the window reached the check's `passes`
+F (those the control and the limits were read at), the film the harness
+copied at F passes at `pixels` drawn from
+the seed, and the final film at Q pixels drawn from the seed: the
+reference's work is pixels x F + Q x passes, whatever the window's
+length; each number reads worst over the two. Solve units: the
+radiosity and the directional radiosity grid of one solve drawn from
+the seed and (unless the check's `solves` is 1) of the window's last,
+each against the reference at its own key (the k-th solve of a run is
+keyed by the seed plus k). A solve's
 reference, in both, is the one of the solver that the App runs: gather
 or shooting, "auto" resolved by the reference scene's primitive count as
 App.run_solver resolves it (`reference.SOLVERS`). The harness
@@ -42,24 +49,41 @@ def sample_pixels(seed: int, npix: int, count: int) -> np.ndarray:
     return np.sort(rs.choice(npix, size=min(count, npix), replace=False))
 
 
-def reference_film(cfg, pixels: np.ndarray, passes: int, device,
-                   control: str | None = None) -> torch.Tensor:
-    """The reference's film (P, 3) at `pixels` after `passes` passes.
-    control "bf16" (intersection inputs) or "tf32" (the solve's
-    products) gives the reference in the next precision below."""
+def film_views(traffic: dict, seed: int, npix: int, passes: int) -> list:
+    """[(film, pixel ids, passes)]: the films the check compares, "accum"
+    (the final film) and, where the check sets `final_pixels` and the
+    window reached the check's `passes`, "held" (the copy at that many
+    passes)."""
+    chk = traffic["check"]
+    full = sample_pixels(seed, npix, chk["pixels"])
+    final = chk.get("final_pixels")
+    if not final or passes < chk["passes"]:
+        return [("accum", full, passes)]
+    return [("held", full, chk["passes"]),
+            ("accum", sample_pixels(seed, npix, final), passes)]
+
+
+def reference_films(cfg, views: list, device,
+                    control: str | None = None) -> list:
+    """The reference's films (P, 3), one for each (pixel ids, passes) of
+    `views`, over one scene and one guided solve. control "bf16"
+    (intersection inputs) or "tf32" (the solve's products) gives the
+    reference in the next precision below."""
     scene, cam = ref_scene.load(cfg.scene, cfg.subdivision, device)
     cdfs = None
     if cfg.sampling_mode == "mis":
         sol = solve_scene(scene, cfg, cfg.seed, control)
         cdfs = ref_solve.build_cdfs(sol["rad_grid"])
+        del sol
     settings = dict(width=cfg.width, height=cfg.height,
                     spp_per_pass=cfg.spp_per_pass, max_depth=cfg.max_depth,
                     sampling_mode=cfg.sampling_mode,
                     mis_bsdf_fraction=cfg.mis_bsdf_fraction)
-    pix = torch.from_numpy(pixels).to(device)
-    return ref_render.render_pixels(
-        scene, cam, settings, cfg.seed, passes, pix, cdfs,
+    return [ref_render.render_pixels(
+        scene, cam, settings, cfg.seed, passes,
+        torch.from_numpy(pixels).to(device), cdfs,
         control="bf16" if control == "bf16" else None)
+        for pixels, passes in views]
 
 
 def solve_scene(scene, cfg, seed: int, control: str | None = None) -> dict:
@@ -124,15 +148,20 @@ def numbers(unit: str, cfg, traffic: dict, seed: int, passes: int,
             for name, v in solve_numbers(got, ref).items():
                 out[name] = max(out.get(name, 0.0), v)
         return out
-    pixels = sample_pixels(seed, cfg.width * cfg.height,
-                           traffic["check"]["pixels"])
-    ref = reference_film(cfg, pixels, passes, device)
+    views = film_views(traffic, seed, cfg.width * cfg.height, passes)
+    at = [(pixels, n) for _, pixels, n in views]
+    refs = reference_films(cfg, at, device)
     if control is None:
-        film = outputs["accum"][torch.from_numpy(pixels)]
+        films = [outputs[name][torch.from_numpy(pixels)]
+                 for name, pixels, _ in views]
     else:
-        film = reference_film(cfg, pixels, passes, device, control)
-    out = film_numbers(film, ref)
+        films = reference_films(cfg, at, device, control)
+    out = {}
+    for film, ref in zip(films, refs):
+        for name, v in film_numbers(film, ref).items():
+            out[name] = max(out.get(name, 0.0), v)
     if unit == "frame":
+        pixels, film, ref = views[-1][1], films[-1], refs[-1]
         if control is None:
             image = outputs["image"]
         else:

@@ -215,6 +215,13 @@ class Driver:
                                else int(r.attr_pack.shape[0])))
 
 
+def same_solve(radiosity: torch.Tensor, prev: torch.Tensor) -> bool:
+    """Whether a solve repeats the one before it: radiosity equal bit for
+    bit (at 65,536 primitives two different solves' float32 sums can
+    agree)."""
+    return bool(torch.equal(radiosity, prev))
+
+
 def _stages(app) -> dict:
     return {name: st.total for name, st in app.profiler.stages.items()}
 
@@ -268,21 +275,29 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
     log(f"setup_s {setup_s!r} stages {json.dumps(_stages(drv.app))}")
 
     # ---- the window: whole units until `seconds` have passed ----
-    # solves: each one's fingerprint, the warm-up's first (a repeat is a
-    # solve not done), and one drawn uniformly from the seed (a reservoir
-    # of one) for the check
+    # solves: a repeat (a solve not done) is one whose radiosity equals
+    # the previous solve's (the warm-up's first) bit for bit; one drawn
+    # uniformly from the seed (a reservoir of one) for the check. Passes:
+    # where the check sets `final_pixels`, one copy of the film once it
+    # holds the check's `passes` F (the warm-up's the first)
+    chk = traffic["check"]
+    held_at = chk["passes"] if chk.get("final_pixels") else None
     pick_rs = np.random.default_rng([int(seed), 0x50B5])
-    prints = [float(out.radiosity.sum())] if unit == "solve" else []
-    times, picked = [], None
+    prev = out.radiosity.clone() if unit == "solve" else None
+    held = drv.r.film.accum.clone() if held_at == 1 else None
+    repeats, times, picked = 0, [], None
     t0 = time.perf_counter()
     while True:
         u0 = time.perf_counter()
         out = drv()
         times.append(time.perf_counter() - u0)
         if unit == "solve":
-            prints.append(float(out.radiosity.sum()))
+            repeats += same_solve(out.radiosity, prev)
+            prev = out.radiosity.clone()
             if pick_rs.random() * len(times) < 1.0:
                 picked = (drv.done - 1, out)
+        elif held_at == 1 + len(times):
+            held = drv.r.film.accum.clone()
         if time.perf_counter() - t0 >= seconds:
             break
     window_s = time.perf_counter() - t0
@@ -291,19 +306,21 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
     # ---- the program's outputs, and the work they must hold by the
     # harness's own count ----
     if unit == "solve":
+        # the check's `solves`: 2 (the drawn and the last) or 1 (drawn)
+        kept = (picked, (drv.done - 1, out))[:chk.get("solves", 2)]
         outputs = {k: dict(radiosity=s.radiosity.cpu(),
-                           rad_grid=s.rad_grid.cpu())
-                   for k, s in (picked, (drv.done - 1, out))}
-        work = dict(solves_repeated=sum(
-            a == b for a, b in zip(prints, prints[1:])))
+                           rad_grid=s.rad_grid.cpu()) for k, s in kept}
+        work = dict(solves_repeated=repeats)
         passes = 0
     else:
         film = drv.r.film
         passes = 1 + units                # the warm-up's and the window's
         outputs = dict(accum=film.accum.reshape(-1, 3).cpu(), image=out)
+        if held is not None:
+            outputs["held"] = held.reshape(-1, 3).cpu()
         work = dict(passes_missing=abs(film.passes - passes),
                     spp_missing=abs(film.spp - passes * cfg.spp_per_pass))
-    del drv, out, picked
+    del drv, out, picked, prev, held
     if device.type == "cuda":
         torch.cuda.empty_cache()
 

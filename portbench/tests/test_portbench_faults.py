@@ -9,6 +9,7 @@ import torch
 from portbench import harness
 from tpu_pathtracer_torch import app as app_mod
 from tpu_pathtracer_torch.ops import intersect_allpairs as ia
+from tpu_pathtracer_torch.ops import intersect_culled as ic
 from tpu_pathtracer_torch.render import film as film_mod
 from tpu_pathtracer_torch.render import radiosity
 from tpu_pathtracer_torch.render import renderer as renderer_mod
@@ -22,6 +23,9 @@ def _state_unchanged(mp, unit):
         orig = radiosity.solve_radiosity
         mp.setattr("tpu_pathtracer_torch.app.solve_radiosity",
                    lambda *a, **k: orig(*a, **{**k, "num_iterations": 0}))
+        shoot = radiosity.solve_radiosity_shooting
+        mp.setattr("tpu_pathtracer_torch.app.solve_radiosity_shooting",
+                   lambda *a, **k: shoot(*a, **{**k, "steps": 0}))
     else:
         def add_pass(self, radiance, spp):
             self.spp += spp
@@ -54,16 +58,19 @@ def _half_batch(mp, unit):
 
 
 def _answer_altered(mp, unit):
-    """Each intersection answer altered where it is produced: the hit
-    distance of every closest hit and the verdict of every 64th segment."""
+    """Each intersection answer altered where it is produced, on the
+    all-pairs and the culled routes: the hit distance of every closest hit
+    and the verdict of every 64th segment."""
     if unit == "solve":
-        orig = ia.occluded_plain
-
-        def occl(*a):
-            out = orig(*a).clone()
-            out[::64] = ~out[::64]
-            return out
-        mp.setattr(ia, "occluded_plain", occl)
+        def flip(orig):
+            def occl(*a):
+                out = orig(*a).clone()
+                out[::64] = ~out[::64]
+                return out
+            return occl
+        mp.setattr(ia, "occluded_plain", flip(ia.occluded_plain))
+        mp.setattr(ic, "occluded_grouped_plain",
+                   flip(ic.occluded_grouped_plain))
     else:
         orig = ia.closest_record_plain
 
@@ -71,6 +78,12 @@ def _answer_altered(mp, unit):
             t, idx, attrs = orig(*a, **k)
             return t * 1.001, idx, attrs
         mp.setattr(ia, "closest_record_plain", closest)
+        grouped = ic.closest_grouped_plain
+
+        def closest_grouped(*a, **k):
+            t, idx = grouped(*a, **k)
+            return t * 1.001, idx
+        mp.setattr(ic, "closest_grouped_plain", closest_grouped)
 
 
 def _skipping(mp, unit, keep):
@@ -107,7 +120,8 @@ FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
           "answer_altered": _answer_altered,
           "every_other_skipped": _every_other_skipped,
           "memoised": _memoised}
-CELLS = ["cbox_sub3.mis", "cbox_sub3.solve", "cbox_sub3.interactive"]
+CELLS = ["cbox_sub3.mis", "cbox_sub3.solve", "cbox_sub3.interactive",
+         "cbox_sub6.mis", "cbox_sub6.shooting"]
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))

@@ -27,6 +27,14 @@ SMALL = {
                                   backend="pallas"),
     "stress100k.bsdf": dict(width=32, height=32, spp_per_pass=1,
                             backend="culled"),
+    # the sub-2 box on the culled route, shooting 2 steps of 32 shooters
+    "cbox_sub6.mis": dict(width=16, height=16, spp_per_pass=1,
+                          subdivision=2, backend="culled",
+                          radiosity_solver="shooting", shooting_steps=2,
+                          shooters_per_step=32),
+    "cbox_sub6.shooting": dict(subdivision=2, backend="culled",
+                               radiosity_solver="shooting", shooting_steps=2,
+                               shooters_per_step=32),
 }
 SEED = 2**31 + 12345          # larger than 32 signed bits hold
 
@@ -72,7 +80,8 @@ def test_bf16_control_fails(cell):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["cbox_sub3.solve", "cbox_sub3.mis"])
+@pytest.mark.parametrize("cell", ["cbox_sub3.solve", "cbox_sub3.mis",
+                                  "cbox_sub6.shooting"])
 def test_tf32_control_fails(cell):
     if not torch.cuda.is_available():
         pytest.skip("TF32 exists only on the card")
